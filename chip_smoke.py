@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; none is caught and passed over):
+ 1. header: the card's name and power limit, torch and CUDA versions;
+ 2. build: the CUDA kernels from csrc/, one nvcc per source in parallel;
+ 3. kernel check at the flagship training batch (164 502 points of the
+    dual spheroidal grid, artifacts/flagship_separable.npz weights), in
+    float64 and float32: K1-fwd against the plain forward, K1-bwd against
+    autograd of the plain forward under seeded random cotangents, and two
+    K1-bwd launches equal bit for bit;
+ 4. scoring: the flagship's E_int through K1-fwd at R = 0.2, 1, 2, 4 within
+    [-1e-4, 0.01] mHa of the exact oracle;
+ 5. training: the port's polish_spheroidal at the flagship recipe's sizes
+    (n_r 39, 40 x 24 dual grid + validation grid, float64) from the seeded
+    GZ init, a few dozen Adam then L-BFGS steps; the loss must be finite and
+    lower, and both kernels must have launched during this run;
+ 6. times: CUDA-event times of the kernels and their plain versions at the
+    flagship batch, beside the bound;
+ 7. profile: torch.profiler over ten loss-and-gradient evaluations at the
+    flagship batch (device busy share, device time by kernel).
+
+Then one JSON line ``{"kernels": [...]}``, the card line, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
+from a directory that does not hold the package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PKG = "pinn_for_quantum_wavefunction_surfaces_tpu_torch"
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): 67
+# TFLOP/s FP64 (tensor-core rate; 34 outside the tensor cores) and 67 TFLOP/s
+# FP32 outside the tensor cores; 3.35 TB/s of HBM3. The larger rates give
+# the least time, so the bound below is a true lower bound.
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+# dual-grid training batch of the flagship recipe (make flagship)
+N_R, N_XI, N_ETA = 39, 40, 24
+ADAM_STEPS, LBFGS_STEPS = 40, 30
+
+
+def fwd_ops(h: int) -> int:
+    """Floating-point operations of K1-fwd per point (each transcendental
+    counted once; csrc/separable_fwd.cu): two MLPs of 6 H^2 + 29 H + 1
+    plus geometry, GZ and the bounded correction."""
+    return 12 * h * h + 58 * h + 117
+
+
+def bwd_ops(h: int) -> int:
+    """K1-bwd per point, counting only what the VJP needs: the forward
+    (fwd_ops), the adjoint of the bounded correction, product rule and GZ
+    pair (117), and per MLP the adjoint of its layers (6 H^2 + 54 H: the
+    input cotangents of the second layer are 3 H^2 multiply-adds) and the
+    weight-gradient sums (6 H^2 + 6 H + 1: dW2 is 3 H^2 multiply-adds).
+    The kernel evaluates each MLP's first two layers a second time in the
+    backward (csrc/separable_bwd.cu, mlp_stage); that work is not needed
+    and is not counted."""
+    return fwd_ops(h) + 24 * h * h + 120 * h + 119
+
+
+def bound_ms(n: int, h: int, dtype: str, which: str):
+    """(least time in ms, "bytes" or "operations") of one call: each input
+    read once and each output written once at the memory rate, against the
+    operations at the peak rate of their type."""
+    size = 8 if dtype == "float64" else 4
+    wsize = 2 * (h * h + 5 * h + 1)
+    if which == "fwd":
+        nbytes = size * (8 * n + wsize)            # x y z r a b -> psi lap
+        ops = n * fwd_ops(h)
+    else:
+        nbytes = size * (10 * n + 2 * wsize)       # + dpsi dlap -> da db, dW
+        ops = n * bwd_ops(h)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = ops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase(name: str):
+    print(f"== {name}", flush=True)
+
+
+# cycles per second assumed for the spin kernel: above the H100's 1.98 GHz
+# boost clock, so a spin lasts at least as long as it is asked to
+SPIN_HZ = 2e9
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time per call: CUDA events around ``reps`` back-to-back calls.
+    A spin kernel holds the stream while the host enqueues them (twice the
+    host time the warm-up calls took), so the events time the device's work
+    and not the host's launch rate: one call of a wrapper costs more host
+    time than the forward kernel takes. The calls must fit the device's
+    queue of pending launches (about a thousand), or the host blocks until
+    the spin ends: the plain versions launch a hundred or more small kernels
+    a call, so they are timed over two calls."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spun = torch.cuda.Event()
+    torch.cuda._sleep(int(SPIN_HZ * max(2.0 * host_s * reps, 0.01)))
+    spun.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if spun.query():
+        print("  note: the spin ended before the host had enqueued every "
+              "call; the time below includes launch gaps")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_close(name, got, want, rtol, atol):
+    """Elementwise |got - want| <= atol + rtol |want|; returns (max abs,
+    max rel) errors."""
+    import torch
+    diff = (got - want).abs()
+    bad = diff > atol + rtol * want.abs()
+    rel = float((diff / want.abs().clamp_min(1e-300)).max())
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements off (max abs "
+            f"{float(diff.max()):.3e}, rtol {rtol}, atol {atol})")
+    return float(diff.max()), rel
+
+
+def check_normwise(name, got, want, tol):
+    """max |got - want| <= tol * max |want| (sums over many points: the
+    order of summation differs, so the error is judged against the scale
+    of the whole tensor)."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: normwise error {err / scale:.3e} > "
+                             f"{tol}")
+    return err, err / scale if scale else 0.0
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to run",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        __import__(PKG)
+    except ImportError as exc:
+        print(f"chip_smoke: the port ({PKG}) is not beside this script: "
+              f"{exc}", file=sys.stderr)
+        return 1
+    import numpy as np
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        _build
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        variational
+
+    t_start = time.time()
+    dev = torch.device("cuda")
+    # full float32 in the plain matmuls (the yardstick of the f32 check)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase("1 header")
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}", flush=True)
+
+    phase("2 build")
+    t0 = time.time()
+    _build.build()
+    print(f"built {', '.join(_build.KERNELS)} in {time.time() - t0:.1f} s")
+    for name in _build.KERNELS:
+        for line in _build.log_path(name).read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    sys.stdout.flush()
+
+    phase("3 kernel check (flagship training batch)")
+    art, _ = checkpoint.load_params(
+        os.path.join(HERE, "artifacts", "flagship_separable.npz"))
+    art = art.get("params", art)
+    cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                        dtype="float64")
+    mcfg = cfg.model
+    hidden = art["lam1"]["w"].shape[1]
+    vb = variational.dual_grid_vbatch(cfg, N_R, N_XI, N_ETA, device=dev)
+    n_train = vb.x.numel()
+    kw = dict(p_sym=mcfg.inversion_symmetry, ry=mcfg.ry, rz=mcfg.rz)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs, inputs = {}, {}
+    for dt_name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        params = ansatz.from_jax_params(art, dtype=dt, device=dev)
+        rr = vb.r[:, None].expand_as(vb.x).reshape(-1).to(dt)
+        pts = [t.reshape(-1).to(dt).contiguous() for t in (vb.x, vb.y, vb.z)]
+        with torch.no_grad():
+            a = ansatz.orbital_exponent(params, rr)
+            b = ansatz.gz_exponent(params, rr, mcfg.inversion_symmetry, a)
+        ws = ks.kernel_weights(params, dt)
+        args = (a, b, *pts, rr)
+        inputs[dt_name] = (ws, args)
+        psi_k, lap_k = ks.separable_fwd_cuda(ws, *args, **kw)
+        with torch.no_grad():
+            psi_p, lap_p = ks.psi_lap_separable_plain(ws, *args, **kw)
+        torch.cuda.synchronize()
+        if dt == torch.float64:
+            # the JAX package's own Pallas-vs-XLA tolerances
+            tol_psi, tol_lap = (1e-12, 1e-14), (1e-10, 1e-12)
+            tol_bwd = 1e-9
+        else:
+            # float32: unit roundoff 6e-8; psi passes ~2H + 10 roundings
+            # and exp of O(3) arguments; lap cancels terms up to ~2a/r1
+            # (~1e3 |lap| near the nuclei), so it gets an absolute floor at
+            # its own scale; gradients sum 164k points in another order
+            tol_psi = (1e-5, 1e-7 * float(psi_p.abs().max()))
+            tol_lap = (1e-4, 1e-5 * float(lap_p.abs().max()))
+            tol_bwd = 1e-4
+        e_psi = check_close(f"K1-fwd psi {dt_name}", psi_k, psi_p, *tol_psi)
+        e_lap = check_close(f"K1-fwd lap {dt_name}", lap_k, lap_p, *tol_lap)
+        print(f"K1-fwd {dt_name}: psi max abs {e_psi[0]:.3e} rel "
+              f"{e_psi[1]:.3e} | lap max abs {e_lap[0]:.3e} rel "
+              f"{e_lap[1]:.3e}")
+        # backward against autograd of the plain forward
+        dpsi = torch.randn(n_train, generator=gen, device=dev, dtype=dt)
+        dlap = torch.randn(n_train, generator=gen, device=dev, dtype=dt)
+        ws_g = [w.clone().requires_grad_(True) for w in ws]
+        a_g, b_g = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        pp, ll = ks.psi_lap_separable_plain(ws_g, a_g, b_g, *pts, rr, **kw)
+        ref = torch.autograd.grad((pp * dpsi).sum() + (ll * dlap).sum(),
+                                  ws_g + [a_g, b_g])
+        dws, da, db = ks.separable_bwd_cuda(ws, *args, dpsi, dlap, **kw)
+        dws2, da2, db2 = ks.separable_bwd_cuda(ws, *args, dpsi, dlap, **kw)
+        torch.cuda.synchronize()
+        got = list(dws) + [da, db]
+        names = ["lam1/w", "lam1/b", "lam2/w", "lam2/b", "lamout/w",
+                 "lamout/b", "mu1/w", "mu1/b", "mu2/w", "mu2/b", "muout/w",
+                 "muout/b", "a", "b"]
+        worst = max((check_normwise(f"K1-bwd {nm} {dt_name}", g, r_,
+                                    tol_bwd)
+                     for nm, g, r_ in zip(names, got, ref)),
+                    key=lambda e: e[1])
+        repeat = all(torch.equal(u, v) for u, v in
+                     zip(got, list(dws2) + [da2, db2]))
+        if not repeat:
+            raise AssertionError(f"K1-bwd {dt_name}: two launches differ")
+        print(f"K1-bwd {dt_name}: worst normwise {worst[1]:.3e} (abs "
+              f"{worst[0]:.3e}); two launches bitwise equal")
+        errs[dt_name] = {"fwd_abs": max(e_psi[0], e_lap[0]),
+                         "fwd_rel": max(e_psi[1], e_lap[1]),
+                         "bwd_abs": worst[0], "bwd_rel": worst[1]}
+    sys.stdout.flush()
+
+    phase("4 scoring (flagship E_int through K1-fwd)")
+    params64 = ansatz.from_jax_params(art, dtype="float64", device=dev)
+    r_probe = np.array([0.2, 1.0, 2.0, 4.0])
+    exact = energy.exact_energy_ode(r_probe)
+    for ri, ex in zip(r_probe, exact):
+        e_int = energy.rayleigh_quotient_spheroidal(params64, cfg, float(ri))
+        err_mha = 1e3 * (e_int - ex)
+        print(f"R={ri}: E_int {e_int:.12f} exact {ex:.12f} "
+              f"err {err_mha:+.6f} mHa")
+        if not -1e-4 <= err_mha <= 0.01:
+            raise AssertionError(f"E_int golden missed at R={ri}: "
+                                 f"{err_mha} mHa")
+    sys.stdout.flush()
+
+    phase("5 training (flagship recipe sizes, float64, seeded GZ init)")
+    init = ansatz.init_params(mcfg, seed=cfg.train.seed, dtype="float64",
+                              device=dev)
+    with torch.no_grad():
+        loss0 = float(variational.quotient_loss(init, cfg, vb)[0])
+    marks = {}
+
+    def log_cb(step, metrics):
+        if "E_adam" in metrics and step == ADAM_STEPS:
+            torch.cuda.synchronize()
+            marks["adam_end"] = time.time()
+            marks["adam_counts"] = dict(ks.launches)
+        print(f"  {step:5d} " + " ".join(f"{k}={v:.9e}"
+                                         for k, v in metrics.items()))
+
+    # warm-up outside the counted and timed run: the first optimiser steps
+    # pay one-time host costs (lazy imports and module loading)
+    variational.polish_spheroidal(init, cfg, n_r=2, n_xi=8, n_eta=6,
+                                  steps=2, adam_steps=2, device=dev)
+    ks.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = variational.polish_spheroidal(
+        init, cfg, n_r=N_R, n_xi=N_XI, n_eta=N_ETA, steps=LBFGS_STEPS,
+        adam_steps=ADAM_STEPS, log_cb=log_cb, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    counts = dict(ks.launches)
+    with torch.no_grad():
+        loss1 = float(variational.quotient_loss(out, cfg, vb)[0])
+    print(f"launches during the run: {counts}")
+    print(f"loss {loss0:.9f} -> {loss1:.9f}")
+    if not (np.isfinite(loss1) and loss1 < loss0):
+        raise AssertionError(f"loss did not decrease: {loss0} -> {loss1}")
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched in training")
+    t_adam = marks["adam_end"] - t0
+    t_lbfgs = t1 - marks["adam_end"]
+    lb = {k: (counts[k] - marks["adam_counts"][k]) / LBFGS_STEPS
+          for k in counts}
+    print(f"Adam: {ADAM_STEPS / t_adam:.2f} steps/s, "
+          f"{ADAM_STEPS * n_train / t_adam:.4e} points/s (one fwd+bwd of "
+          f"{n_train} points a step); L-BFGS: {LBFGS_STEPS / t_lbfgs:.2f} "
+          f"steps/s, launches per step {lb} (the validation-grid forward "
+          f"included); whole run {t1 - t0:.2f} s", flush=True)
+
+    phase(f"6 times (CUDA events, {card})")
+    times = {}
+    for dt_name in ("float64", "float32"):
+        ws, args = inputs[dt_name]
+        dpsi = torch.randn(n_train, generator=gen, device=dev,
+                           dtype=args[0].dtype)
+        dlap = torch.randn_like(dpsi)
+        with torch.no_grad():
+            t = {
+                "fwd": cuda_ms(lambda: ks.separable_fwd_cuda(ws, *args, **kw)),
+                "fwd_plain": cuda_ms(
+                    lambda: ks.psi_lap_separable_plain(ws, *args, **kw),
+                    reps=2),
+                "bwd": cuda_ms(lambda: ks.separable_bwd_cuda(
+                    ws, *args, dpsi, dlap, **kw)),
+                "bwd_plain": cuda_ms(lambda: ks.psi_lap_separable_vjp_plain(
+                    ws, *args, dpsi, dlap, **kw), reps=2),
+            }
+        for which in ("fwd", "bwd"):
+            b_ms, b_by = bound_ms(n_train, hidden, dt_name, which)
+            t[which + "_bound"], t[which + "_bound_by"] = b_ms, b_by
+        times[dt_name] = t
+        print(f"{dt_name} n={n_train} H={hidden}: K1-fwd {t['fwd']:.4f} ms "
+              f"(plain {t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} "
+              f"{t['fwd_bound_by']}) | K1-bwd {t['bwd']:.4f} ms (plain "
+              f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} "
+              f"{t['bwd_bound_by']})", flush=True)
+
+    phase("7 profile (quotient_loss forward + backward at the flagship "
+          "batch, float64)")
+    from torch.profiler import ProfilerActivity, profile
+    prof_params = {k: {f: t.detach().clone().requires_grad_(True)
+                       for f, t in v.items()} for k, v in init.items()}
+
+    def train_eval():
+        variational.quotient_loss(prof_params, cfg, vb)[0].backward()
+
+    for _ in range(3):
+        train_eval()
+    torch.cuda.synchronize()
+    reps = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(reps):
+            train_eval()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0) / reps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernel rows only: an operator's row repeats its kernels' device time
+    rows = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3 / reps
+    print(f"one evaluation: {wall_ms:.4f} ms wall (host clock, profiler "
+          f"on), device busy {busy_ms:.4f} ms, idle share "
+          f"{1.0 - busy_ms / wall_ms:.4f}")
+    for e in rows[:12]:
+        if dev_us(e) <= 0:
+            break
+        print(f"  {dev_us(e) / 1e3 / reps:9.4f} ms  {e.count / reps:5.1f}x  "
+              f"{e.key[:90]}")
+    sys.stdout.flush()
+
+    t64 = times["float64"]
+    kernels = []
+    for which, line in (("fwd", 293), ("bwd", 325)):
+        kernels.append({
+            "name": f"separable_{which}",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/separable_{which}.cu",
+            "replaces": ("pinn_for_quantum_wavefunction_surfaces_tpu/ops/"
+                         f"pallas_separable.py:{line}"),
+            "launches": counts[f"separable_{which}"],
+            "max_abs_err": errs["float64"][f"{which}_abs"],
+            "max_rel_err": errs["float64"][f"{which}_rel"],
+            "ms": t64[which],
+            "plain_ms": t64[f"{which}_plain"],
+            "bound_ms": t64[f"{which}_bound"],
+            "bound_by": t64[f"{which}_bound_by"],
+            "library_ms": None,
+        })
+    print(f"smoke run {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""Build the port's CUDA kernels with nvcc at first use and load them.
+
+Each ``csrc/<name>.cu`` is compiled on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds) and loaded
+with ``ctypes``. The library's file name carries a hash of the sources it
+was built from, so an edited source is rebuilt and a stale library is never
+loaded. Libraries go to ``build/kernels/`` at the root of the checkout.
+
+    build(["separable_fwd", "separable_bwd"])   # one nvcc each, in parallel
+    lib = load("separable_fwd")                  # builds if needed
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNELS = ("separable_fwd", "separable_bwd")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a host "
+                       "with the CUDA toolkit")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def log_path(name: str) -> Path:
+    """nvcc's output (ptxas registers, shared memory, spills) of the last
+    build of ``name``."""
+    return BUILD_DIR / f"{name}.log"
+
+
+def build(names=KERNELS) -> list[Path]:
+    """Build every named kernel whose library is missing: one nvcc process
+    per source, all started together. Raises with nvcc's output if one
+    fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        log_path(name).write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return [library_path(n) for n in names]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _loaded:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

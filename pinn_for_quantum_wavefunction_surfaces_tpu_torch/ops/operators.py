@@ -1,0 +1,29 @@
+"""Physics of the two-centre problem: radii, Coulomb potential, H psi.
+
+The PyTorch counterpart of the physics functions of the JAX package's
+``ops/operators.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import ModelConfig
+
+
+def radial(mcfg: ModelConfig, x, y, z, r):
+    """Distances to the two nuclei at (+/-R, +/-ry, +/-rz)."""
+    r1 = torch.sqrt((x - r) ** 2 + (y - mcfg.ry) ** 2 + (z - mcfg.rz) ** 2)
+    r2 = torch.sqrt((x + r) ** 2 + (y + mcfg.ry) ** 2 + (z + mcfg.rz) ** 2)
+    return r1, r2
+
+
+def potential(mcfg: ModelConfig, x, y, z, r):
+    """Two-centre Coulomb attraction V = -1/r1 - 1/r2."""
+    r1, r2 = radial(mcfg, x, y, z, r)
+    return -1.0 / r1 - 1.0 / r2
+
+
+def hamiltonian_values(mcfg: ModelConfig, x, y, z, r, psi_v, lap_v):
+    """H psi = -1/2 lap psi + V psi, given psi and lap psi."""
+    return -0.5 * lap_v + potential(mcfg, x, y, z, r) * psi_v

@@ -1,0 +1,458 @@
+"""Fused (psi, lap psi) training kernel of the separable-spheroidal family.
+
+The PyTorch/CUDA counterpart of the JAX package's ``ops/pallas_separable.py``
+(``make_fused_psi_lap_separable``: ``fwd_kernel`` and ``bwd_kernel``, called
+through ``psi_lap_train_separable``). Per point it computes psi and lap psi of
+
+    psi = Phi_GZ * exp(3 tanh((lam(t) + mu(eta^2)) / 3))
+
+with the two width-H tanh MLPs run on 1-D derivative triples [f, f', f''].
+
+Three implementations of one arithmetic live here:
+- ``psi_lap_separable_plain``: the forward in vectorised tensor ops;
+- ``psi_lap_separable_vjp_plain``: its hand-written adjoint (weights, a, b),
+  step for step as the CUDA backward kernel does it;
+- ``csrc/separable_fwd.cu`` and ``csrc/separable_bwd.cu``: the Hopper
+  kernels (CUDA C++ for sm_90a, built by ``ops/_build.py``).
+
+``SeparableKernel`` (a ``torch.autograd.Function``) dispatches on the device
+of its inputs: CUDA tensors launch the kernels (or the call raises), CPU
+tensors take the plain versions. There is no fallback between the two.
+
+The formulation. Every spatial gradient in the family lies in span{u1, u2}
+(the unit vectors from the two nuclei), so a gradient is kept as its two
+coefficients on (u1, u2) and every dot product reduces to scalars with
+u1.u2 = c12. The gradients of t and eta^2 are orthogonal (u1+u2 is
+orthogonal to u1-u2), so per point the whole forward Laplacian is a handful
+of scalars besides the two MLPs — which is what one CUDA thread carries.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models import ansatz
+from ..models.ansatz import LOG_CORR_CAP
+from . import _build
+
+# launch counts of the two CUDA kernels (plain integers: a run can show that
+# its path went through the kernels). Only the CUDA wrappers add to them.
+launches = {"separable_fwd": 0, "separable_bwd": 0}
+
+SUPPORTED_HIDDEN = (4, 8, 16, 32)
+_MAX_POINTS = 2 ** 31 - 1024   # point index blockIdx.x * blockDim.x + tid
+
+_W_NAMES = (("lam1", "w"), ("lam1", "b"), ("lam2", "w"), ("lam2", "b"),
+            ("lamout", "w"), ("lamout", "b"),
+            ("mu1", "w"), ("mu1", "b"), ("mu2", "w"), ("mu2", "b"),
+            ("muout", "w"), ("muout", "b"))
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def weight_shapes(hidden: int):
+    """Shapes of the 12 kernel weights (one MLP's six, twice)."""
+    return ((2, hidden), (1, hidden), (hidden, hidden), (1, hidden),
+            (hidden, 1), (1, 1)) * 2
+
+
+# ---------------------------------------------------------------------------
+# Plain forward (vectorised; the CPU path and the kernel's yardstick)
+
+
+def _geometry(x, y, z, r, ry, rz):
+    """Radii, inverse radii and c12 = u1.u2 for nuclei at (+-r, +-ry, +-rz)."""
+    d1x, d1y, d1z = x - r, y - ry, z - rz
+    d2x, d2y, d2z = x + r, y + ry, z + rz
+    r1 = torch.sqrt(d1x * d1x + d1y * d1y + d1z * d1z)
+    r2 = torch.sqrt(d2x * d2x + d2y * d2y + d2z * d2z)
+    i1, i2 = 1.0 / r1, 1.0 / r2
+    c12 = (d1x * d2x + d1y * d2y + d1z * d2z) * i1 * i2
+    return r1, r2, i1, i2, c12
+
+
+def _features(r, r1, r2, i1, i2, c12):
+    """The MLP inputs t, eta^2 with the scalars of their spatial stacks.
+
+    t = e^{r - (r1+r2)/2}: grad t = -t (u1+u2)/2, lap t = tl;
+    eta = (r1-r2)/(2r): grad eta^2 = (ev/r)(u1-u2), lap eta^2 = el2.
+    gtt = |grad t|^2, gee = |grad eta^2|^2 (grad t . grad eta^2 == 0)."""
+    t0 = torch.exp(r - 0.5 * (r1 + r2))
+    tl = t0 * (0.5 * (1.0 + c12) - (i1 + i2))
+    gtt = 0.5 * t0 * t0 * (1.0 + c12)
+    inv_r = 1.0 / r
+    ev = (r1 - r2) * (0.5 * inv_r)
+    e0 = ev * ev
+    el2 = 2.0 * ev * (i1 - i2) * inv_r + (1.0 - c12) * inv_r * inv_r
+    gee = 2.0 * e0 * (1.0 - c12) * inv_r * inv_r
+    kt = -0.5 * t0 * (1.0 + c12)       # <g, grad t> = kt (g1 + g2)
+    ke = ev * inv_r * (1.0 - c12)      # <g, grad eta^2> = ke (g1 - g2)
+    return t0, tl, gtt, e0, el2, gee, kt, ke
+
+
+def _gz(a, b, p, r1, r2, i1, i2, c12):
+    """Phi_GZ = fA + P fB' as (value, grad coefficients on (u1, u2), lap)."""
+    fa = torch.exp(-a * r1 - b * r2)
+    fb = p * torch.exp(-a * r2 - b * r1)
+    s = a * a + b * b + 2.0 * a * b * c12
+    sa = s - 2.0 * a * i1 - 2.0 * b * i2
+    sb = s - 2.0 * a * i2 - 2.0 * b * i1
+    phi0 = fa + fb
+    p1 = -(a * fa + b * fb)
+    p2 = -(b * fa + a * fb)
+    phil = fa * sa + fb * sb
+    return fa, fb, sa, sb, phi0, p1, p2, phil
+
+
+def _mlp_fwd(s, cf, w1, b1, w2, b2, ow, ob):
+    """Width-H tanh MLP 2 -> H -> H -> 1 on the triple [f, df/ds, d2f/ds2]
+    of a scalar input s (the other input cf is constant in space).
+    Returns the output triple and the activations the adjoint needs."""
+    w = w1[0]
+    zz = s[:, None] * w + cf[:, None] * w1[1] + b1[0]
+    tt = torch.tanh(zz)
+    g = 1.0 - tt * tt
+    h = -2.0 * tt * g
+    a1 = (tt, g * w, h * w * w)
+    lin = (a1[0] @ w2 + b2[0], a1[1] @ w2, a1[2] @ w2)
+    u = torch.tanh(lin[0])
+    gg = 1.0 - u * u
+    hh = -2.0 * u * gg
+    a2 = (u, gg * lin[1], gg * lin[2] + hh * lin[1] * lin[1])
+    owv = ow[:, 0]
+    out = (a2[0] @ owv + ob[0, 0], a2[1] @ owv, a2[2] @ owv)
+    return out, (a1, lin, a2, tt, g, h, u, gg, hh)
+
+
+def _top(l_tr, m_tr, phi0, phil, p1, p2, feats):
+    """Bounded correction exp(3 tanh((lam+mu)/3)) and the product rule."""
+    t0, tl, gtt, e0, el2, gee, kt, ke = feats
+    c = LOG_CORR_CAP
+    l0, l1, l2 = l_tr
+    m0, m1, m2 = m_tr
+    q0 = l0 + m0
+    qq = l1 * l1 * gtt + m1 * m1 * gee            # |grad(lam+mu)|^2
+    ql = l1 * tl + l2 * gtt + m1 * el2 + m2 * gee  # lap(lam+mu)
+    th = torch.tanh(q0 / c)
+    d1 = 1.0 - th * th
+    d2 = -2.0 * th * d1
+    bl = d1 * ql + d2 * qq / c                     # lap of c tanh(q/c)
+    wv = bl + d1 * d1 * qq                         # lap(corr) / corr
+    gpt = kt * (p1 + p2)                           # <grad phi, grad t>
+    gpe = ke * (p1 - p2)                           # <grad phi, grad eta^2>
+    xv = l1 * gpt + m1 * gpe                       # <grad phi, grad q>
+    e = torch.exp(c * th)
+    kk = phil + phi0 * wv + 2.0 * d1 * xv
+    return phi0 * e, e * kk, (q0, qq, ql, th, d1, d2, bl, wv, gpt, gpe, xv,
+                              e, kk)
+
+
+def psi_lap_separable_plain(weights, a, b, x, y, z, r, *, p_sym: int = 1,
+                            ry: float = 0.0, rz: float = 0.0):
+    """(psi, lap psi) per point, plain tensor ops. weights: the 12 tensors
+    in ``weight_shapes`` order; a, b, x, y, z, r: (n,)."""
+    l_w, m_w = weights[:6], weights[6:]
+    r1, r2, i1, i2, c12 = _geometry(x, y, z, r, ry, rz)
+    feats = _features(r, r1, r2, i1, i2, c12)
+    cf = 0.25 * r
+    l_tr, _ = _mlp_fwd(feats[0], cf, *l_w)
+    m_tr, _ = _mlp_fwd(feats[3], cf, *m_w)
+    _, _, _, _, phi0, p1, p2, phil = _gz(a, b, float(p_sym), r1, r2, i1, i2,
+                                         c12)
+    psi, lap, _ = _top(l_tr, m_tr, phi0, phil, p1, p2, feats)
+    return psi, lap
+
+
+# ---------------------------------------------------------------------------
+# Plain explicit adjoint (the CUDA backward kernel transliterates this)
+
+
+def _mlp_vjp(s, cf, w1, w2, ow, act, dout):
+    """Adjoint of _mlp_fwd w.r.t. its six weights, given the output
+    triple's cotangent dout = (d0, d1, d2), each (n,)."""
+    a1, lin, a2, tt, g, h, u, gg, hh = act
+    owv = ow[:, 0]
+    d0, dd1, dd2 = (c[:, None] for c in dout)
+    dow = (a2[0] * d0 + a2[1] * dd1 + a2[2] * dd2).sum(0)[:, None]
+    dob = dout[0].sum().reshape(1, 1)
+    db0, db1, db2 = d0 * owv, dd1 * owv, dd2 * owv
+    # a2 = (u, gg lin1, gg lin2 + hh lin1^2), gg = 1 - u^2, hh = -2 u gg
+    dlin1 = db1 * gg + db2 * 2.0 * hh * lin[1]
+    dlin2 = db2 * gg
+    dgg = db1 * lin[1] + db2 * lin[2]
+    dhh = db2 * lin[1] * lin[1]
+    du = db0 - 2.0 * gg * dhh
+    dgg = dgg - 2.0 * u * dhh
+    du = du - 2.0 * u * dgg
+    dlin0 = du * gg
+    glin = (dlin0, dlin1, dlin2)
+    dw2 = a1[0].T @ glin[0] + a1[1].T @ glin[1] + a1[2].T @ glin[2]
+    db2_ = glin[0].sum(0)[None, :]
+    da = [gc @ w2.T for gc in glin]
+    # a1 = (tt, g w, h w^2) from the seed triple (z0, w, 0)
+    w = w1[0]
+    dz1 = da[1] * g + da[2] * 2.0 * h * w
+    dg = da[1] * w
+    dh = da[2] * w * w
+    dt = da[0] - 2.0 * g * dh
+    dg = dg - 2.0 * tt * dh
+    dt = dt - 2.0 * tt * dg
+    dz0 = dt * g
+    dw1 = torch.stack([(s[:, None] * dz0 + dz1).sum(0),
+                       (cf[:, None] * dz0).sum(0)])
+    db1 = dz0.sum(0)[None, :]
+    return dw1, db1, dw2, db2_, dow, dob
+
+
+def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
+                                p_sym: int = 1, ry: float = 0.0,
+                                rz: float = 0.0):
+    """Cotangents (12 weight grads, da, db) of psi_lap_separable_plain for
+    output cotangents (dpsi, dlap). The points are constants (the
+    training path stops their gradients), so there is no dx..dr."""
+    l_w, m_w = weights[:6], weights[6:]
+    p = float(p_sym)
+    c = LOG_CORR_CAP
+    r1, r2, i1, i2, c12 = _geometry(x, y, z, r, ry, rz)
+    feats = _features(r, r1, r2, i1, i2, c12)
+    t0, tl, gtt, e0, el2, gee, kt, ke = feats
+    cf = 0.25 * r
+    l_tr, l_act = _mlp_fwd(t0, cf, *l_w)
+    m_tr, m_act = _mlp_fwd(e0, cf, *m_w)
+    fa, fb, sa, sb, phi0, p1, p2, phil = _gz(a, b, p, r1, r2, i1, i2, c12)
+    _, _, st = _top(l_tr, m_tr, phi0, phil, p1, p2, feats)
+    q0, qq, ql, th, d1, d2, bl, wv, gpt, gpe, xv, e, kk = st
+    l1, m1 = l_tr[1], m_tr[1]
+
+    # psi = phi0 e, lap = e kk, kk = phil + phi0 wv + 2 d1 xv
+    de = dpsi * phi0 + dlap * kk
+    dkk = dlap * e
+    dphi0 = dpsi * e + dkk * wv
+    dphil = dkk
+    dwv = dkk * phi0
+    dd1 = dkk * 2.0 * xv
+    dxv = dkk * 2.0 * d1
+    # wv = bl + d1^2 qq
+    dbl = dwv
+    dd1 = dd1 + dwv * 2.0 * d1 * qq
+    dqq = dwv * d1 * d1
+    # bl = d1 ql + d2 qq / c
+    dd1 = dd1 + dbl * ql
+    dql = dbl * d1
+    dd2 = dbl * qq / c
+    dqq = dqq + dbl * d2 / c
+    # e = exp(c th), d2 = -2 th d1, d1 = 1 - th^2, th = tanh(q0 / c)
+    dth = de * e * c
+    dth = dth - 2.0 * d1 * dd2
+    dd1 = dd1 - 2.0 * th * dd2
+    dth = dth - 2.0 * th * dd1
+    dq0 = dth * d1 / c
+    # xv = l1 gpt + m1 gpe;  ql, qq as in _top
+    dl1 = dxv * gpt + dql * tl + dqq * 2.0 * l1 * gtt
+    dm1 = dxv * gpe + dql * el2 + dqq * 2.0 * m1 * gee
+    dl2 = dql * gtt
+    dm2 = dql * gee
+    dgpt = dxv * l1
+    dgpe = dxv * m1
+    # gpt = kt (p1 + p2), gpe = ke (p1 - p2)
+    dp1 = dgpt * kt + dgpe * ke
+    dp2 = dgpt * kt - dgpe * ke
+    # GZ: phi0 = fa + fb, p1 = -(a fa + b fb), p2 = -(b fa + a fb),
+    # phil = fa sa + fb sb
+    dfa = dphi0 - dp1 * a - dp2 * b + dphil * sa
+    dfb = dphi0 - dp1 * b - dp2 * a + dphil * sb
+    s_a = 2.0 * (a + b * c12)
+    s_b = 2.0 * (b + a * c12)
+    da = (-dp1 * fa - dp2 * fb
+          + dphil * (fa * (s_a - 2.0 * i1) + fb * (s_a - 2.0 * i2))
+          - r1 * fa * dfa - r2 * fb * dfb)
+    db = (-dp1 * fb - dp2 * fa
+          + dphil * (fa * (s_b - 2.0 * i2) + fb * (s_b - 2.0 * i1))
+          - r2 * fa * dfa - r1 * fb * dfb)
+
+    dl = _mlp_vjp(t0, cf, l_w[0], l_w[2], l_w[4], l_act, (dq0, dl1, dl2))
+    dm = _mlp_vjp(e0, cf, m_w[0], m_w[2], m_w[4], m_act, (dq0, dm1, dm2))
+    return tuple(dl) + tuple(dm), da, db
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/separable_fwd.cu, csrc/separable_bwd.cu)
+
+
+def _check_inputs(hidden, ws, pts):
+    if hidden not in SUPPORTED_HIDDEN:
+        raise ValueError(f"hidden={hidden}: the CUDA kernels are built for "
+                         f"H in {SUPPORTED_HIDDEN}")
+    ref = pts[0]
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"CUDA kernels take float32/float64, got {ref.dtype}")
+    for t in tuple(pts) + tuple(ws):
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError("all kernel inputs must be CUDA tensors on one "
+                             "device")
+        if t.dtype != ref.dtype:
+            raise TypeError("kernel inputs must share one dtype")
+    for t in pts:
+        if t.shape != ref.shape or t.ndim != 1:
+            raise ValueError("point arrays must all be (n,)")
+    if ref.shape[0] > _MAX_POINTS:
+        raise ValueError(f"{ref.shape[0]} points: the kernels index points "
+                         f"with 32-bit ints, at most {_MAX_POINTS}")
+    for t, shape in zip(ws, weight_shapes(hidden)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"weight shape {tuple(t.shape)} != {shape}")
+
+
+def _suffix(dtype):
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def _raise_on(lib, err: int, what: str):
+    if err:
+        msg = lib.separable_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _pack(ws):
+    return torch.cat([w.reshape(-1) for w in ws]).contiguous()
+
+
+def _lib(name):
+    lib = _build.load(name)
+    if not getattr(lib, "_separable_typed", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{sfx}")
+            n_ptr = 9 if name == "separable_fwd" else 12
+            fn.argtypes = [vp] * n_ptr + [ci, ci, ci, cd, cd, vp]
+            fn.restype = ci
+        lib.separable_error_string.argtypes = [ci]
+        lib.separable_error_string.restype = ctypes.c_char_p
+        if name == "separable_bwd":
+            lib.separable_bwd_points_per_block.argtypes = []
+            lib.separable_bwd_points_per_block.restype = ci
+        lib._separable_typed = True
+    return lib
+
+
+def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
+                       ry: float = 0.0, rz: float = 0.0):
+    """K1 forward on the card: (psi, lap) for CUDA tensors."""
+    hidden = weights[0].shape[1]
+    pts = (x, y, z, r, a, b)
+    _check_inputs(hidden, weights, pts)
+    pts = [t.contiguous() for t in pts]
+    n = pts[0].shape[0]
+    psi = torch.empty_like(pts[0])
+    lap = torch.empty_like(pts[0])
+    lib = _lib("separable_fwd")
+    fn = getattr(lib, "separable_fwd_" + _suffix(pts[0].dtype))
+    wp = _pack(weights)
+    with torch.cuda.device(pts[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*map(_ptr, pts), _ptr(wp), _ptr(psi), _ptr(lap), n, hidden,
+                 int(p_sym), float(ry), float(rz), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "separable_fwd")
+    launches["separable_fwd"] += 1
+    return psi, lap
+
+
+def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
+                       p_sym: int = 1, ry: float = 0.0, rz: float = 0.0):
+    """K1 backward on the card: (12 weight grads, da, db). The kernel
+    writes per-block partial weight gradients in a fixed order (no
+    atomics), summed here over blocks — repeatable bit for bit."""
+    hidden = weights[0].shape[1]
+    pts = (x, y, z, r, a, b)
+    _check_inputs(hidden, weights, pts + (dpsi, dlap))
+    pts = [t.contiguous() for t in pts]
+    dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
+    n = pts[0].shape[0]
+    lib = _lib("separable_bwd")
+    n_blocks = -(-n // lib.separable_bwd_points_per_block())
+    shapes = weight_shapes(hidden)
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    partials = torch.empty((n_blocks, sum(sizes)), dtype=pts[0].dtype,
+                           device=pts[0].device)
+    da = torch.empty_like(pts[0])
+    db = torch.empty_like(pts[0])
+    fn = getattr(lib, "separable_bwd_" + _suffix(pts[0].dtype))
+    wp = _pack(weights)
+    with torch.cuda.device(pts[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*map(_ptr, pts), _ptr(wp), _ptr(dpsi), _ptr(dlap),
+                 _ptr(da), _ptr(db), _ptr(partials), n, hidden, int(p_sym),
+                 float(ry), float(rz), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "separable_bwd")
+    launches["separable_bwd"] += 1
+    dws = tuple(g.reshape(s) for g, s in
+                zip(torch.split(partials.sum(0), sizes), shapes))
+    return dws, da, db
+
+
+# ---------------------------------------------------------------------------
+# autograd.Function and the training entry point
+
+
+class SeparableKernel(torch.autograd.Function):
+    """(psi, lap) = K1(a, b, x, y, z, r; weights) with its hand-written
+    backward. Gradients flow to the 12 weights and to a, b; the points are
+    constants."""
+
+    @staticmethod
+    def forward(ctx, cfg, a, b, x, y, z, r, *weights):
+        p_sym, ry, rz = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(a, b, x, y, z, r, *weights)
+        kw = dict(p_sym=p_sym, ry=ry, rz=rz)
+        if a.is_cuda:
+            return separable_fwd_cuda(weights, a, b, x, y, z, r, **kw)
+        return psi_lap_separable_plain(weights, a, b, x, y, z, r, **kw)
+
+    @staticmethod
+    def backward(ctx, dpsi, dlap):
+        a, b, x, y, z, r, *weights = ctx.saved_tensors
+        p_sym, ry, rz = ctx.cfg
+        kw = dict(p_sym=p_sym, ry=ry, rz=rz)
+        if a.is_cuda:
+            dws, da, db = separable_bwd_cuda(weights, a, b, x, y, z, r,
+                                             dpsi, dlap, **kw)
+        else:
+            dws, da, db = psi_lap_separable_vjp_plain(
+                weights, a, b, x, y, z, r, dpsi, dlap, **kw)
+        return (None, da, db, None, None, None, None) + tuple(dws)
+
+
+def kernel_weights(params: dict, dtype) -> tuple:
+    """The 12 kernel weights from a params tree: cast to the point dtype,
+    biases reshaped to (1, H)."""
+    return tuple(params[k][f].reshape(
+        (1, -1) if f == "b" else params[k][f].shape).to(dtype)
+        for k, f in _W_NAMES)
+
+
+def psi_lap_train_separable(params: dict, mcfg, x, y, z, r):
+    """(psi, lap, E) through the fused separable kernel. The R-only heads
+    (E, alpha, b) run and differentiate in torch autograd; the spatial
+    network runs in the kernel through SeparableKernel, so autograd of any
+    loss composes exactly. The point coordinates are constants."""
+    ansatz.check_supported(params, mcfg)
+    dtype = x.dtype
+    x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
+    e = ansatz.energy(params, r)
+    a = ansatz.orbital_exponent(params, r)
+    b = ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a)
+    cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz))
+    psi, lap = SeparableKernel.apply(cfg, a.to(dtype), b.to(dtype),
+                                     x, y, z, r_pts,
+                                     *kernel_weights(params, dtype))
+    return psi, lap, e
