@@ -5,7 +5,10 @@
 
 Phases (any failure exits non-zero; none is caught and passed over):
  1. header: the card's name and power limit, torch and CUDA versions;
- 2. build: the CUDA kernels from csrc/, one nvcc per source in parallel;
+ 2. build: the four CUDA kernels from csrc/ (K1 and K2, forward and
+    backward), one nvcc per source, all in parallel; ptxas registers and
+    spills of every instantiation;
+ K1, the separable-spheroidal variational trainer (make flagship):
  3. kernel check at the flagship training batch (164 502 points of the
     dual spheroidal grid, artifacts/flagship_separable.npz weights), in
     float64 and float32: K1-fwd against the plain forward, K1-bwd against
@@ -20,7 +23,26 @@ Phases (any failure exits non-zero; none is caught and passed over):
  6. times: CUDA-event times of the kernels and their plain versions at the
     flagship batch, beside the bound;
  7. profile: torch.profiler over ten loss-and-gradient evaluations at the
-    flagship batch (device busy share, device time by kernel).
+    flagship batch (device busy share, device time by kernel);
+ K2, the residual PINN trainer of the symmetric family (make train):
+ 8. kernel check at the make-train batch (100 000 points drawn by the
+    port's sample_batch from a fixed seed; artifacts/flagship.npz, P = +1,
+    and artifacts/ungerade_2psu.npz, P = -1), in float64 and float32: K2-fwd
+    against psi_lap_train_plain, K2-bwd against psi_lap_train_vjp_plain
+    under seeded cotangents, two K2-bwd launches equal bit for bit;
+ 9. golden: flagship.npz's E_int through K2-fwd at R = 0.2, 1, 2, 4
+    (float64) equal to the JAX package's CPU values to 1e-10 and above the
+    exact oracle;
+ 10. training: engine.train at make train's configuration (GZ + alpha, step
+    schedule, float32, 100 000 points, seeded init) for a cut number of
+    steps after a warm-up run, then engine.finetune from its best params;
+    the loss on a fixed batch must be finite and lower, both K2 kernels
+    must have launched in training, and fine-tuning (every K2 input frozen)
+    must launch no K2-bwd; steps/s and points/s;
+ 11. times: CUDA-event times of K2 and its plain versions at 100 000
+    points in both types, beside the bound;
+ 12. profile: torch.profiler over a run of ten training steps and over its
+    setup alone (device busy share, device time by kernel).
 
 Then one JSON line ``{"kernels": [...]}``, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
@@ -29,8 +51,10 @@ from a directory that does not hold the package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +72,16 @@ PEAK_BYTES = 3.35e12
 # dual-grid training batch of the flagship recipe (make flagship)
 N_R, N_XI, N_ETA = 39, 40, 24
 ADAM_STEPS, LBFGS_STEPS = 40, 30
+
+# make train's batch, and the cut depth of phase 10 (of 20 000 epochs)
+N_TRAIN = 100_000
+TRAIN_STEPS, FINETUNE_STEPS, WARMUP_STEPS = 300, 100, 20
+
+# E_int of artifacts/flagship.npz (symmetric, GZ + alpha, P = +1) from the
+# JAX package on the CPU in float64: analysis.energy.
+# rayleigh_quotient_spheroidal on its default 96 x 96 grid, xi_span 20
+JAX_EINT_FLAGSHIP = {0.2: -1.8002549328974087, 1.0: -1.1024339738821405,
+                     2.0: -0.7958491215620099, 4.0: -0.6272660864051361}
 
 
 def fwd_ops(h: int) -> int:
@@ -69,18 +103,46 @@ def bwd_ops(h: int) -> int:
     return fwd_ops(h) + 24 * h * h + 120 * h + 119
 
 
-def bound_ms(n: int, h: int, dtype: str, which: str):
+def train_fwd_ops(h: int) -> int:
+    """Floating-point operations of K2-fwd per point (each transcendental
+    counted once; csrc/train_fwd.cu): per branch the envelope geometry (43),
+    the first layer (29 H) and the second with its output (8 H^2 + 23 H),
+    then the mirror, the combination and the Guillemin-Zener pair (43)."""
+    return 16 * h * h + 104 * h + 129
+
+
+def train_bwd_ops(h: int) -> int:
+    """K2-bwd per point, counting only what the VJP needs: the forward, and
+    per branch the adjoint of the second layer (30 H), its input
+    cotangents (8 H^2), the first-layer adjoint (60 H) and the exponent's
+    cotangent (30), and the weight-gradient sums (8 H^2 + H); then the
+    output-weight and bias sums (4 H + 1), the GZ adjoint and dg (43). The
+    kernel evaluates each first-layer unit a second time in the adjoint;
+    that work is not needed and is not counted."""
+    return train_fwd_ops(h) + 32 * h * h + 186 * h + 104
+
+
+def bound_ms(n: int, h: int, dtype: str, which: str, kernel: str = "K1"):
     """(least time in ms, "bytes" or "operations") of one call: each input
     read once and each output written once at the memory rate, against the
     operations at the peak rate of their type."""
     size = 8 if dtype == "float64" else 4
-    wsize = 2 * (h * h + 5 * h + 1)
-    if which == "fwd":
-        nbytes = size * (8 * n + wsize)            # x y z r a b -> psi lap
-        ops = n * fwd_ops(h)
+    if kernel == "K1":
+        wsize = 2 * (h * h + 5 * h + 1)
+        if which == "fwd":
+            nbytes = size * (8 * n + wsize)        # x y z r a b -> psi lap
+            ops = n * fwd_ops(h)
+        else:
+            nbytes = size * (10 * n + 2 * wsize)   # + dpsi dlap -> da db, dW
+            ops = n * bwd_ops(h)
     else:
-        nbytes = size * (10 * n + 2 * wsize)       # + dpsi dlap -> da db, dW
-        ops = n * bwd_ops(h)
+        wsize = h * h + 5 * h + 1
+        if which == "fwd":
+            nbytes = size * (9 * n + wsize)        # x y z r a b g -> psi lap
+            ops = n * train_fwd_ops(h)
+        else:
+            nbytes = size * (12 * n + 2 * wsize)   # + dpsi dlap -> da db dg, dW
+            ops = n * train_bwd_ops(h)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = ops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
@@ -94,6 +156,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel instantiation of an nvcc -Xptxas -v log: its
+    type and width, registers, and stack and spill bytes."""
+    out, inst, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*_kernelI([df])Li(\d+)E",
+                      line)
+        if m:
+            inst = (("float64" if m.group(1) == "d" else "float32"),
+                    int(m.group(2)))
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and inst:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{inst[0]} H={inst[1]}: {regs} registers; {spill}")
+            inst = None
+    return out
+
+
 def phase(name: str):
     print(f"== {name}", flush=True)
 
@@ -103,7 +185,7 @@ def phase(name: str):
 SPIN_HZ = 2e9
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, label: str = "") -> float:
     """Device time per call: CUDA events around ``reps`` back-to-back calls.
     A spin kernel holds the stream while the host enqueues them (twice the
     host time the warm-up calls took), so the events time the device's work
@@ -111,7 +193,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     time than the forward kernel takes. The calls must fit the device's
     queue of pending launches (about a thousand), or the host blocks until
     the spin ends: the plain versions launch a hundred or more small kernels
-    a call, so they are timed over two calls."""
+    a call, so they are timed over one or two calls."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -129,8 +211,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     if spun.query():
-        print("  note: the spin ended before the host had enqueued every "
-              "call; the time below includes launch gaps")
+        print(f"  note ({label}): the spin ended before the host had "
+              "enqueued every call; the time below includes launch gaps")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -159,6 +241,280 @@ def check_normwise(name, got, want, tol):
         raise AssertionError(f"{name}: normwise error {err / scale:.3e} > "
                              f"{tol}")
     return err, err / scale if scale else 0.0
+
+
+def profile_device(fn, reps: int, label: str):
+    """torch.profiler over ``reps`` calls of ``fn``: prints the wall time
+    per call (host clock, profiler on), the device busy time and idle share,
+    and the device time by kernel; returns (wall_ms, busy_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0) / reps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernel rows only: an operator's row repeats its kernels' device time,
+    # and so does the device span of a user annotation (the optimiser's
+    # step is one)
+    rows = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3 / reps
+    print(f"one {label}: {wall_ms:.4f} ms wall (host clock, profiler on), "
+          f"device busy {busy_ms:.4f} ms, idle share "
+          f"{1.0 - busy_ms / wall_ms:.4f}")
+    for e in rows[:12]:
+        if dev_us(e) <= 0:
+            break
+        print(f"  {dev_us(e) / 1e3 / reps:9.4f} ms  {e.count / reps:6.1f}x  "
+              f"{e.key[:90]}")
+    sys.stdout.flush()
+    return wall_ms, busy_ms
+
+def k2_phases(dev, card: str) -> list[dict]:
+    """Phases 8-12: the residual trainer of the symmetric family and its
+    kernel K2. Returns the K2 entries of the kernels line."""
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        engine, losses
+
+    def artifact(name):
+        tree, _ = checkpoint.load_params(os.path.join(HERE, "artifacts",
+                                                      name))
+        return tree["params"]
+
+    phase(f"8 K2 check (make train batch, {N_TRAIN} points)")
+    # the make train model: symmetric, GZ + alpha, paper widths
+    models = {"flagship": (artifact("flagship.npz"), 1),
+              "ungerade_2psu": (artifact("ungerade_2psu.npz"), -1)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs, inputs = {}, {}
+    names = ["h1/w", "h1/b", "h2/w", "h2/b", "out/w", "out/b", "a", "b", "g"]
+    for label, (tree, p_sym) in models.items():
+        mcfg = config.ModelConfig(inversion_symmetry=p_sym, gz=True,
+                                  trainable_exponent=True)
+        cfg = config.Config(model=mcfg)
+        for dt_name, dt in (("float64", torch.float64),
+                            ("float32", torch.float32)):
+            params = ansatz.from_jax_params(tree, dtype=dt, device=dev)
+            batch = sample_batch(gen, cfg, n=N_TRAIN, dtype=dt, device=dev)
+            with torch.no_grad():
+                a = ansatz.orbital_exponent(params, batch.r)
+                b = ansatz.gz_exponent(params, batch.r, p_sym, a)
+                g = ansatz.gate(params, batch.r)
+            ws = kt.kernel_weights(params, mcfg, dt)
+            args = (a, b, g, batch.x, batch.y, batch.z, batch.r)
+            kw = dict(p_sym=p_sym)
+            psi_k, lap_k = kt.train_fwd_cuda(ws, *args, **kw)
+            with torch.no_grad():
+                psi_p, lap_p = kt.psi_lap_train_plain(ws, *args, **kw)
+            torch.cuda.synchronize()
+            if dt == torch.float64:
+                # the JAX package's Pallas-vs-XLA tolerances
+                # (tests/test_pallas_train.py:66-91)
+                tol_psi, tol_lap, tol_bwd = (1e-12, 1e-14), (1e-11, 1e-12), \
+                    1e-8
+            else:
+                # float32: unit roundoff 6e-8; psi sums the gated network
+                # and the GZ pair (O(1) terms that cancel in the ungerade
+                # sector), so its absolute floor is set by max |psi|; lap
+                # cancels terms up to ~2a/r1 near the nuclei; the weight
+                # gradients sum 100 000 points in another order, and in the
+                # ungerade sector the two branches cancel
+                tol_psi = (1e-4, 4e-6 * float(psi_p.abs().max()))
+                tol_lap = (1e-3, 1e-5 * float(lap_p.abs().max()))
+                tol_bwd = 5e-4
+            e_psi = check_close(f"K2-fwd psi {label} {dt_name}", psi_k,
+                                psi_p, *tol_psi)
+            e_lap = check_close(f"K2-fwd lap {label} {dt_name}", lap_k,
+                                lap_p, *tol_lap)
+            dpsi = torch.randn(N_TRAIN, generator=gen, device=dev, dtype=dt)
+            dlap = torch.randn(N_TRAIN, generator=gen, device=dev, dtype=dt)
+            dws, da, db, dg = kt.train_bwd_cuda(ws, *args, dpsi, dlap, **kw)
+            again = kt.train_bwd_cuda(ws, *args, dpsi, dlap, **kw)
+            with torch.no_grad():
+                want = kt.psi_lap_train_vjp_plain(ws, *args, dpsi, dlap, **kw)
+            torch.cuda.synchronize()
+            got = list(dws) + [da, db, dg]
+            worst = max((check_normwise(f"K2-bwd {nm} {label} {dt_name}",
+                                        u, v, tol_bwd)
+                         for nm, u, v in zip(names, got,
+                                             list(want[0]) + list(want[1:]))),
+                        key=lambda e: e[1])
+            if not all(torch.equal(u, v) for u, v in
+                       zip(got, list(again[0]) + list(again[1:]))):
+                raise AssertionError(f"K2-bwd {label} {dt_name}: two "
+                                     "launches differ")
+            print(f"K2 {label} {dt_name}: fwd psi max abs {e_psi[0]:.3e} "
+                  f"rel {e_psi[1]:.3e} | lap max abs {e_lap[0]:.3e} rel "
+                  f"{e_lap[1]:.3e} | bwd worst normwise {worst[1]:.3e} (abs "
+                  f"{worst[0]:.3e}); two launches bitwise equal")
+            if label == "flagship":
+                inputs[dt_name] = (ws, args, kw)
+                errs[dt_name] = {"fwd": max(e_psi[0], e_lap[0]),
+                                 "bwd": worst[0]}
+    sys.stdout.flush()
+
+    phase("9 golden (flagship.npz E_int through K2-fwd, float64)")
+    cfg64 = config.Config(dtype="float64", model=config.ModelConfig(
+        gz=True, trainable_exponent=True))
+    params64 = ansatz.from_jax_params(models["flagship"][0],
+                                      dtype="float64", device=dev)
+    r_probe = np.array(sorted(JAX_EINT_FLAGSHIP))
+    exact = energy.exact_energy_ode(r_probe)
+    kt.reset_launches()
+    for ri, ex in zip(r_probe, exact):
+        e_int = energy.rayleigh_quotient_spheroidal(params64, cfg64,
+                                                    float(ri))
+        want = JAX_EINT_FLAGSHIP[float(ri)]
+        rel = abs(e_int - want) / abs(want)
+        print(f"R={ri}: E_int {e_int:.15f} JAX {want:.15f} rel {rel:.2e}; "
+              f"exact {ex:.12f}, above by {1e3 * (e_int - ex):.6f} mHa")
+        if not rel <= 1e-10:
+            raise AssertionError(f"K2 golden missed at R={ri}: rel {rel}")
+        if not e_int >= ex:
+            raise AssertionError(f"E_int below the exact level at R={ri}")
+    if kt.launches["train_fwd"] != len(r_probe):
+        raise AssertionError(f"the quotient did not run K2-fwd: "
+                             f"{kt.launches}")
+    sys.stdout.flush()
+
+    phase(f"10 training (make train: GZ + alpha, step schedule, float32, "
+          f"{N_TRAIN} points; {TRAIN_STEPS} steps)")
+    tcfg = config.Config(model=config.ModelConfig(gz=True,
+                                                  trainable_exponent=True))
+    tcfg = tcfg.replace(train=dataclasses.replace(
+        tcfg.train, lr_schedule="step", n_train=N_TRAIN, epochs=TRAIN_STEPS,
+        scan_chunk=100))
+    fixed = sample_batch(torch.Generator(device=dev).manual_seed(1), tcfg,
+                         device=dev)
+
+    def fixed_loss(p):
+        with torch.no_grad():
+            return float(losses.loss_fn(
+                ansatz.as_params(p, torch.float32, dev), tcfg, fixed)[0])
+
+    # warm-up outside the counted and timed run: the first steps pay
+    # one-time host costs (module loading, kernel library loading)
+    engine.train(tcfg.replace(train=dataclasses.replace(
+        tcfg.train, epochs=WARMUP_STEPS, scan_chunk=WARMUP_STEPS)),
+        device=dev)
+    init = ansatz.init_params(tcfg.model, seed=tcfg.train.seed,
+                              dtype=torch.float32, device=dev)
+    kt.reset_launches()
+    torch.cuda.synchronize()
+    res = engine.train(tcfg, device=dev,
+                       log_cb=lambda step, m: print(
+                           f"  {step:5d} " + " ".join(
+                               f"{k}={v:.6e}" for k, v in m.items())))
+    counts = dict(kt.launches)
+    loss0, loss1 = fixed_loss(init), fixed_loss(res.best_params)
+    print(f"launches during training: {counts} ({TRAIN_STEPS} steps)")
+    print(f"loss on a fixed {N_TRAIN}-point batch: {loss0:.6e} -> "
+          f"{loss1:.6e}")
+    if not (np.isfinite(loss1) and loss1 < loss0):
+        raise AssertionError(f"loss did not decrease: {loss0} -> {loss1}")
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched in training")
+    print(f"training: {TRAIN_STEPS / res.runtime_s:.2f} steps/s, "
+          f"{res.points_per_sec:.4e} points/s ({res.runtime_s:.3f} s)")
+    fcfg = config.finetune_config(tcfg)
+    fcfg = fcfg.replace(train=dataclasses.replace(
+        fcfg.train, epochs=FINETUNE_STEPS, scan_chunk=FINETUNE_STEPS))
+    kt.reset_launches()
+    ft = engine.finetune(fcfg, res.best_params, device=dev)
+    ft_counts = dict(kt.launches)
+    print(f"fine-tune: {FINETUNE_STEPS / ft.runtime_s:.2f} steps/s, best "
+          f"loss {ft.best_loss:.6e}, launches {ft_counts}")
+    if ft_counts["train_bwd"] != 0 or ft_counts["train_fwd"] == 0:
+        raise AssertionError(f"fine-tune launches: {ft_counts}")
+    if not np.isfinite(ft.best_loss):
+        raise AssertionError("fine-tune loss is not finite")
+    sys.stdout.flush()
+
+    phase(f"11 K2 times (CUDA events, {card})")
+    times = {}
+    for dt_name in ("float64", "float32"):
+        ws, args, kw = inputs[dt_name]
+        dpsi = torch.randn(N_TRAIN, generator=gen, device=dev,
+                           dtype=args[0].dtype)
+        dlap = torch.randn_like(dpsi)
+        with torch.no_grad():
+            t = {
+                "fwd": cuda_ms(lambda: kt.train_fwd_cuda(ws, *args, **kw),
+                               label="K2-fwd"),
+                "fwd_plain": cuda_ms(
+                    lambda: kt.psi_lap_train_plain(ws, *args, **kw), reps=2,
+                    label="K2-fwd plain"),
+                "bwd": cuda_ms(lambda: kt.train_bwd_cuda(
+                    ws, *args, dpsi, dlap, **kw), label="K2-bwd"),
+                # up to ~800 torch ops a call: only one call fits the queue
+                "bwd_plain": cuda_ms(lambda: kt.psi_lap_train_vjp_plain(
+                    ws, *args, dpsi, dlap, **kw), reps=1,
+                    label="K2-bwd plain"),
+            }
+        for which in ("fwd", "bwd"):
+            b_ms, b_by = bound_ms(N_TRAIN, 16, dt_name, which, "K2")
+            t[which + "_bound"], t[which + "_bound_by"] = b_ms, b_by
+        times[dt_name] = t
+        print(f"{dt_name} n={N_TRAIN} H=16: K2-fwd {t['fwd']:.4f} ms (plain "
+              f"{t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} "
+              f"{t['fwd_bound_by']}) | K2-bwd {t['bwd']:.4f} ms (plain "
+              f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} "
+              f"{t['bwd_bound_by']})", flush=True)
+
+    phase("12 profile (10 training steps at make train's configuration)")
+    pcfg = tcfg.replace(train=dataclasses.replace(tcfg.train, epochs=10,
+                                                  scan_chunk=10))
+    profile_device(lambda: engine.train(pcfg, device=dev), 1,
+                   "run of 10 steps (setup included)")
+    # the setup alone (copy of the init, optimiser, first batch): a run
+    # that starts at its last step trains none
+    profile_device(lambda: engine.train(pcfg, start_step=10, device=dev), 1,
+                   "setup alone")
+
+    t32 = times["float32"]
+    out = []
+    for which, line in (("fwd", 233), ("bwd", 264)):
+        out.append({
+            "name": f"train_{which}",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/train_{which}.cu",
+            "replaces": ("pinn_for_quantum_wavefunction_surfaces_tpu/ops/"
+                         f"pallas_train.py:{line}"),
+            "launches": counts[f"train_{which}"],
+            "dtype": "float32",
+            "max_abs_err": errs["float32"][which],
+            "ms": t32[which],
+            "plain_ms": t32[f"{which}_plain"],
+            "bound_ms": t32[f"{which}_bound"],
+            "bound_by": t32[f"{which}_bound_by"],
+            "library_ms": None,
+        })
+    return out
 
 
 def main() -> int:
@@ -207,9 +563,8 @@ def main() -> int:
     _build.build()
     print(f"built {', '.join(_build.KERNELS)} in {time.time() - t0:.1f} s")
     for name in _build.KERNELS:
-        for line in _build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(_build.log_path(name).read_text()):
+            print(f"  {name} {line}")
     sys.stdout.flush()
 
     phase("3 kernel check (flagship training batch)")
@@ -281,9 +636,7 @@ def main() -> int:
             raise AssertionError(f"K1-bwd {dt_name}: two launches differ")
         print(f"K1-bwd {dt_name}: worst normwise {worst[1]:.3e} (abs "
               f"{worst[0]:.3e}); two launches bitwise equal")
-        errs[dt_name] = {"fwd_abs": max(e_psi[0], e_lap[0]),
-                         "fwd_rel": max(e_psi[1], e_lap[1]),
-                         "bwd_abs": worst[0], "bwd_rel": worst[1]}
+        errs[dt_name] = {"fwd": max(e_psi[0], e_lap[0]), "bwd": worst[0]}
     sys.stdout.flush()
 
     phase("4 scoring (flagship E_int through K1-fwd)")
@@ -377,7 +730,6 @@ def main() -> int:
 
     phase("7 profile (quotient_loss forward + backward at the flagship "
           "batch, float64)")
-    from torch.profiler import ProfilerActivity, profile
     prof_params = {k: {f: t.detach().clone().requires_grad_(True)
                        for f, t in v.items()} for k, v in init.items()}
 
@@ -386,34 +738,9 @@ def main() -> int:
 
     for _ in range(3):
         train_eval()
-    torch.cuda.synchronize()
-    reps = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(reps):
-            train_eval()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.time() - t0) / reps
+    profile_device(train_eval, 10, "evaluation")
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # kernel rows only: an operator's row repeats its kernels' device time
-    rows = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3 / reps
-    print(f"one evaluation: {wall_ms:.4f} ms wall (host clock, profiler "
-          f"on), device busy {busy_ms:.4f} ms, idle share "
-          f"{1.0 - busy_ms / wall_ms:.4f}")
-    for e in rows[:12]:
-        if dev_us(e) <= 0:
-            break
-        print(f"  {dev_us(e) / 1e3 / reps:9.4f} ms  {e.count / reps:5.1f}x  "
-              f"{e.key[:90]}")
-    sys.stdout.flush()
+    k2 = k2_phases(dev, card)
 
     t64 = times["float64"]
     kernels = []
@@ -425,14 +752,15 @@ def main() -> int:
             "replaces": ("pinn_for_quantum_wavefunction_surfaces_tpu/ops/"
                          f"pallas_separable.py:{line}"),
             "launches": counts[f"separable_{which}"],
-            "max_abs_err": errs["float64"][f"{which}_abs"],
-            "max_rel_err": errs["float64"][f"{which}_rel"],
+            "dtype": "float64",
+            "max_abs_err": errs["float64"][which],
             "ms": t64[which],
             "plain_ms": t64[f"{which}_plain"],
             "bound_ms": t64[f"{which}_bound"],
             "bound_by": t64[f"{which}_bound_by"],
             "library_ms": None,
         })
+    kernels += k2
     print(f"smoke run {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,9 +2,10 @@
 
 The PyTorch counterpart of ``spheroidal_grid``,
 ``rayleigh_quotient_spheroidal`` and the exact-energy rulers of the JAX
-package's ``analysis/energy.py``. psi and lap psi come from the fused
-separable kernel (forward only), so on a CUDA tensor the scoring runs
-through the Hopper kernel.
+package's ``analysis/energy.py``. psi and lap psi come from the fused kernel
+of the params' family (forward only): separable params go through K1
+(``ops.pallas_separable``), symmetric ones through K2 (``ops.pallas_train``),
+so on a CUDA tensor the scoring runs through a Hopper kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from ..config import Config
 from ..ops import operators
 from ..ops.pallas_separable import psi_lap_train_separable
+from ..ops.pallas_train import psi_lap_train
 
 
 def spheroidal_grid(c: float, n_xi: int, n_eta: int,
@@ -45,7 +47,8 @@ def rayleigh_quotient_spheroidal(params, cfg: Config, ri: float,
                                  xi_span: float | None = None) -> float:
     """E_int = <psi|H|psi>/<psi|psi> at half-distance ri on an n_xi x n_eta
     spheroidal Gauss grid (near machine precision for sigma states). Runs on
-    the device and in the dtype of ``params`` (port params)."""
+    the device and in the dtype of ``params`` (port params); the family is
+    read off the params, as the JAX function's forward dispatches."""
     if cfg.model.ry or cfg.model.rz:
         raise NotImplementedError(
             "spheroidal quadrature assumes the nuclei on the x-axis")
@@ -60,8 +63,9 @@ def rayleigh_quotient_spheroidal(params, cfg: Config, ri: float,
     rf = torch.full_like(yf, float(ri))
     wf = torch.as_tensor(w2d, **kw)
     with torch.no_grad():
-        psi, lap, _ = psi_lap_train_separable(params, cfg.model, xf, yf, zf,
-                                              rf)
+        fused = (psi_lap_train_separable if "lam1" in params
+                 else psi_lap_train)
+        psi, lap, _ = fused(params, cfg.model, xf, yf, zf, rf)
         hpsi = operators.hamiltonian_values(cfg.model, xf, yf, zf, rf, psi,
                                             lap)
         num = torch.sum(wf * psi * hpsi)

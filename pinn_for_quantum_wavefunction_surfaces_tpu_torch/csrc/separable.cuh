@@ -12,27 +12,14 @@
 // | ob (1); the lambda MLP first, then the mu MLP.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace sep {
 
-__device__ __forceinline__ float m_tanh(float v) { return tanhf(v); }
-__device__ __forceinline__ double m_tanh(double v) { return tanh(v); }
-__device__ __forceinline__ float m_exp(float v) { return expf(v); }
-__device__ __forceinline__ double m_exp(double v) { return exp(v); }
-__device__ __forceinline__ float m_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double m_sqrt(double v) { return sqrt(v); }
-
-template <int H>
-struct Layout {
-  static constexpr int W1 = 0;
-  static constexpr int B1 = 2 * H;
-  static constexpr int W2 = 3 * H;
-  static constexpr int B2 = 3 * H + H * H;
-  static constexpr int OW = 4 * H + H * H;
-  static constexpr int OB = 5 * H + H * H;
-  static constexpr int SIZE = H * H + 5 * H + 1;  // one MLP
-};
+using kern::Layout;
+using kern::m_exp;
+using kern::m_sqrt;
+using kern::m_tanh;
 
 // LOG_CORR_CAP: the log-correction is c tanh((lam + mu) / c)
 template <typename T>

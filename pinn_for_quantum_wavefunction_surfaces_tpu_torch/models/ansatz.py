@@ -1,22 +1,34 @@
-"""The separable-spheroidal H2+ ansatz psi(x, y, z; R) and its heads.
+"""The parametric H2+ ansatz psi(x, y, z; R) and its heads.
 
-The PyTorch counterpart of the separable family of the JAX package's
+The PyTorch counterpart of two families of the JAX package's
 ``models/ansatz.py``:
 
-    psi = Phi_GZ(x, y, z; R) * exp( 3 tanh( (l(t, R/4) + m(eta^2, R/4)) / 3 ) )
+- ``symmetric`` (the paper model):
 
-Phi_GZ = exp(-a r1 - b r2) + P exp(-a r2 - b r1) with trainable a(R), b(R);
-t = e^{R - (r1+r2)/2} and eta^2 = ((r1-r2)/(2R))^2 are the prolate-spheroidal
-features; l and m are width-H tanh MLPs with zero-initialised output layers,
-so the init is exactly the GZ physics ansatz. E(R) is a sigmoid MLP head.
+      psi = gate(R) * NN_sym(x, y, z, R) + LCAO(x, y, z, R)
+      NN_sym = Lin_out( base(f1, f2) + P * base(f1m, f2m) )   (mirror x -> -x)
 
-Parameters are plain nested dicts ``{name: {"w": (d_in, d_out), "b":
-(d_out,)}}`` of tensors, the JAX package's layout (y = x @ w + b), so
-``from_jax_params`` / ``to_numpy_params`` map one to one.
+  with envelopes f = exp(-a r), a = alpha(R) (``trainable_exponent``) or 1,
+  and LCAO = f1 + P f2, or the Guillemin-Zener part exp(-a r1 - b r2) +
+  P exp(-a r2 - b r1) with trainable b(R) (``gz``). The output bias applies
+  in the gerade sector only (exact antisymmetry for P = -1).
+- ``separable``:
 
-Not in this port yet (they raise NotImplementedError): the symmetric and
-minimal families, the node factors (``node*``, ``rnode*``, ``rnodeb*``,
-``enode*``) and the |m| transverse factor (``m_abs``).
+      psi = Phi_GZ(x, y, z; R) * exp( 3 tanh( (l(t, R/4) + m(eta^2, R/4)) / 3 ) )
+
+  Phi_GZ as above with trainable a(R), b(R); t = e^{R - (r1+r2)/2} and
+  eta^2 = ((r1-r2)/(2R))^2 are the prolate-spheroidal features; l and m are
+  width-H tanh MLPs with zero-initialised output layers, so the init is
+  exactly the GZ physics ansatz.
+
+E(R) is a sigmoid MLP head in both. Parameters are plain nested dicts
+``{name: {"w": (d_in, d_out), "b": (d_out,)}}`` of tensors, the JAX
+package's layout (y = x @ w + b), so ``from_jax_params`` /
+``to_numpy_params`` map one to one.
+
+Not in this port yet (they raise NotImplementedError): the minimal family,
+R-input (``r_input``) models, the node factors (``node*``, ``rnode*``,
+``rnodeb*``, ``enode*``) and the |m| transverse factor (``m_abs``).
 """
 
 from __future__ import annotations
@@ -46,6 +58,16 @@ def from_jax_params(tree: dict, dtype=None, device="cuda") -> dict:
     return {k: {f: leaf(a) for f, a in v.items()} for k, v in tree.items()}
 
 
+def as_params(params: dict, dtype, device) -> dict:
+    """Port params on ``device`` in ``dtype`` (fresh tensors) from port
+    params or from the JAX layout of numpy arrays."""
+    leaf = next(iter(next(iter(params.values())).values()))
+    if isinstance(leaf, torch.Tensor):
+        return {k: {f: t.detach().to(device=device, dtype=dtype).clone()
+                    for f, t in v.items()} for k, v in params.items()}
+    return from_jax_params(params, dtype=dtype, device=device)
+
+
 def to_numpy_params(params: dict) -> dict:
     """The JAX layout of numpy arrays from port params."""
     return {k: {f: t.detach().cpu().numpy() for f, t in v.items()}
@@ -67,21 +89,64 @@ def _init_linear(gen, d_in, d_out, dtype):
 
 def init_params(mcfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device="cuda") -> dict:
-    """Parameter tree of the separable family, drawn from a CPU
-    ``torch.Generator`` seeded with ``seed`` (so the draw is the same on
+    """Parameter tree of the symmetric or separable family, drawn from a
+    CPU ``torch.Generator`` seeded with ``seed`` (so the draw is the same on
     every device), then moved to ``device``. The JAX package draws from
     ``jax.random``: the two inits differ for the same seed."""
     dev = resolve_device(device)
-    if mcfg.arch != "separable":
+    _check_config(mcfg)
+    gen = torch.Generator().manual_seed(int(seed))
+    init = _init_separable if mcfg.arch == "separable" else _init_symmetric
+    params = init(gen, mcfg, resolve_dtype(dtype))
+    return {k: {f: t.to(dev) for f, t in v.items()}
+            for k, v in params.items()}
+
+
+def _check_config(mcfg: ModelConfig) -> None:
+    if mcfg.arch == "minimal":
         raise NotImplementedError(
-            f"arch {mcfg.arch!r}: only the separable family is ported")
+            "arch 'minimal' is not ported (symmetric and separable are)")
+    if mcfg.r_input and mcfg.arch == "symmetric":
+        raise NotImplementedError("R-input (r_input) models are not ported")
     if mcfg.xi_node or mcfg.xi_node2 or mcfg.eta_node or mcfg.m_abs:
         raise NotImplementedError(
             "node factors and the m_abs transverse factor are not ported")
-    gen = torch.Generator().manual_seed(int(seed))
-    params = _init_separable(gen, mcfg, resolve_dtype(dtype))
-    return {k: {f: t.to(dev) for f, t in v.items()}
-            for k, v in params.items()}
+
+
+def _zero_out(width, bias, dtype):
+    """Zero weights and a constant bias: the head's output is ``bias``."""
+    return {"w": torch.zeros((width, 1), dtype=dtype),
+            "b": torch.full((1,), bias, dtype=dtype)}
+
+
+def _init_symmetric(gen, mcfg: ModelConfig, dtype) -> dict:
+    """Symmetric family: torch.nn.Linear defaults everywhere, the E-head
+    output bias at ``eout_bias_init`` (-1), and the alpha/beta heads with
+    zero output weights so that alpha(R) == 1 and b(R) == 0.1 at init."""
+    h, he, hg, ha = mcfg.hidden, mcfg.hidden_e, mcfg.hidden_gate, \
+        mcfg.hidden_alpha
+
+    def lin(a, b):
+        return _init_linear(gen, a, b, dtype)
+
+    params = {
+        "h1": lin(2, h),
+        "h2": lin(h, h),
+        "out": lin(h, 1),
+        "e1": lin(1, he),
+        "e2": lin(he, he),
+        "eout": lin(he, 1),
+        "gate1": lin(1, hg),
+        "gate2": lin(hg, 1),
+    }
+    params["eout"]["b"] = torch.full((1,), mcfg.eout_bias_init, dtype=dtype)
+    if mcfg.trainable_exponent:
+        params["alpha1"] = lin(1, ha)
+        params["alpha2"] = _zero_out(ha, ALPHA_BIAS_INIT, dtype)
+    if mcfg.gz:
+        params["beta1"] = lin(1, ha)
+        params["beta2"] = _zero_out(ha, BETA_BIAS_INIT, dtype)
+    return params
 
 
 def _init_separable(gen, mcfg: ModelConfig, dtype) -> dict:
@@ -92,27 +157,23 @@ def _init_separable(gen, mcfg: ModelConfig, dtype) -> dict:
     def lin(a, b):
         return _init_linear(gen, a, b, dtype)
 
-    def zero_out(width, bias):
-        return {"w": torch.zeros((width, 1), dtype=dtype),
-                "b": torch.full((1,), bias, dtype=dtype)}
-
     params = {
         "e1": lin(1, he),
         "e2": lin(he, he),
         "eout": lin(he, 1),
         "lam1": lin(2, h),
         "lam2": lin(h, h),
-        "lamout": zero_out(h, 0.0),
+        "lamout": _zero_out(h, 0.0, dtype),
         "mu1": lin(2, h),
         "mu2": lin(h, h),
-        "muout": zero_out(h, 0.0),
+        "muout": _zero_out(h, 0.0, dtype),
     }
     a_key = "xalpha" if mcfg.wide_alpha else "alpha"
     a_bias = XALPHA_BIAS_INIT if mcfg.wide_alpha else ALPHA_BIAS_INIT
     params[a_key + "1"] = lin(1, ha)
-    params[a_key + "2"] = zero_out(ha, a_bias)
+    params[a_key + "2"] = _zero_out(ha, a_bias, dtype)
     params["beta1"] = lin(1, ha)
-    params["beta2"] = zero_out(ha, BETA_BIAS_INIT)
+    params["beta2"] = _zero_out(ha, BETA_BIAS_INIT, dtype)
     params["eout"]["b"] = torch.full((1,), mcfg.eout_bias_init, dtype=dtype)
     return params
 
@@ -134,6 +195,13 @@ def energy(params: dict, r: torch.Tensor) -> torch.Tensor:
     """E(R) eigenvalue head. r: (...,)."""
     return _mlp2(r[..., None], params["e1"], params["e2"],
                  params["eout"])[..., 0]
+
+
+def gate(params: dict, r: torch.Tensor) -> torch.Tensor:
+    """Gate ('network importance') g(R) of the symmetric family."""
+    y = torch.sigmoid(r[..., None] @ params["gate1"]["w"]
+                      + params["gate1"]["b"])
+    return (y @ params["gate2"]["w"] + params["gate2"]["b"])[..., 0]
 
 
 # alpha(R) = 1.5 + 0.75 tanh(head) in (0.75, 2.25); the head's zero weights
@@ -190,10 +258,18 @@ _UNPORTED_KEYS = ("node1", "rnode1", "rnodeb1", "enode1")
 
 
 def check_supported(params: dict, mcfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
+    """Raise NotImplementedError for what this port does not run yet. The
+    family is read off the params (lam*/mu* are separable), as the JAX
+    package's forward passes dispatch."""
     if "lam1" not in params:
-        raise NotImplementedError(
-            "only the separable family (lam*/mu* params) is ported")
+        if mcfg.arch != "symmetric":
+            raise NotImplementedError(
+                f"arch {mcfg.arch!r}: of the non-separable families only "
+                "'symmetric' is ported")
+        if params["h1"]["w"].shape[0] != 2:
+            raise NotImplementedError(
+                "R-input (r_input) models are not ported")
+        return
     found = [k for k in _UNPORTED_KEYS if k in params]
     if found:
         raise NotImplementedError(
@@ -234,11 +310,63 @@ def _psi_separable(params: dict, mcfg: ModelConfig, x, y, z, r):
     return phi * torch.exp(log_corr), energy(params, r)
 
 
+def _envelopes(mcfg: ModelConfig, x, y, z, r, mirror_x=False, alpha=None):
+    """exp(-alpha r1), exp(-alpha r2) for nuclei at (+/-R, +/-ry, +/-rz);
+    alpha None means 1."""
+    xs = -x if mirror_x else x
+    r1 = torch.sqrt((xs - r) ** 2 + (y - mcfg.ry) ** 2 + (z - mcfg.rz) ** 2)
+    r2 = torch.sqrt((xs + r) ** 2 + (y + mcfg.ry) ** 2 + (z + mcfg.rz) ** 2)
+    if alpha is None:
+        return torch.exp(-r1), torch.exp(-r2)
+    return torch.exp(-alpha * r1), torch.exp(-alpha * r2)
+
+
+def lcao(mcfg: ModelConfig, x, y, z, r, params: dict | None = None):
+    """Analytic LCAO part exp(-a r1) + P exp(-a r2); a = 1 unless the
+    trainable exponent head is in ``params``."""
+    alpha = None
+    if params is not None and "alpha1" in params:
+        alpha = orbital_exponent(params, r)
+    f1, f2 = _envelopes(mcfg, x, y, z, r, alpha=alpha)
+    return f1 + mcfg.inversion_symmetry * f2
+
+
+def _psi_symmetric(params: dict, mcfg: ModelConfig, x, y, z, r):
+    """Value-only forward of the symmetric family."""
+    e = energy(params, r)
+    alpha = orbital_exponent(params, r) if "alpha1" in params else None
+    f1, f2 = _envelopes(mcfg, x, y, z, r, alpha=alpha)
+    g = gate(params, r)
+    f1m, f2m = _envelopes(mcfg, x, y, z, r, mirror_x=True, alpha=alpha)
+
+    def base(a, b):
+        return _mlp2(torch.stack([a, b], dim=-1), params["h1"], params["h2"])
+
+    b = base(f1, f2) + mcfg.inversion_symmetry * base(f1m, f2m)
+    nn = b @ params["out"]["w"]
+    if mcfg.inversion_symmetry > 0:
+        # the output bias breaks exact antisymmetry for P = -1, so it
+        # applies in the gerade sector only
+        nn = nn + params["out"]["b"]
+    if "beta1" in params:
+        a_ = alpha if alpha is not None else torch.ones_like(r)
+        bt = gz_exponent(params, r, mcfg.inversion_symmetry, a_)
+        r1 = torch.sqrt((x - r) ** 2 + (y - mcfg.ry) ** 2 + (z - mcfg.rz) ** 2)
+        r2 = torch.sqrt((x + r) ** 2 + (y + mcfg.ry) ** 2 + (z + mcfg.rz) ** 2)
+        n_lcao = (torch.exp(-a_ * r1 - bt * r2)
+                  + mcfg.inversion_symmetry * torch.exp(-a_ * r2 - bt * r1))
+    else:
+        n_lcao = f1 + mcfg.inversion_symmetry * f2
+    return nn[..., 0] * g + n_lcao, e
+
+
 def psi(params: dict, mcfg: ModelConfig, x, y, z, r):
     """Full ansatz forward: returns (psi, E), both shaped like x.
     x, y, z, r: (...,) tensors (R the half internuclear distance)."""
     check_supported(params, mcfg)
-    return _psi_separable(params, mcfg, x, y, z, r)
+    if "lam1" in params:
+        return _psi_separable(params, mcfg, x, y, z, r)
+    return _psi_symmetric(params, mcfg, x, y, z, r)
 
 
 def _psi_separable_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
@@ -284,7 +412,13 @@ def _psi_separable_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
 
 def psi_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
     """Fused pass returning (Spatial(psi), E): psi, grad psi and lap psi in
-    one forward traversal (the plain tensor path; the training path goes
-    through ops.pallas_separable.psi_lap_train_separable)."""
+    one forward traversal, for the separable family (the plain tensor path;
+    the training path goes through
+    ops.pallas_separable.psi_lap_train_separable). The symmetric family's
+    psi and lap psi come from ops.pallas_train.psi_lap_train."""
     check_supported(params, mcfg)
+    if "lam1" not in params:
+        raise NotImplementedError(
+            "psi_fwdlap covers the separable family; the symmetric family's "
+            "(psi, lap psi) is ops.pallas_train.psi_lap_train")
     return _psi_separable_fwdlap(params, mcfg, x, y, z, r)

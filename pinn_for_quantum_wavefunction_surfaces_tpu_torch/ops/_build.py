@@ -6,8 +6,8 @@ with ``ctypes``. The library's file name carries a hash of the sources it
 was built from, so an edited source is rebuilt and a stale library is never
 loaded. Libraries go to ``build/kernels/`` at the root of the checkout.
 
-    build(["separable_fwd", "separable_bwd"])   # one nvcc each, in parallel
-    lib = load("separable_fwd")                  # builds if needed
+    build(KERNELS)                 # one nvcc per source, all in parallel
+    lib = load("separable_fwd")    # builds if needed
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("separable_fwd", "separable_bwd")
+KERNELS = ("separable_fwd", "separable_bwd", "train_fwd", "train_bwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -29,20 +29,17 @@ of scalars besides the two MLPs — which is what one CUDA thread carries.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..models import ansatz
 from ..models.ansatz import LOG_CORR_CAP
-from . import _build
+from . import _cuda
 
 # launch counts of the two CUDA kernels (plain integers: a run can show that
 # its path went through the kernels). Only the CUDA wrappers add to them.
 launches = {"separable_fwd": 0, "separable_bwd": 0}
 
-SUPPORTED_HIDDEN = (4, 8, 16, 32)
-_MAX_POINTS = 2 ** 31 - 1024   # point index blockIdx.x * blockDim.x + tid
+SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 
 _W_NAMES = (("lam1", "w"), ("lam1", "b"), ("lam2", "w"), ("lam2", "b"),
             ("lamout", "w"), ("lamout", "b"),
@@ -284,84 +281,20 @@ def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
 # CUDA kernels (csrc/separable_fwd.cu, csrc/separable_bwd.cu)
 
 
-def _check_inputs(hidden, ws, pts):
-    if hidden not in SUPPORTED_HIDDEN:
-        raise ValueError(f"hidden={hidden}: the CUDA kernels are built for "
-                         f"H in {SUPPORTED_HIDDEN}")
-    ref = pts[0]
-    if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"CUDA kernels take float32/float64, got {ref.dtype}")
-    for t in tuple(pts) + tuple(ws):
-        if not t.is_cuda or t.device != ref.device:
-            raise ValueError("all kernel inputs must be CUDA tensors on one "
-                             "device")
-        if t.dtype != ref.dtype:
-            raise TypeError("kernel inputs must share one dtype")
-    for t in pts:
-        if t.shape != ref.shape or t.ndim != 1:
-            raise ValueError("point arrays must all be (n,)")
-    if ref.shape[0] > _MAX_POINTS:
-        raise ValueError(f"{ref.shape[0]} points: the kernels index points "
-                         f"with 32-bit ints, at most {_MAX_POINTS}")
-    for t, shape in zip(ws, weight_shapes(hidden)):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"weight shape {tuple(t.shape)} != {shape}")
-
-
-def _suffix(dtype):
-    return "f64" if dtype == torch.float64 else "f32"
-
-
-def _raise_on(lib, err: int, what: str):
-    if err:
-        msg = lib.separable_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _pack(ws):
-    return torch.cat([w.reshape(-1) for w in ws]).contiguous()
-
-
-def _lib(name):
-    lib = _build.load(name)
-    if not getattr(lib, "_separable_typed", False):
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for sfx in ("f32", "f64"):
-            fn = getattr(lib, f"{name}_{sfx}")
-            n_ptr = 9 if name == "separable_fwd" else 12
-            fn.argtypes = [vp] * n_ptr + [ci, ci, ci, cd, cd, vp]
-            fn.restype = ci
-        lib.separable_error_string.argtypes = [ci]
-        lib.separable_error_string.restype = ctypes.c_char_p
-        if name == "separable_bwd":
-            lib.separable_bwd_points_per_block.argtypes = []
-            lib.separable_bwd_points_per_block.restype = ci
-        lib._separable_typed = True
-    return lib
-
-
 def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
                        ry: float = 0.0, rz: float = 0.0):
     """K1 forward on the card: (psi, lap) for CUDA tensors."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
-    _check_inputs(hidden, weights, pts)
+    _cuda.check_inputs(hidden, weights, weight_shapes(hidden), pts)
     pts = [t.contiguous() for t in pts]
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    lib = _lib("separable_fwd")
-    fn = getattr(lib, "separable_fwd_" + _suffix(pts[0].dtype))
-    wp = _pack(weights)
-    with torch.cuda.device(pts[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*map(_ptr, pts), _ptr(wp), _ptr(psi), _ptr(lap), n, hidden,
-                 int(p_sym), float(ry), float(rz), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "separable_fwd")
+    lib = _cuda.typed_lib("separable_fwd", 9, "separable")
+    _cuda.launch(lib, pts[0].dtype, pts[0].device,
+                 (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
+                 ry, rz)
     launches["separable_fwd"] += 1
     return psi, lap
 
@@ -373,26 +306,22 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
     atomics), summed here over blocks — repeatable bit for bit."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
-    _check_inputs(hidden, weights, pts + (dpsi, dlap))
+    shapes = weight_shapes(hidden)
+    _cuda.check_inputs(hidden, weights, shapes, pts + (dpsi, dlap))
     pts = [t.contiguous() for t in pts]
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
-    lib = _lib("separable_bwd")
+    lib = _cuda.typed_lib("separable_bwd", 12, "separable",
+                          extra=("separable_bwd_points_per_block",))
     n_blocks = -(-n // lib.separable_bwd_points_per_block())
-    shapes = weight_shapes(hidden)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     partials = torch.empty((n_blocks, sum(sizes)), dtype=pts[0].dtype,
                            device=pts[0].device)
     da = torch.empty_like(pts[0])
     db = torch.empty_like(pts[0])
-    fn = getattr(lib, "separable_bwd_" + _suffix(pts[0].dtype))
-    wp = _pack(weights)
-    with torch.cuda.device(pts[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*map(_ptr, pts), _ptr(wp), _ptr(dpsi), _ptr(dlap),
-                 _ptr(da), _ptr(db), _ptr(partials), n, hidden, int(p_sym),
-                 float(ry), float(rz), ctypes.c_void_p(stream))
-    _raise_on(lib, err, "separable_bwd")
+    _cuda.launch(lib, pts[0].dtype, pts[0].device,
+                 (*pts, _cuda.pack(weights), dpsi, dlap, da, db, partials),
+                 n, hidden, p_sym, ry, rz)
     launches["separable_bwd"] += 1
     dws = tuple(g.reshape(s) for g, s in
                 zip(torch.split(partials.sum(0), sizes), shapes))
@@ -446,6 +375,10 @@ def psi_lap_train_separable(params: dict, mcfg, x, y, z, r):
     network runs in the kernel through SeparableKernel, so autograd of any
     loss composes exactly. The point coordinates are constants."""
     ansatz.check_supported(params, mcfg)
+    if "lam1" not in params:
+        raise NotImplementedError(
+            "not separable params: the symmetric family's kernel is "
+            "ops.pallas_train.psi_lap_train")
     dtype = x.dtype
     x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
     e = ansatz.energy(params, r)

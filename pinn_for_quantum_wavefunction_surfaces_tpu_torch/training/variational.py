@@ -247,16 +247,6 @@ def _third(n: int, other: int, offset: int) -> int:
     return m
 
 
-def _as_params(params, dtype, device) -> dict:
-    """Port params on ``device`` in ``dtype`` from port params or the JAX
-    layout of numpy arrays."""
-    leaf = next(iter(next(iter(params.values())).values()))
-    if isinstance(leaf, torch.Tensor):
-        return {k: {f: t.detach().to(device=device, dtype=dtype).clone()
-                    for f, t in v.items()} for k, v in params.items()}
-    return ansatz.from_jax_params(params, dtype=dtype, device=device)
-
-
 def dual_grid_vbatch(cfg: Config, n_r: int, n_xi: int, n_eta: int,
                      xi_span=None, dtype=None, device="cuda") -> VBatch:
     """The training batch of the polish: grid 1 (n_xi x n_eta) and grid 2
@@ -318,7 +308,7 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
     if params is None:
         params = ansatz.init_params(cfg.model, seed=cfg.train.seed,
                                     dtype=dtype, device=dev)
-    params = _as_params(params, dtype, dev)
+    params = ansatz.as_params(params, dtype, dev)
     if dtype == torch.float32 and steps:
         warnings.warn(
             "f32 L-BFGS on the quotient objective diverges after ~1k steps; "

@@ -64,6 +64,23 @@ def test_quotient_matches_jax(ri):
     np.testing.assert_allclose(e_t, e_j, rtol=1e-12)
 
 
+def test_symmetric_quotient_matches_jax():
+    """The symmetric flagship (GZ + alpha) scored through the K2 module's
+    forward equals the JAX quotient to 1e-10 and lies above the exact
+    level."""
+    np_params = load_artifact("flagship.npz")
+    kw = dict(gz=True, trainable_exponent=True)
+    e_j = jen.rayleigh_quotient_spheroidal(
+        np_params, pqs.Config(dtype="float64", model=pqs.ModelConfig(**kw)),
+        1.0, n_xi=48, n_eta=40)
+    e_t = ten.rayleigh_quotient_spheroidal(
+        tans.from_jax_params(np_params, device="cpu"),
+        tcfg.Config(dtype="float64", model=tcfg.ModelConfig(**kw)), 1.0,
+        n_xi=48, n_eta=40)
+    np.testing.assert_allclose(e_t, e_j, rtol=1e-10)
+    assert e_t > ten.exact_energy_ode([1.0])[0]
+
+
 def test_grid_and_oracle_match_jax():
     for c, n_xi, n_eta in ((0.2, 12, 8), (3.0, 40, 24)):
         for a, b in zip(ten.spheroidal_grid(c, n_xi, n_eta),

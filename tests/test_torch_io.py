@@ -141,7 +141,9 @@ def test_importing_the_port_loads_no_jax():
             "pinn_for_quantum_wavefunction_surfaces_tpu_torch.cli, "
             "pinn_for_quantum_wavefunction_surfaces_tpu_torch.training."
             "variational, pinn_for_quantum_wavefunction_surfaces_tpu_torch."
-            "analysis.energy; print('\\n'.join(sys.modules))")
+            "analysis.energy, pinn_for_quantum_wavefunction_surfaces_tpu_torch."
+            "training.engine, pinn_for_quantum_wavefunction_surfaces_tpu_torch."
+            "utils.metrics; print('\\n'.join(sys.modules))")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=REPO, env=env).stdout

@@ -183,8 +183,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("family", ["xi_node", "eta_node", "m_abs",
                                     "symmetric"])
 def test_unported_families_raise(family):
+    # the symmetric family runs in the port (ops/pallas_train.py), but not
+    # its R-input models, nor through the separable kernel
     kw = {"xi_node": dict(xi_node=True), "eta_node": dict(eta_node=True),
-          "m_abs": dict(m_abs=1), "symmetric": {}}[family]
+          "m_abs": dict(m_abs=1), "symmetric": dict(r_input=True)}[family]
     arch = "symmetric" if family == "symmetric" else "separable"
     mcfg = pqs.ModelConfig(arch=arch, hidden=4, **kw)
     params = jax.tree.map(np.asarray, jans.init_params(
