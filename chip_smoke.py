@@ -5,9 +5,9 @@
 
 Phases (any failure exits non-zero; none is caught and passed over):
  1. header: the card's name and power limit, torch and CUDA versions;
- 2. build: the four CUDA kernels from csrc/ (K1 and K2, forward and
-    backward), one nvcc per source, all in parallel; ptxas registers and
-    spills of every instantiation;
+ 2. build: the five CUDA kernels from csrc/ (K1 and K2, forward and
+    backward, and K3), one nvcc per source, all in parallel; ptxas
+    registers and spills of every instantiation;
  K1, the separable-spheroidal variational trainer (make flagship):
  3. kernel check at the flagship training batch (164 502 points of the
     dual spheroidal grid, artifacts/flagship_separable.npz weights), in
@@ -42,21 +42,47 @@ Phases (any failure exits non-zero; none is caught and passed over):
  11. times: CUDA-event times of K2 and its plain versions at 100 000
     points in both types, beside the bound;
  12. profile: torch.profiler over a run of ten training steps and over its
-    setup alone (device busy share, device time by kernel).
+    setup alone (device busy share, device time by kernel);
+ K3 and the forward-only scoring layer (cli energy, cli evaluate):
+ 13. K3 check at the paper widths (H = 16, gate 10; seeded weights whose
+    correction is a sizeable share of psi) on the 80^3 grid at R = 1 and on
+    1 048 576 uniform points in +-18 at R = 2, P = +1 and -1 (and one case
+    with ry, rz != 0), in float64 and float32, against
+    psi_lap_residual_plain; then CUDA-event times of both at 512 000 and
+    1 048 576 points beside the bound;
+ 14. K3 golden: E_int and E_lcao of those weights on the uniform n = 80 and
+    the spheroidal 96 x 96 grids at R = 0.5, 1, 2, 4 (float64) equal to the
+    JAX package's CPU values to 1e-10, every model quotient through K3;
+ 15. make ref-recipe, cut: cli train (reference-parity model, float64) and
+    cli finetune for a few steps, then cli energy on finetune.npz at its
+    defaults (uniform n = 80, 39 R, LCAO, Wind oracle) through the port's
+    cli.main: the pickle's schema, finite errors, one K3 launch a model
+    quotient; wall time, points/s and K3's share of the device time;
+ 16. make evaluate: cli evaluate artifacts/flagship_separable.npz --steps
+    8000 --dtype float64 into a temporary directory: its e_table equal to
+    artifacts/evaluated.npz's to 1e-10 at all 153 knots, E_int within
+    [-1e-4, 0.01] mHa of the exact oracle, the table within 0.001 mHa, the
+    head's fit RMS within 0.01 mHa, one K1-fwd launch a quotient; the wall
+    time of each part.
 
-Then one JSON line ``{"kernels": [...]}``, the card line, and last
+Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
+the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
 from a directory that does not hold the package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -82,6 +108,54 @@ TRAIN_STEPS, FINETUNE_STEPS, WARMUP_STEPS = 300, 100, 20
 # rayleigh_quotient_spheroidal on its default 96 x 96 grid, xi_span 20
 JAX_EINT_FLAGSHIP = {0.2: -1.8002549328974087, 1.0: -1.1024339738821405,
                      2.0: -0.7958491215620099, 4.0: -0.6272660864051361}
+
+
+K3_SEED = 2024
+# E_int and E_lcao of k3_weights() (P = +1) from the JAX package on the CPU
+# in float64: (analysis.energy.rayleigh_quotient on the uniform n = 80 grid,
+# the same with which="lcao", rayleigh_quotient_spheroidal on its default
+# 96 x 96 grid, the same with which="lcao"); tests/test_torch_scoring.py
+# recomputes them
+JAX_K3_GOLDEN = {
+    0.5: (-1.2686495267025124, -1.2736007503030435, -1.2851256458571025,
+          -1.2883662588230806),
+    1.0: (-1.0447126940832976, -1.0488791351777813, -1.0514545121396084,
+          -1.0537714953184887),
+    2.0: (-0.7833962643712423, -0.7862243297246184, -0.7861984584927523,
+          -0.7868661240117566),
+    4.0: (-0.6224376905639958, -0.6267191215348822, -0.6260078041538885,
+          -0.6267294759569224),
+}
+
+
+def k3_weights() -> dict:
+    """Reference-parity symmetric params at the paper widths (correction MLP
+    2 -> 16 -> 16 -> 1, gate 1 -> 10 -> 1, E head 1 -> 32 -> 32 -> 1) in the
+    JAX layout of numpy arrays, drawn from numpy's default_rng(K3_SEED):
+    each layer U(+-s/sqrt(fan_in)) as torch.nn.Linear draws with s = 1,
+    except s = 4 for the first layer and s = 8 for the correction's output
+    layer, so that the correction is a sizeable share of psi. The output
+    bias cancels the branches' value far from the nuclei (where both
+    envelopes vanish), so the gerade correction decays as psi does."""
+    import numpy as np
+    rng = np.random.default_rng(K3_SEED)
+
+    def lin(d_in, d_out, s=1.0):
+        bound = s / np.sqrt(d_in)
+        return {"w": rng.uniform(-bound, bound, (d_in, d_out)),
+                "b": rng.uniform(-bound, bound, (d_out,))}
+
+    p = {"h1": lin(2, 16, 4.0), "h2": lin(16, 16), "out": lin(16, 1, 8.0),
+         "e1": lin(1, 32), "e2": lin(32, 32), "eout": lin(32, 1),
+         "gate1": lin(1, 10), "gate2": lin(10, 1)}
+
+    def sig(v):
+        return 1.0 / (1.0 + np.exp(-v))
+
+    far = sig(sig(p["h1"]["b"]) @ p["h2"]["w"] + p["h2"]["b"]) \
+        @ p["out"]["w"][:, 0]
+    p["out"]["b"] = np.array([-2.0 * far])
+    return p
 
 
 def fwd_ops(h: int) -> int:
@@ -122,12 +196,25 @@ def train_bwd_ops(h: int) -> int:
     return train_fwd_ops(h) + 32 * h * h + 186 * h + 104
 
 
-def bound_ms(n: int, h: int, dtype: str, which: str, kernel: str = "K1"):
+def residual_fwd_ops(h: int, hg: int) -> int:
+    """Floating-point operations of K3 per point (each transcendental
+    counted once; csrc/residual_fwd.cu): the two branches as in K2-fwd
+    (16 H^2 + 104 H + 86), the gate's units (8 each), and the combination
+    with the LCAO part and the gate's bias (15)."""
+    return 16 * h * h + 104 * h + 8 * hg + 101
+
+
+def bound_ms(n: int, h: int, dtype: str, which: str, kernel: str = "K1",
+             hg: int = 10):
     """(least time in ms, "bytes" or "operations") of one call: each input
     read once and each output written once at the memory rate, against the
     operations at the peak rate of their type."""
     size = 8 if dtype == "float64" else 4
-    if kernel == "K1":
+    if kernel == "K3":
+        wsize = h * h + 5 * h + 1 + 3 * hg + 1
+        nbytes = size * (6 * n + wsize)            # x y z r -> psi lap
+        ops = n * residual_fwd_ops(h, hg)
+    elif kernel == "K1":
         wsize = 2 * (h * h + 5 * h + 1)
         if which == "fwd":
             nbytes = size * (8 * n + wsize)        # x y z r a b -> psi lap
@@ -176,8 +263,19 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-def phase(name: str):
-    print(f"== {name}", flush=True)
+_PHASE_START = [None]
+
+
+def phase(name: str | None = None):
+    """Print the wall time of the phase that ends here and the header of
+    the next one (none at the end)."""
+    now = time.time()
+    if _PHASE_START[0] is not None:
+        print(f"   (phase wall time {now - _PHASE_START[0]:.1f} s)",
+              flush=True)
+    _PHASE_START[0] = now
+    if name:
+        print(f"== {name}", flush=True)
 
 
 # cycles per second assumed for the spin kernel: above the H100's 1.98 GHz
@@ -269,7 +367,8 @@ def profile_device(fn, reps: int, label: str):
                    if str(e.device_type).endswith("CUDA")
                    and not getattr(e, "is_user_annotation", False)),
                   key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3 / reps
+    by_kernel = {e.key: dev_us(e) / 1e3 / reps for e in rows}
+    busy_ms = sum(by_kernel.values())
     print(f"one {label}: {wall_ms:.4f} ms wall (host clock, profiler on), "
           f"device busy {busy_ms:.4f} ms, idle share "
           f"{1.0 - busy_ms / wall_ms:.4f}")
@@ -279,7 +378,24 @@ def profile_device(fn, reps: int, label: str):
         print(f"  {dev_us(e) / 1e3 / reps:9.4f} ms  {e.count / reps:6.1f}x  "
               f"{e.key[:90]}")
     sys.stdout.flush()
-    return wall_ms, busy_ms
+    return wall_ms, busy_ms, by_kernel
+
+
+def run_cli(args: list[str]) -> tuple[dict, str]:
+    """The port's cli.main in this process: (its last stdout line as JSON,
+    its stderr). Both are echoed."""
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli.main(args)
+    print(out.getvalue().rstrip())
+    last = [ln for ln in err.getvalue().splitlines() if ln.strip()][-3:]
+    if last:
+        print("  stderr: " + " | ".join(last))
+    sys.stdout.flush()
+    return json.loads(out.getvalue().strip().splitlines()[-1]), \
+        err.getvalue()
+
 
 def k2_phases(dev, card: str) -> list[dict]:
     """Phases 8-12: the residual trainer of the symmetric family and its
@@ -517,6 +633,246 @@ def k2_phases(dev, card: str) -> list[dict]:
     return out
 
 
+# K3's point sets (phase 13) and the cut depth of phase 15's make ref-recipe
+# (of 5 000 training and 2 000 fine-tune epochs)
+K3_GRID_N, K3_N_UNIFORM = 80, 1 << 20
+REF_TRAIN_STEPS, REF_FINETUNE_STEPS = 200, 100
+
+
+def k3_phases(dev, card: str) -> dict:
+    """Phases 13-16: K3 and the forward-only scoring layer (cli energy, cli
+    evaluate). Returns the K3 entry of the kernels line."""
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        etab
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_residual as k3
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+
+    weights = k3_weights()
+    h, hg = weights["h1"]["w"].shape[1], weights["gate1"]["w"].shape[1]
+    phase(f"13 K3 check (H = {h}, gate {hg}; {K3_GRID_N}^3 grid at R = 1, "
+          f"{K3_N_UNIFORM} uniform points at R = 2)")
+    ax = np.linspace(-18.0, 18.0, K3_GRID_N)
+    gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
+    rng = np.random.default_rng(K3_SEED)
+    point_sets = {
+        "grid": ([a.ravel() for a in (gx, gy, gz)], 1.0),
+        "uniform": ([rng.uniform(-18.0, 18.0, K3_N_UNIFORM)
+                     for _ in range(3)], 2.0),
+    }
+    cases = [("grid", 1, 0.0, 0.0), ("grid", -1, 0.0, 0.0),
+             ("uniform", 1, 0.0, 0.0), ("uniform", -1, 0.0, 0.0),
+             ("uniform", 1, 0.3, -0.2)]
+    errs, inputs = {}, {}
+    for dt_name, dt in (("float64", torch.float64),
+                        ("float32", torch.float32)):
+        params = ansatz.from_jax_params(weights, dtype=dt, device=dev)
+        worst = 0.0
+        for label, p_sym, ry, rz in cases:
+            arrays, ri = point_sets[label]
+            pts = [torch.as_tensor(a, dtype=dt, device=dev) for a in arrays]
+            r = torch.full_like(pts[0], ri)
+            mcfg = config.ModelConfig(inversion_symmetry=p_sym, ry=ry, rz=rz)
+            ws = k3.kernel_weights(params, mcfg, dt)
+            kw = dict(p_sym=p_sym, ry=ry, rz=rz)
+            psi_k, lap_k = k3.residual_fwd_cuda(ws, *pts, r, **kw)
+            with torch.no_grad():
+                psi_p, lap_p = k3.psi_lap_residual_plain(ws, *pts, r, **kw)
+                lcao, _ = energy.lcao_fwdlap(mcfg, *pts, r)
+            torch.cuda.synchronize()
+            share = float((psi_p - lcao).abs().max() / psi_p.abs().max())
+            if not share >= 1e-2:
+                raise AssertionError(f"K3 {label} P={p_sym}: the correction "
+                                     f"is {share:.2e} of psi; it must be a "
+                                     "sizeable share")
+            if dt == torch.float64:
+                # the JAX package's Pallas-vs-XLA tolerances (psi cancels
+                # far from the nuclei: an absolute floor)
+                tol_psi, tol_lap = (1e-12, 1e-14), (1e-10, 1e-12)
+            else:
+                # float32: unit roundoff 6e-8; psi sums the gated network
+                # and the LCAO pair, O(1) terms that cancel in the ungerade
+                # sector, so its absolute floor is set by max |psi|; lap
+                # cancels terms up to ~2/r near the nuclei
+                tol_psi = (1e-4, 4e-6 * float(psi_p.abs().max()))
+                tol_lap = (1e-3, 1e-5 * float(lap_p.abs().max()))
+            name = f"K3 {label} P={p_sym} ry={ry} rz={rz} {dt_name}"
+            e_psi = check_close(name + " psi", psi_k, psi_p, *tol_psi)
+            e_lap = check_close(name + " lap", lap_k, lap_p, *tol_lap)
+            print(f"{name}: psi max abs {e_psi[0]:.3e} | lap max abs "
+                  f"{e_lap[0]:.3e} rel {e_lap[1]:.3e} | correction share "
+                  f"{share:.3f}")
+            worst = max(worst, e_psi[0], e_lap[0])
+            if ry == 0.0 and p_sym == 1:
+                inputs[(dt_name, label)] = (ws, pts, r, kw)
+        errs[dt_name] = worst
+    sys.stdout.flush()
+
+    times = {}
+    for dt_name in ("float64", "float32"):
+        for label in ("grid", "uniform"):
+            ws, pts, r, kw = inputs[(dt_name, label)]
+            n = pts[0].numel()
+            with torch.no_grad():
+                t = {"ms": cuda_ms(lambda: k3.residual_fwd_cuda(
+                         ws, *pts, r, **kw), label="K3"),
+                     "plain_ms": cuda_ms(lambda: k3.psi_lap_residual_plain(
+                         ws, *pts, r, **kw), reps=2, label="K3 plain")}
+            t["bound_ms"], t["bound_by"] = bound_ms(n, h, dt_name, "fwd",
+                                                    "K3", hg)
+            times[(dt_name, n)] = t
+            print(f"{dt_name} n={n} H={h} Hg={hg}: K3 {t['ms']:.4f} ms "
+                  f"(plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                  f"{t['bound_by']}; {card})", flush=True)
+
+    phase("14 K3 golden (E_int, E_lcao on the 80^3 and 96 x 96 spheroidal "
+          "grids, float64)")
+    params64 = ansatz.from_jax_params(weights, dtype="float64", device=dev)
+    cfg = config.Config(dtype="float64")
+    k3.reset_launches()
+    for ri, want in JAX_K3_GOLDEN.items():
+        got = (energy.rayleigh_quotient(params64, cfg, ri, n=K3_GRID_N),
+               energy.rayleigh_quotient(params64, cfg, ri, n=K3_GRID_N,
+                                        which="lcao"),
+               energy.rayleigh_quotient_spheroidal(params64, cfg, ri),
+               energy.rayleigh_quotient_spheroidal(params64, cfg, ri,
+                                                   which="lcao"))
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        print(f"R={ri}: E_int {got[0]:.15f} E_lcao {got[1]:.15f} (80^3); "
+              f"E_int {got[2]:.15f} E_lcao {got[3]:.15f} (spheroidal); "
+              f"max rel to JAX {max(rel):.2e}")
+        if not max(rel) <= 1e-10:
+            raise AssertionError(f"K3 golden missed at R={ri}: rel {rel}")
+    if k3.launches["residual_fwd"] != 2 * len(JAX_K3_GOLDEN):
+        raise AssertionError(f"the model quotients did not all run K3: "
+                             f"{k3.launches}")
+    sys.stdout.flush()
+
+    phase(f"15 make ref-recipe (cut: {REF_TRAIN_STEPS} + "
+          f"{REF_FINETUNE_STEPS} steps, float64), then cli energy at its "
+          "defaults")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        s1, s2 = os.path.join(work, "stage1"), os.path.join(work, "stage2")
+        run_cli(["train", "--out", s1, "--dtype", "float64", "--epochs",
+                 str(REF_TRAIN_STEPS)])
+        run_cli(["finetune", os.path.join(s1, "best.npz"), "--out", s2,
+                 "--dtype", "float64", "--epochs", str(REF_FINETUNE_STEPS)])
+        ft = os.path.join(s2, "finetune.npz")
+        pkl = os.path.join(work, "energy_R_ion.pkl")
+        n_r = len(np.round(np.arange(0.2, 4.0 + 0.1, 0.1), 2))
+        per = K3_GRID_N * K3_GRID_N
+        want_launches = n_r * -(-K3_GRID_N // max(1, energy.CHUNK_POINTS
+                                                  // per))
+        k3.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary, _ = run_cli(["energy", ft, "--out", pkl])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(k3.launches)
+        surf = energy.load_surface(pkl)
+        if sorted(surf) != ["E_int", "E_net", "Elcao", "R"] or any(
+                len(v) != n_r for v in surf.values()):
+            raise AssertionError(f"the surface pickle's schema: "
+                                 f"{ {k: np.shape(v) for k, v in surf.items()} }")
+        if not all(np.all(np.isfinite(v)) for v in surf.values()) or \
+                not all(np.isfinite([summary["max_err_mHa"],
+                                     summary["mean_err_mHa"]])):
+            raise AssertionError("the surface or its errors are not finite")
+        if counts["residual_fwd"] != want_launches:
+            raise AssertionError(f"cli energy launched K3 "
+                                 f"{counts['residual_fwd']} times, the "
+                                 f"chunking implies {want_launches}")
+        pts_model = n_r * K3_GRID_N ** 3
+        print(f"cli energy: {n_r} R in {wall:.3f} s, {pts_model / wall:.4e} "
+              f"model points/s ({2 * pts_model / wall:.4e} with the LCAO "
+              f"quotients); K3 launches {counts}; E_int at R=1 "
+              f"{surf['E_int'][8]:.9f}, E_lcao {surf['Elcao'][8]:.9f}, "
+              f"E_net {surf['E_net'][8]:.9f}")
+        params_ft = ansatz.from_jax_params(
+            _load_npz_params(ft), device=dev)
+        cfg_ft = config.Config()
+        _, busy, by_kernel = profile_device(
+            lambda: energy.surface(params_ft, cfg_ft,
+                                   r_values=[1.0, 2.0, 3.0]), 1,
+            "surface of 3 R (model and LCAO quotients)")
+        k3_ms = sum(v for k, v in by_kernel.items() if "residual_fwd" in k)
+        print(f"K3's share of the device time: {k3_ms / busy:.4f} "
+              f"({k3_ms:.4f} of {busy:.4f} ms)", flush=True)
+
+        phase("16 make evaluate (cli evaluate artifacts/flagship_separable"
+              ".npz --steps 8000 --dtype float64)")
+        src = os.path.join(HERE, "artifacts", "flagship_separable.npz")
+        out_dir = os.path.join(work, "evaluate")
+        n_quot = (len(np.round(np.arange(0.2, 4.0 + 0.05, 0.05), 3)) + 153
+                  + n_r)
+        ks.reset_launches()
+        t0 = time.time()
+        res, err = run_cli(["evaluate", src, "--dtype", "float64",
+                            "--steps", "8000", "--out", out_dir])
+        print(f"cli evaluate: {time.time() - t0:.1f} s; "
+              + err.strip().splitlines()[-1])
+        ev_counts = dict(ks.launches)
+        got = etab.load_table(os.path.join(out_dir, "evaluated.npz"))
+        want = etab.load_table(os.path.join(HERE, "artifacts",
+                                            "evaluated.npz"))
+        if not np.array_equal(got["R"], want["R"]):
+            raise AssertionError("the table's knots differ from the shipped")
+        rel = np.abs(got["E"] - want["E"]) / np.abs(want["E"])
+        print(f"e_table/E against artifacts/evaluated.npz: max rel "
+              f"{rel.max():.3e} over {len(rel)} knots; launches {ev_counts} "
+              f"for {n_quot} quotients")
+        checks = {
+            "e_table/E equal to the shipped to 1e-10": rel.max() <= 1e-10,
+            "int_min_signed_mHa >= -1e-4": res["int_min_signed_mHa"]
+            >= -1e-4,
+            "int_max_err_mHa <= 0.01": res["int_max_err_mHa"] <= 0.01,
+            "tab_mean_err_mHa <= 0.001": res["tab_mean_err_mHa"] <= 0.001,
+            "fit_rms_mHa <= 0.01": res["fit_rms_mHa"] <= 0.01,
+            "one K1-fwd launch a quotient": ev_counts == {
+                "separable_fwd": n_quot, "separable_bwd": 0},
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"make evaluate: {failed}")
+        sys.stdout.flush()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    t = times[("float64", K3_GRID_N ** 3)]
+    return {
+        "name": "residual_fwd",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/residual_fwd.cu",
+        "replaces": ("pinn_for_quantum_wavefunction_surfaces_tpu/ops/"
+                     "pallas_residual.py:200"),
+        "launches": counts["residual_fwd"],
+        "dtype": "float64",
+        "max_abs_err": errs["float64"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+    }
+
+
+def _load_npz_params(path: str) -> dict:
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    tree, _ = checkpoint.load_params(path)
+    return tree.get("params", tree)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -741,6 +1097,8 @@ def main() -> int:
     profile_device(train_eval, 10, "evaluation")
 
     k2 = k2_phases(dev, card)
+    k3_entry = k3_phases(dev, card)
+    phase()
 
     t64 = times["float64"]
     kernels = []
@@ -760,7 +1118,7 @@ def main() -> int:
             "bound_by": t64[f"{which}_bound_by"],
             "library_ms": None,
         })
-    kernels += k2
+    kernels += k2 + [k3_entry]
     print(f"smoke run {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,12 +2,16 @@
 
 Physics-informed neural-network wavefunctions and eigenvalue surfaces of the
 H2+ molecular ion, on PyTorch with hand-written CUDA kernels for NVIDIA
-Hopper. This package runs the separable-spheroidal variational trainer: the
-ansatz (models.ansatz), the fused (psi, lap psi) kernel with its backward
-(ops.pallas_separable, csrc/), the exact quadrature objective and its
-Adam + L-BFGS polish (training.variational), spheroidal scoring and the
-exact oracle (analysis), npz checkpoints (io.checkpoint) and the
-``variational`` CLI.
+Hopper. This package runs the separable-spheroidal variational trainer
+(training.variational, kernel ops.pallas_separable), the residual PINN
+trainer of the symmetric family (training.engine, kernel ops.pallas_train)
+and the E(R) scoring layer: Rayleigh quotients on the uniform, adapted and
+spheroidal grids (analysis.energy, with the reference-parity model's
+forward-only kernel ops.pallas_residual), the spline E(R) table
+(analysis.etab), the E-head distillation (training.distill) and the exact
+oracle; npz and the reference's .pt checkpoints (io); and the
+``variational``, ``train``, ``finetune``, ``energy``, ``distill`` and
+``evaluate`` CLI subcommands. The kernels' sources are in csrc/.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; a CUDA
 request without CUDA raises. The JAX package is the reference: this package

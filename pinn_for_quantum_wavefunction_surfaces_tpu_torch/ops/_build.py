@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("separable_fwd", "separable_bwd", "train_fwd", "train_bwd")
+KERNELS = ("separable_fwd", "separable_bwd", "train_fwd", "train_bwd",
+           "residual_fwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

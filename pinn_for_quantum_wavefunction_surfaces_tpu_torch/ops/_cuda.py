@@ -62,17 +62,18 @@ def pack(ws):
 
 
 def typed_lib(name: str, n_ptr: int, error_prefix: str,
-              extra: tuple = ()) -> ctypes.CDLL:
+              extra: tuple = (), n_extra_int: int = 0) -> ctypes.CDLL:
     """The library of kernel ``name`` with the argument types of its two
-    entry points set: ``n_ptr`` pointers, (n, hidden, psym) ints, (ry, rz)
-    doubles and the stream. ``extra`` names int-returning functions of no
-    arguments."""
+    entry points set: ``n_ptr`` pointers, (n, hidden, psym) ints and
+    ``n_extra_int`` more, (ry, rz) doubles and the stream. ``extra`` names
+    int-returning functions of no arguments."""
     lib = _build.load(name)
     if not getattr(lib, "_port_typed", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{sfx}")
-            fn.argtypes = [vp] * n_ptr + [ci, ci, ci, cd, cd, vp]
+            fn.argtypes = ([vp] * n_ptr + [ci] * (3 + n_extra_int)
+                           + [cd, cd, vp])
             fn.restype = ci
         err = getattr(lib, f"{error_prefix}_error_string")
         err.argtypes = [ci]
@@ -85,15 +86,16 @@ def typed_lib(name: str, n_ptr: int, error_prefix: str,
     return lib
 
 
-def launch(lib, dtype, device, ptrs, n, hidden, p_sym, ry, rz) -> None:
+def launch(lib, dtype, device, ptrs, n, hidden, p_sym, ry, rz,
+           extra_ints: tuple = ()) -> None:
     """Call the ``_f32`` or ``_f64`` entry point of a ``typed_lib`` on the
     current stream of ``device``; raise if the launch was refused."""
     name = lib._port_name
     fn = getattr(lib, f"{name}_{suffix(dtype)}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*map(ptr, ptrs), n, hidden, int(p_sym), float(ry),
-                 float(rz), ctypes.c_void_p(stream))
+        err = fn(*map(ptr, ptrs), n, hidden, int(p_sym), *extra_ints,
+                 float(ry), float(rz), ctypes.c_void_p(stream))
     if err:
         msg = lib._port_error(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

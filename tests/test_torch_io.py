@@ -137,13 +137,14 @@ def test_port_sources_import_no_jax():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, pinn_for_quantum_wavefunction_surfaces_tpu_torch, "
-            "pinn_for_quantum_wavefunction_surfaces_tpu_torch.cli, "
-            "pinn_for_quantum_wavefunction_surfaces_tpu_torch.training."
-            "variational, pinn_for_quantum_wavefunction_surfaces_tpu_torch."
-            "analysis.energy, pinn_for_quantum_wavefunction_surfaces_tpu_torch."
-            "training.engine, pinn_for_quantum_wavefunction_surfaces_tpu_torch."
-            "utils.metrics; print('\\n'.join(sys.modules))")
+    port = "pinn_for_quantum_wavefunction_surfaces_tpu_torch"
+    modules = ["cli", "training.variational", "analysis.energy",
+               "training.engine", "utils.metrics", "analysis.etab",
+               "training.distill", "ops.pallas_residual", "ops.quadrature",
+               "io.torch_pt"]
+    code = (f"import sys, {port}, "
+            + ", ".join(f"{port}.{m}" for m in modules)
+            + "; print('\\n'.join(sys.modules))")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=REPO, env=env).stdout
