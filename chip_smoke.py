@@ -7,19 +7,23 @@ Phases (any failure exits non-zero; none is caught and passed over):
  1. header: the card's name and power limit, torch and CUDA versions;
  2. build: the five CUDA kernels from csrc/ (K1 and K2, forward and
     backward, and K3), one nvcc per source, all in parallel; ptxas
-    registers and spills of every instantiation;
+    registers and spills of every instantiation; K1's shared memory per
+    block and resident blocks per SM at every width in both types;
  K1, the separable-spheroidal variational trainer (make flagship):
  3. kernel check at the flagship training batch (164 502 points of the
     dual spheroidal grid, artifacts/flagship_separable.npz weights), in
     float64 and float32: K1-fwd against the plain forward, K1-bwd against
     autograd of the plain forward under seeded random cotangents, and two
-    K1-bwd launches equal bit for bit;
+    K1-bwd launches equal bit for bit; the same at 9 216 points (one
+    spheroidal quotient of make evaluate), and at that quotient at the
+    other widths (H = 4, 8, 32; seeded weights) in float64;
  4. scoring: the flagship's E_int through K1-fwd at R = 0.2, 1, 2, 4 within
     [-1e-4, 0.01] mHa of the exact oracle;
  5. training: the port's polish_spheroidal at the flagship recipe's sizes
     (n_r 39, 40 x 24 dual grid + validation grid, float64) from the seeded
     GZ init, a few dozen Adam then L-BFGS steps; the loss must be finite and
-    lower, and both kernels must have launched during this run;
+    lower, and both kernels must have launched during this run; launches
+    and line-search evaluations per L-BFGS step;
  6. times: CUDA-event times of the kernels and their plain versions at the
     flagship batch, beside the bound;
  7. profile: torch.profiler over ten loss-and-gradient evaluations at the
@@ -171,9 +175,8 @@ def bwd_ops(h: int) -> int:
     pair (117), and per MLP the adjoint of its layers (6 H^2 + 54 H: the
     input cotangents of the second layer are 3 H^2 multiply-adds) and the
     weight-gradient sums (6 H^2 + 6 H + 1: dW2 is 3 H^2 multiply-adds).
-    The kernel evaluates each MLP's first two layers a second time in the
-    backward (csrc/separable_bwd.cu, mlp_stage); that work is not needed
-    and is not counted."""
+    The kernel evaluates no layer twice: the forward's tiles stay in shared
+    memory for the adjoint (csrc/separable_bwd.cu)."""
     return fwd_ops(h) + 24 * h * h + 120 * h + 119
 
 
@@ -917,13 +920,24 @@ def main() -> int:
     phase("2 build")
     t0 = time.time()
     _build.build()
-    print(f"built {', '.join(_build.KERNELS)} in {time.time() - t0:.1f} s")
+    print(f"built {', '.join(_build.KERNELS)} in {time.time() - t0:.1f} s; "
+          "each done after " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()))
     for name in _build.KERNELS:
         for line in ptxas_summary(_build.log_path(name).read_text()):
             print(f"  {name} {line}")
+    for name in ("separable_fwd", "separable_bwd"):
+        for dt in (torch.float64, torch.float32):
+            for h in ks.SUPPORTED_HIDDEN:
+                blocks, smem = ks.occupancy(name, h, dt)
+                print(f"  {name} {str(dt)[6:]} H={h}: {smem} B shared "
+                      f"memory a block of {ks.THREADS} threads, {blocks} "
+                      f"resident blocks per SM "
+                      f"({blocks * ks.THREADS // 32} warps)")
     sys.stdout.flush()
 
-    phase("3 kernel check (flagship training batch)")
+    phase("3 kernel check (flagship training batch; one make evaluate "
+          "quotient)")
     art, _ = checkpoint.load_params(
         os.path.join(HERE, "artifacts", "flagship_separable.npz"))
     art = art.get("params", art)
@@ -933,19 +947,47 @@ def main() -> int:
     hidden = art["lam1"]["w"].shape[1]
     vb = variational.dual_grid_vbatch(cfg, N_R, N_XI, N_ETA, device=dev)
     n_train = vb.x.numel()
+    # a quotient of make evaluate: the 96 x 96 spheroidal grid at one R
+    vb_eval = variational.spheroidal_vbatch(cfg, n_r=1, n_xi=96, n_eta=96,
+                                            r_values=[1.0], device=dev)
     kw = dict(p_sym=mcfg.inversion_symmetry, ry=mcfg.ry, rz=mcfg.rz)
     gen = torch.Generator(device=dev).manual_seed(0)
     errs, inputs = {}, {}
-    for dt_name, dt in (("float64", torch.float64), ("float32", torch.float32)):
-        params = ansatz.from_jax_params(art, dtype=dt, device=dev)
-        rr = vb.r[:, None].expand_as(vb.x).reshape(-1).to(dt)
-        pts = [t.reshape(-1).to(dt).contiguous() for t in (vb.x, vb.y, vb.z)]
+    def width_params(h, dt):
+        """Separable params at width h: the seeded GZ init (whose MLP output
+        layers are zero) plus N(0, 0.3^2) noise on every MLP weight, drawn
+        in float64, so that every layer shapes psi."""
+        p = ansatz.init_params(config.ModelConfig(arch="separable", hidden=h),
+                               seed=h, dtype="float64", device=dev)
+        noise = torch.Generator(device=dev).manual_seed(h)
+        for k in ("lam1", "lam2", "lamout", "mu1", "mu2", "muout"):
+            for f in p[k]:
+                p[k][f] = p[k][f] + 0.3 * torch.randn(
+                    p[k][f].shape, generator=noise, device=dev,
+                    dtype=torch.float64)
+        return ansatz.as_params(p, dt, dev)
+
+    both = (("float64", torch.float64), ("float32", torch.float32))
+    # the flagship weights at the flagship batch and at one make evaluate
+    # quotient in both types; the other widths the kernels are built for
+    # at that quotient in float64, the flagship's type
+    cases = [("flagship", vb, None, both), ("evaluate", vb_eval, None, both)]
+    cases += [(f"H={h}", vb_eval, h, both[:1])
+              for h in ks.SUPPORTED_HIDDEN if h != hidden]
+    for batch_name, batch, h, (dt_name, dt) in (
+            (c[0], c[1], c[2], d) for c in cases for d in c[3]):
+        params = (ansatz.from_jax_params(art, dtype=dt, device=dev)
+                  if h is None else width_params(h, dt))
+        rr = batch.r[:, None].expand_as(batch.x).reshape(-1).to(dt)
+        pts = [t.reshape(-1).to(dt).contiguous()
+               for t in (batch.x, batch.y, batch.z)]
+        n_pts = rr.numel()
+        label = f"{dt_name} n={n_pts}" + ("" if h is None else f" H={h}")
         with torch.no_grad():
             a = ansatz.orbital_exponent(params, rr)
             b = ansatz.gz_exponent(params, rr, mcfg.inversion_symmetry, a)
         ws = ks.kernel_weights(params, dt)
         args = (a, b, *pts, rr)
-        inputs[dt_name] = (ws, args)
         psi_k, lap_k = ks.separable_fwd_cuda(ws, *args, **kw)
         with torch.no_grad():
             psi_p, lap_p = ks.psi_lap_separable_plain(ws, *args, **kw)
@@ -962,14 +1004,14 @@ def main() -> int:
             tol_psi = (1e-5, 1e-7 * float(psi_p.abs().max()))
             tol_lap = (1e-4, 1e-5 * float(lap_p.abs().max()))
             tol_bwd = 1e-4
-        e_psi = check_close(f"K1-fwd psi {dt_name}", psi_k, psi_p, *tol_psi)
-        e_lap = check_close(f"K1-fwd lap {dt_name}", lap_k, lap_p, *tol_lap)
-        print(f"K1-fwd {dt_name}: psi max abs {e_psi[0]:.3e} rel "
+        e_psi = check_close(f"K1-fwd psi {label}", psi_k, psi_p, *tol_psi)
+        e_lap = check_close(f"K1-fwd lap {label}", lap_k, lap_p, *tol_lap)
+        print(f"K1-fwd {label}: psi max abs {e_psi[0]:.3e} rel "
               f"{e_psi[1]:.3e} | lap max abs {e_lap[0]:.3e} rel "
               f"{e_lap[1]:.3e}")
         # backward against autograd of the plain forward
-        dpsi = torch.randn(n_train, generator=gen, device=dev, dtype=dt)
-        dlap = torch.randn(n_train, generator=gen, device=dev, dtype=dt)
+        dpsi = torch.randn(n_pts, generator=gen, device=dev, dtype=dt)
+        dlap = torch.randn(n_pts, generator=gen, device=dev, dtype=dt)
         ws_g = [w.clone().requires_grad_(True) for w in ws]
         a_g, b_g = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
         pp, ll = ks.psi_lap_separable_plain(ws_g, a_g, b_g, *pts, rr, **kw)
@@ -982,17 +1024,20 @@ def main() -> int:
         names = ["lam1/w", "lam1/b", "lam2/w", "lam2/b", "lamout/w",
                  "lamout/b", "mu1/w", "mu1/b", "mu2/w", "mu2/b", "muout/w",
                  "muout/b", "a", "b"]
-        worst = max((check_normwise(f"K1-bwd {nm} {dt_name}", g, r_,
+        worst = max((check_normwise(f"K1-bwd {nm} {label}", g, r_,
                                     tol_bwd)
                      for nm, g, r_ in zip(names, got, ref)),
                     key=lambda e: e[1])
         repeat = all(torch.equal(u, v) for u, v in
                      zip(got, list(dws2) + [da2, db2]))
         if not repeat:
-            raise AssertionError(f"K1-bwd {dt_name}: two launches differ")
-        print(f"K1-bwd {dt_name}: worst normwise {worst[1]:.3e} (abs "
+            raise AssertionError(f"K1-bwd {label}: two launches differ")
+        print(f"K1-bwd {label}: worst normwise {worst[1]:.3e} (abs "
               f"{worst[0]:.3e}); two launches bitwise equal")
-        errs[dt_name] = {"fwd": max(e_psi[0], e_lap[0]), "bwd": worst[0]}
+        if batch_name == "flagship":
+            inputs[dt_name] = (ws, args)
+            errs[dt_name] = {"fwd": max(e_psi[0], e_lap[0]),
+                             "bwd": worst[0]}
     sys.stdout.flush()
 
     phase("4 scoring (flagship E_int through K1-fwd)")
@@ -1054,7 +1099,12 @@ def main() -> int:
           f"{ADAM_STEPS * n_train / t_adam:.4e} points/s (one fwd+bwd of "
           f"{n_train} points a step); L-BFGS: {LBFGS_STEPS / t_lbfgs:.2f} "
           f"steps/s, launches per step {lb} (the validation-grid forward "
-          f"included); whole run {t1 - t0:.2f} s", flush=True)
+          f"included); whole run {t1 - t0:.2f} s")
+    # a step evaluates the loss and its gradient at its start, then in the
+    # line search: one K1-bwd launch an evaluation
+    print(f"line-search evaluations per L-BFGS step: "
+          f"{lb['separable_bwd'] - 1:.2f} (budget "
+          f"{variational.LBFGS_MAX_LS})", flush=True)
 
     phase(f"6 times (CUDA events, {card})")
     times = {}

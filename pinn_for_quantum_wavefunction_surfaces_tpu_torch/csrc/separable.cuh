@@ -1,16 +1,36 @@
-// Per-point arithmetic shared by the separable (psi, lap psi) kernels.
+// Arithmetic and tile machinery shared by the separable (psi, lap psi)
+// kernels.
 //
-// One CUDA thread evaluates one point. The arithmetic is the same, step for
-// step, as the plain PyTorch versions in ops/pallas_separable.py
-// (psi_lap_separable_plain and psi_lap_separable_vjp_plain), which the CPU
-// tests hold against the JAX package. Every spatial gradient lies in
-// span{u1, u2} (unit vectors from the nuclei), so gradients are kept as two
-// coefficients and dot products reduce to scalars with u1.u2 = c12.
+// The arithmetic is the same, step for step, as the plain PyTorch versions
+// in ops/pallas_separable.py (psi_lap_separable_plain and
+// psi_lap_separable_vjp_plain), which the CPU tests hold against the JAX
+// package. Every spatial gradient lies in span{u1, u2} (unit vectors from
+// the nuclei), so gradients are kept as two coefficients and dot products
+// reduce to scalars with u1.u2 = c12.
+//
+// Work layout. A block of kThreads threads owns a tile of P points at a
+// time. The per-point scalar work (geometry, GZ pair, bounded correction,
+// product rule and their adjoints) runs one thread a point on the block's
+// first P threads, the scalar lanes; what the MLPs need of it, and what
+// they return, passes through per-point vectors in shared memory. For the
+// MLPs, TPP threads share a point, UPT consecutive units each.
+// An MLP's first-layer triples are the [3P, H] tile A in shared memory
+// (row c P + p holds component c of point p), and the H x H products
+//   L = A W2,  dA = G W2^T,  dW2 += A^T G
+// run on the tile: on the float64 tensor cores (mma.sync m8n8k4 through
+// nvcuda::wmma fragments of double) where T is double and 8 divides H, as
+// FMAs from shared memory otherwise (float32 keeps full float32: TF32 would
+// break its tolerances).
 //
 // Weight layout of one MLP (2 -> H -> H -> 1, tanh), packed row-major as the
 // wrapper concatenates them: w1 (2,H) | b1 (H) | w2 (H,H) | b2 (H) | ow (H)
-// | ob (1); the lambda MLP first, then the mu MLP.
+// | ob (1); the lambda MLP first, then the mu MLP. In shared memory each MLP
+// starts on a 32-byte boundary (stride WSP), as the fragments' loads need.
 #pragma once
+
+#include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -35,9 +55,114 @@ struct Point {
   T cf;                          // the constant MLP input R/4
 };
 
+// Phi_GZ = fa + fb, fb = P e^{-a r2 - b r1}: value, gradient coefficients
+// (p1, p2) on (u1, u2), laplacian.
 template <typename T>
-__device__ __forceinline__ void point_setup(T x, T y, T z, T r, T ry, T rz,
-                                            Point<T>& p) {
+struct GZ {
+  T fa, fb, sa, sb, phi0, p1, p2, phil;
+};
+
+// ---------------------------------------------------------------------------
+// Tiles
+
+constexpr int kThreads = 256;  // threads a block
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int H>
+struct Tile {
+  static constexpr int TPP = H < 8 ? H : 8;        // threads a point
+  static constexpr int UPT = H / TPP;              // units a thread
+  static constexpr int P = kThreads / TPP;         // points a tile
+  static constexpr int ROWS = 3 * P;               // rows of a [3P, H] tile
+  static constexpr int WSP = (Layout<H>::SIZE + 3) & ~3;  // padded MLP
+  static_assert(P % 32 == 0, "the scalar lanes are whole warps");
+};
+
+// Per-point vectors of a tile in shared memory, [slot][P]: the MLP inputs,
+// the MLP output triples, and (K1-bwd) their cotangents.
+enum Slot { kT0, kE0, kCf, kL0, kL1, kL2, kM0, kM1, kM2, kDq0, kDl1, kDl2,
+            kDm1, kDm2, kFwdSlots = kDq0, kBwdSlots = kDm2 + 1 };
+
+// The calling thread's first unit: it owns units unit0 .. unit0 + UPT - 1
+// of its point.
+template <int H>
+__device__ __forceinline__ int unit0() {
+  return (threadIdx.x % Tile<H>::TPP) * Tile<H>::UPT;
+}
+
+// The H x H products on the float64 tensor cores?
+template <typename T, int H>
+__host__ __device__ constexpr bool use_mma() {
+  return std::is_same<T, double>::value && H % 8 == 0;
+}
+
+// C = A W2 (TRANS false) or C = A W2^T (TRANS true); A and C are [3P, H]
+// tiles, W2 is [H, H]; all row-major in shared memory. The caller
+// synchronises before (A complete) and after (C complete).
+template <typename T, int H, bool TRANS>
+__device__ __forceinline__ void tile_product(const T* A, const T* W2, T* C) {
+  using TL = Tile<H>;
+  if constexpr (use_mma<T, H>()) {
+    using namespace nvcuda;
+    constexpr int CT = H / 8;
+    constexpr int NT = (TL::ROWS / 8) * CT;
+    const int warp = threadIdx.x / 32;
+    for (int tt = warp; tt < NT; tt += kWarps) {
+      const int r0 = (tt / CT) * 8, c0 = (tt % CT) * 8;
+      wmma::fragment<wmma::accumulator, 8, 8, 4, double> acc;
+      wmma::fill_fragment(acc, 0.0);
+#pragma unroll
+      for (int k0 = 0; k0 < H; k0 += 4) {
+        wmma::fragment<wmma::matrix_a, 8, 8, 4, double, wmma::row_major> a;
+        wmma::load_matrix_sync(a, A + r0 * H + k0, H);
+        if constexpr (TRANS) {  // B[k][n] = W2[n][k]: W2 read column-major
+          wmma::fragment<wmma::matrix_b, 8, 8, 4, double, wmma::col_major> b;
+          wmma::load_matrix_sync(b, W2 + c0 * H + k0, H);
+          wmma::mma_sync(acc, a, b, acc);
+        } else {
+          wmma::fragment<wmma::matrix_b, 8, 8, 4, double, wmma::row_major> b;
+          wmma::load_matrix_sync(b, W2 + k0 * H + c0, H);
+          wmma::mma_sync(acc, a, b, acc);
+        }
+      }
+      wmma::store_matrix_sync(C + r0 * H + c0, acc, H, wmma::mem_row_major);
+    }
+  } else {
+    // each thread: its point's three rows at its own units, j outermost so
+    // that each loaded value serves 3 or UPT multiply-adds
+    const int p = threadIdx.x / TL::TPP, k0 = unit0<H>();
+    T acc[3][TL::UPT];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int i = 0; i < TL::UPT; ++i) acc[c][i] = T(0);
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      T wv[TL::UPT];
+#pragma unroll
+      for (int i = 0; i < TL::UPT; ++i)
+        wv[i] = TRANS ? W2[(k0 + i) * H + j] : W2[j * H + k0 + i];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T av = A[(c * TL::P + p) * H + j];
+#pragma unroll
+        for (int i = 0; i < TL::UPT; ++i) acc[c][i] += av * wv[i];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int i = 0; i < TL::UPT; ++i)
+        C[(c * TL::P + p) * H + k0 + i] = acc[c][i];
+  }
+}
+
+// Geometry and GZ pair of one point: the plain versions' _geometry,
+// _features and _gz.
+template <typename T>
+__device__ __forceinline__ void point_gz(T x, T y, T z, T r, T ry, T rz, T a,
+                                         T b, T psym, Point<T>& p, GZ<T>& g) {
   const T d1x = x - r, d1y = y - ry, d1z = z - rz;
   const T d2x = x + r, d2y = y + ry, d2z = z + rz;
   p.r1 = m_sqrt(d1x * d1x + d1y * d1y + d1z * d1z);
@@ -56,18 +181,6 @@ __device__ __forceinline__ void point_setup(T x, T y, T z, T r, T ry, T rz,
   p.kt = T(-0.5) * p.t0 * (T(1) + p.c12);
   p.ke = ev * inv_r * (T(1) - p.c12);
   p.cf = T(0.25) * r;
-}
-
-// Phi_GZ = fa + fb, fb = P e^{-a r2 - b r1}: value, gradient coefficients
-// (p1, p2) on (u1, u2), laplacian.
-template <typename T>
-struct GZ {
-  T fa, fb, sa, sb, phi0, p1, p2, phil;
-};
-
-template <typename T>
-__device__ __forceinline__ GZ<T> gz(T a, T b, T psym, const Point<T>& p) {
-  GZ<T> g;
   g.fa = m_exp(-a * p.r1 - b * p.r2);
   g.fb = psym * m_exp(-a * p.r2 - b * p.r1);
   const T s = a * a + b * b + T(2) * a * b * p.c12;
@@ -77,69 +190,80 @@ __device__ __forceinline__ GZ<T> gz(T a, T b, T psym, const Point<T>& p) {
   g.p1 = -(a * g.fa + b * g.fb);
   g.p2 = -(b * g.fa + a * g.fb);
   g.phil = g.fa * g.sa + g.fb * g.sb;
-  return g;
 }
 
-// First layer on the seed triple (s, 1, 0): a1_j = (T, g w, h w^2).
-template <typename T, int H>
-__device__ __forceinline__ void mlp_first(const T* W, T s, T cf, T (&a0)[H],
-                                          T (&a1)[H], T (&a2)[H]) {
-  using L = Layout<H>;
+// Sum of v over the TPP lanes of a point (a butterfly: every lane ends with
+// the same bits, and the order is fixed).
+template <int H, typename T>
+__device__ __forceinline__ T point_sum(T v) {
 #pragma unroll
-  for (int j = 0; j < H; ++j) {
+  for (int off = 1; off < Tile<H>::TPP; off <<= 1)
+    v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Sum of v over the points of a warp, lane by lane of a point.
+template <int H, typename T>
+__device__ __forceinline__ T warp_points_sum(T v) {
+#pragma unroll
+  for (int off = Tile<H>::TPP; off < 32; off <<= 1)
+    v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// One MLP on the tile: the output triple (o0, o1, o2) = (f, df/ds, d2f/ds2)
+// of the calling thread's point (every lane of the point gets it). W: this
+// MLP's weights. X receives the first-layer triples a_j = (t, g w, h w^2)
+// of the seed (s, 1, 0); Y the second layer's (u, l1, l2), u = tanh(l0)
+// written over l0 by the element's own thread: what the adjoint needs.
+// After its last barrier (the one after the product) X is no longer read,
+// and each thread reads and writes only its own elements of Y.
+template <typename T, int H>
+__device__ __forceinline__ void mlp_tile_forward(const T* W, T s, T cf, T* X,
+                                                 T* Y, T& o0, T& o1, T& o2) {
+  using L = Layout<H>;
+  using TL = Tile<H>;
+  const int p = threadIdx.x / TL::TPP, u0 = unit0<H>();
+#pragma unroll
+  for (int i = 0; i < TL::UPT; ++i) {
+    const int j = u0 + i;
     const T w = W[L::W1 + j];
-    const T zz = s * w + cf * W[L::W1 + H + j] + W[L::B1 + j];
-    const T t = m_tanh(zz);
+    const T t = m_tanh(s * w + cf * W[L::W1 + H + j] + W[L::B1 + j]);
     const T g = T(1) - t * t;
     const T h = T(-2) * t * g;
-    a0[j] = t;
-    a1[j] = g * w;
-    a2[j] = h * w * w;
+    X[p * H + j] = t;
+    X[(TL::P + p) * H + j] = g * w;
+    X[(2 * TL::P + p) * H + j] = h * w * w;
   }
-}
-
-// Second-layer pre-activation triple of neuron k.
-template <typename T, int H>
-__device__ __forceinline__ void mlp_lin(const T* W, int k, const T (&a0)[H],
-                                        const T (&a1)[H], const T (&a2)[H],
-                                        T& l0, T& l1, T& l2) {
-  using L = Layout<H>;
-  l0 = T(0);
-  l1 = T(0);
-  l2 = T(0);
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const T wik = W[L::W2 + i * H + k];
-    l0 += a0[i] * wik;
-    l1 += a1[i] * wik;
-    l2 += a2[i] * wik;
-  }
-  l0 += W[L::B2 + k];
-}
-
-// The whole MLP: output triple (o0, o1, o2) = (f, df/ds, d2f/ds2).
-template <typename T, int H>
-__device__ __forceinline__ void mlp_fwd(const T* W, T s, T cf, T& o0, T& o1,
-                                        T& o2) {
-  using L = Layout<H>;
-  T a0[H], a1[H], a2[H];
-  mlp_first<T, H>(W, s, cf, a0, a1, a2);
+  __syncthreads();
+  tile_product<T, H, false>(X, W + L::W2, Y);
+  __syncthreads();
   T acc0 = T(0), acc1 = T(0), acc2 = T(0);
 #pragma unroll
-  for (int k = 0; k < H; ++k) {
-    T l0, l1, l2;
-    mlp_lin<T, H>(W, k, a0, a1, a2, l0, l1, l2);
-    const T u = m_tanh(l0);
+  for (int i = 0; i < TL::UPT; ++i) {
+    const int k = u0 + i;
+    const T u = m_tanh(Y[p * H + k] + W[L::B2 + k]);
+    const T l1 = Y[(TL::P + p) * H + k];
+    const T l2 = Y[(2 * TL::P + p) * H + k];
     const T gg = T(1) - u * u;
     const T hh = T(-2) * u * gg;
     const T owk = W[L::OW + k];
+    Y[p * H + k] = u;
     acc0 += u * owk;
     acc1 += gg * l1 * owk;
     acc2 += (gg * l2 + hh * l1 * l1) * owk;
   }
-  o0 = acc0 + W[L::OB];
-  o1 = acc1;
-  o2 = acc2;
+  o0 = point_sum<H>(acc0) + W[L::OB];
+  o1 = point_sum<H>(acc1);
+  o2 = point_sum<H>(acc2);
+}
+
+// Load both MLPs' packed weights into shared memory at stride WSP.
+template <typename T, int H>
+__device__ __forceinline__ void load_weights(const T* __restrict__ w, T* sw) {
+  constexpr int WS = Layout<H>::SIZE;
+  for (int i = threadIdx.x; i < 2 * WS; i += kThreads)
+    sw[(i / WS) * Tile<H>::WSP + i % WS] = w[i];
 }
 
 // Bounded correction exp(c tanh((lam + mu) / c)) and the product rule.

@@ -8,14 +8,23 @@
 // writes 2 (64 bytes in float64) but does about 2 (6 H^2 + 29 H + 1) + 115
 // floating-point operations (~4.1k at H = 16) and 4 H + 6 transcendentals:
 // ~64 flop/byte, above the card's float64 ridge point (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte). At the flagship batch (164 502 points) the
-// whole call is ~0.7 GFLOP, so launch latency is of the same order.
+// 3.35 TB/s = 20 flop/byte). Two thirds of the operations are the second
+// layers' products, 3 H^2 multiply-adds a point and MLP; the float64 tanh
+// of the 4 H units is a software routine of tens of instructions each.
 //
-// Design: one thread per point, nothing but the two outputs touches device
-// memory. The 2 (H^2 + 5H + 1) weights are loaded once per block into shared
-// memory, where every read is a broadcast; the H first-layer triples of each
-// MLP stay in registers (fully unrolled, H is a template parameter). Lanes
-// past n evaluate the finite pad point and store nothing.
+// Design (separable.cuh): a block of 256 threads takes one tile of P
+// points (32 at H = 16). The first P threads compute the points' geometry
+// and GZ pair, one a point, and later the bounded correction and product
+// rule; in between, 8 threads a point evaluate the MLPs, whose tanh units
+// they share, and each MLP's second layer runs as the tile product
+// [3P, H] x [H, H] on the float64 tensor cores instead of 3 H^2 scalar
+// multiply-adds a point. Shared memory holds the weights, two [3P, H] tiles
+// and the per-point vectors (32 KB in float64 at H = 16), so several blocks
+// are resident on an SM. Measured (chip_smoke.py phase 6) the kernel moved
+// little against the one-thread-a-point design: removing the second layer's
+// scalar multiply-adds, or the per-point work repeated on 8 lanes, did not
+// set its time; the float64 tanh of the 4 H units and the tile's barriers
+// remain. Lanes past n evaluate the finite pad point and store nothing.
 
 #include "separable.cuh"
 
@@ -23,48 +32,89 @@ using namespace sep;
 
 namespace {
 
-constexpr int kThreads = 128;
+template <typename T, int H>
+__host__ __device__ constexpr int smem_elems() {
+  return 2 * Tile<H>::WSP + 2 * Tile<H>::ROWS * H + kFwdSlots * Tile<H>::P;
+}
 
 template <typename T, int H>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
     separable_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                          const T* __restrict__ z, const T* __restrict__ r,
                          const T* __restrict__ a, const T* __restrict__ b,
                          const T* __restrict__ w, T* __restrict__ psi,
                          T* __restrict__ lap, int n, T psym, T ry, T rz) {
-  constexpr int WS = Layout<H>::SIZE;
-  __shared__ T sw[2 * WS];
-  for (int i = threadIdx.x; i < 2 * WS; i += kThreads) sw[i] = w[i];
+  using TL = Tile<H>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* sw = reinterpret_cast<T*>(smem_raw);
+  T* sX = sw + 2 * TL::WSP;      // [3P][H] first-layer triples
+  T* sY = sX + TL::ROWS * H;     // [3P][H] second-layer triples
+  T* sV = sY + TL::ROWS * H;     // [slot][P] per-point vectors
+  load_weights<T, H>(w, sw);
   __syncthreads();
 
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = p < n;
+  const int lp = threadIdx.x / TL::TPP;
+  const bool lead = threadIdx.x % TL::TPP == 0;
+  const bool scalar = threadIdx.x < TL::P;  // whole warps (Tile)
+  const int tiles = (n + TL::P - 1) / TL::P;
   const T one = T(1);
-  Point<T> pt;
-  point_setup(live ? x[p] : one, live ? y[p] : one, live ? z[p] : one,
-              live ? r[p] : one, ry, rz, pt);
-  const T av = live ? a[p] : one;
-  const T bv = live ? b[p] : one;
-
-  T l0, l1, l2, m0, m1, m2;
-  mlp_fwd<T, H>(sw, pt.t0, pt.cf, l0, l1, l2);
-  mlp_fwd<T, H>(sw + WS, pt.e0, pt.cf, m0, m1, m2);
-  const GZ<T> g = gz(av, bv, psym, pt);
-  Top<T> st;
-  top_forward(l0, l1, l2, m0, m1, m2, g, pt, st);
-  if (live) {
-    psi[p] = st.psi;
-    lap[p] = st.lap;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // the scalar lanes: geometry and GZ pair of point threadIdx.x
+    const int p = tile * TL::P + threadIdx.x;
+    const bool live = scalar && p < n;
+    Point<T> pt;
+    GZ<T> g;
+    if (scalar) {
+      point_gz(live ? x[p] : one, live ? y[p] : one, live ? z[p] : one,
+               live ? r[p] : one, ry, rz, live ? a[p] : one,
+               live ? b[p] : one, psym, pt, g);
+      sV[kT0 * TL::P + threadIdx.x] = pt.t0;
+      sV[kE0 * TL::P + threadIdx.x] = pt.e0;
+      sV[kCf * TL::P + threadIdx.x] = pt.cf;
+    }
+    __syncthreads();
+    // the MLPs, TPP lanes a point
+    const T cf = sV[kCf * TL::P + lp];
+    T o[6];
+    mlp_tile_forward<T, H>(sw, sV[kT0 * TL::P + lp], cf, sX, sY, o[0], o[1],
+                           o[2]);
+    mlp_tile_forward<T, H>(sw + TL::WSP, sV[kE0 * TL::P + lp], cf, sX, sY,
+                           o[3], o[4], o[5]);
+    if (lead) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) sV[(kL0 + c) * TL::P + lp] = o[c];
+    }
+    __syncthreads();
+    if (scalar) {
+      const T* v = sV + threadIdx.x;
+      Top<T> s;
+      top_forward(v[kL0 * TL::P], v[kL1 * TL::P], v[kL2 * TL::P],
+                  v[kM0 * TL::P], v[kM1 * TL::P], v[kM2 * TL::P], g, pt, s);
+      if (live) {
+        psi[p] = s.psi;
+        lap[p] = s.lap;
+      }
+    }
   }
+}
+
+template <typename T, int H>
+cudaError_t prepare(size_t* smem) {
+  *smem = sizeof(T) * smem_elems<T, H>();
+  return cudaFuncSetAttribute(separable_fwd_kernel<T, H>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
 }
 
 template <typename T, int H>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* a, const void* b, const void* w, void* psi,
-                   void* lap, int n, int psym, double ry, double rz,
+                   void* lap, int n, int psym, int grid, double ry, double rz,
                    cudaStream_t stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  separable_fwd_kernel<T, H><<<blocks, kThreads, 0, stream>>>(
+  size_t smem;
+  cudaError_t err = prepare<T, H>(&smem);
+  if (err != cudaSuccess) return err;
+  separable_fwd_kernel<T, H><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(z), static_cast<const T*>(r),
       static_cast<const T*>(a), static_cast<const T*>(b),
@@ -73,14 +123,29 @@ cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
   return cudaGetLastError();
 }
 
+// Resident blocks per SM and shared memory per block (bytes).
+template <typename T, int H>
+int occupancy(int* smem_bytes) {
+  size_t smem;
+  if (prepare<T, H>(&smem) != cudaSuccess) return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, separable_fwd_kernel<T, H>, kThreads, smem) != cudaSuccess)
+    return -1;
+  *smem_bytes = static_cast<int>(smem);
+  return blocks;
+}
+
 template <typename T>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* a, const void* b, const void* w, void* psi, void* lap,
-             int n, int hidden, int psym, double ry, double rz, void* stream) {
+             int n, int hidden, int psym, int grid, double ry, double rz,
+             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SEP_FWD_CASE(HH) \
-  case HH:               \
-    return launch<T, HH>(x, y, z, r, a, b, w, psi, lap, n, psym, ry, rz, s);
+#define SEP_FWD_CASE(HH)                                                   \
+  case HH:                                                                 \
+    return launch<T, HH>(x, y, z, r, a, b, w, psi, lap, n, psym, grid, ry, \
+                         rz, s);
   switch (hidden) {
     SEP_FWD_CASE(4)
     SEP_FWD_CASE(8)
@@ -97,19 +162,48 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
 extern "C" int separable_fwd_f64(const void* x, const void* y, const void* z,
                                  const void* r, const void* a, const void* b,
                                  const void* w, void* psi, void* lap, int n,
-                                 int hidden, int psym, double ry, double rz,
-                                 void* stream) {
-  return dispatch<double>(x, y, z, r, a, b, w, psi, lap, n, hidden, psym, ry,
-                          rz, stream);
+                                 int hidden, int psym, int grid, double ry,
+                                 double rz, void* stream) {
+  return dispatch<double>(x, y, z, r, a, b, w, psi, lap, n, hidden, psym, grid,
+                          ry, rz, stream);
 }
 
 extern "C" int separable_fwd_f32(const void* x, const void* y, const void* z,
                                  const void* r, const void* a, const void* b,
                                  const void* w, void* psi, void* lap, int n,
-                                 int hidden, int psym, double ry, double rz,
-                                 void* stream) {
-  return dispatch<float>(x, y, z, r, a, b, w, psi, lap, n, hidden, psym, ry,
-                         rz, stream);
+                                 int hidden, int psym, int grid, double ry,
+                                 double rz, void* stream) {
+  return dispatch<float>(x, y, z, r, a, b, w, psi, lap, n, hidden, psym, grid,
+                         ry, rz, stream);
+}
+
+// Points a tile (the wrapper's grid_blocks must agree), or -1.
+extern "C" int separable_fwd_points_per_tile(int hidden) {
+  switch (hidden) {
+    case 4: return Tile<4>::P;
+    case 8: return Tile<8>::P;
+    case 16: return Tile<16>::P;
+    case 32: return Tile<32>::P;
+    default: return -1;
+  }
+}
+
+// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
+// width, and its shared memory per block in *smem_bytes; -1 on error.
+extern "C" int separable_fwd_occupancy(int hidden, int f64, int* smem_bytes) {
+#define SEP_FWD_OCC(HH)                                          \
+  case HH:                                                       \
+    return f64 ? occupancy<double, HH>(smem_bytes)               \
+               : occupancy<float, HH>(smem_bytes);
+  switch (hidden) {
+    SEP_FWD_OCC(4)
+    SEP_FWD_OCC(8)
+    SEP_FWD_OCC(16)
+    SEP_FWD_OCC(32)
+    default:
+      return -1;
+  }
+#undef SEP_FWD_OCC
 }
 
 extern "C" const char* separable_error_string(int err) {

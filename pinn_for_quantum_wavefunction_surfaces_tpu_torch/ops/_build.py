@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -27,6 +28,10 @@ KERNELS = ("separable_fwd", "separable_bwd", "train_fwd", "train_bwd",
            "residual_fwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# seconds from the start of the last build() to the end of each of its nvcc
+# processes (they run together, so this is each kernel's build time as long
+# as the earlier names in the call finished first)
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -64,6 +69,7 @@ def build(names=KERNELS) -> list[Path]:
     per source, all started together. Raises with nvcc's output if one
     fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     jobs = []
     for name in names:
         out = library_path(name)
@@ -77,6 +83,7 @@ def build(names=KERNELS) -> list[Path]:
     failed = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
         log_path(name).write_text(log)
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")

@@ -24,10 +24,16 @@ The formulation. Every spatial gradient in the family lies in span{u1, u2}
 coefficients on (u1, u2) and every dot product reduces to scalars with
 u1.u2 = c12. The gradients of t and eta^2 are orthogonal (u1+u2 is
 orthogonal to u1-u2), so per point the whole forward Laplacian is a handful
-of scalars besides the two MLPs — which is what one CUDA thread carries.
+of scalars besides the two MLPs. The kernels hold those scalars per point
+in registers and the MLPs' [3 points, H] triples as tiles in shared
+memory, whose H x H products run on the float64 tensor cores
+(``csrc/separable.cuh``); ``points_per_tile`` and ``grid_blocks`` size the
+launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -280,6 +286,65 @@ def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/separable_fwd.cu, csrc/separable_bwd.cu)
 
+# The kernels' work layout (csrc/separable.cuh): blocks of THREADS threads,
+# min(8, H) threads a point, so a tile of THREADS // min(8, H) points.
+THREADS = 256
+# K1-bwd's grid has at most this many blocks per SM of an H100 (132 SMs):
+# the resident blocks its __launch_bounds__ asks for, so one wave.
+GRID_BLOCKS_PER_SM, N_SM = 2, 132
+
+
+def points_per_tile(hidden: int) -> int:
+    """Points a block evaluates at a time."""
+    return THREADS // min(8, hidden)
+
+
+def n_tiles(n: int, hidden: int) -> int:
+    """Tiles of n points; the last one is padded."""
+    return -(-n // points_per_tile(hidden))
+
+
+def grid_blocks(n: int, hidden: int) -> int:
+    """Blocks of a K1-bwd launch: one a tile, at most GRID_BLOCKS_PER_SM *
+    N_SM; each block walks the tiles blockIdx, blockIdx + grid, ... in
+    order. The count depends on n and H alone, so the rows of partial
+    weight gradients (one a block), their order, and so the bits do too.
+    K1-fwd sums nothing across points and takes one block a tile."""
+    return max(1, min(n_tiles(n, hidden), GRID_BLOCKS_PER_SM * N_SM))
+
+
+def _lib(name: str, n_ptr: int):
+    """The typed library of K1-fwd or K1-bwd, its tiles checked against
+    points_per_tile once."""
+    lib = _cuda.typed_lib(name, n_ptr, "separable", n_extra_int=1)
+    if not getattr(lib, "_sep_checked", False):
+        ci = ctypes.c_int
+        tile = getattr(lib, f"{name}_points_per_tile")
+        tile.argtypes, tile.restype = [ci], ci
+        occ = getattr(lib, f"{name}_occupancy")
+        occ.argtypes, occ.restype = [ci, ci, ctypes.POINTER(ci)], ci
+        for h in SUPPORTED_HIDDEN:
+            if tile(h) != points_per_tile(h):
+                raise RuntimeError(f"{name}: {tile(h)} points a tile at "
+                                   f"H={h}, the wrapper assumes "
+                                   f"{points_per_tile(h)}")
+        lib._sep_checked = True
+    return lib
+
+
+def occupancy(name: str, hidden: int, dtype) -> tuple[int, int]:
+    """(resident blocks per SM, shared memory bytes per block) of kernel
+    ``name`` ("separable_fwd" or "separable_bwd") at this width and dtype,
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
+    card."""
+    lib = _lib(name, 9 if name == "separable_fwd" else 12)
+    smem = ctypes.c_int(0)
+    blocks = getattr(lib, f"{name}_occupancy")(
+        hidden, int(dtype == torch.float64), ctypes.byref(smem))
+    if blocks < 0:
+        raise RuntimeError(f"{name}: occupancy query failed at H={hidden}")
+    return blocks, smem.value
+
 
 def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
                        ry: float = 0.0, rz: float = 0.0):
@@ -291,19 +356,19 @@ def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    lib = _cuda.typed_lib("separable_fwd", 9, "separable")
+    lib = _lib("separable_fwd", 9)
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
-                 ry, rz)
+                 ry, rz, extra_ints=(max(1, n_tiles(n, hidden)),))
     launches["separable_fwd"] += 1
     return psi, lap
 
 
 def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
                        p_sym: int = 1, ry: float = 0.0, rz: float = 0.0):
-    """K1 backward on the card: (12 weight grads, da, db). The kernel
-    writes per-block partial weight gradients in a fixed order (no
-    atomics), summed here over blocks — repeatable bit for bit."""
+    """K1 backward on the card: (12 weight grads, da, db). Each block
+    writes one row of partial weight gradients, summed in a fixed order
+    (no atomics); the rows are summed here — repeatable bit for bit."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
     shapes = weight_shapes(hidden)
@@ -311,17 +376,16 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
     pts = [t.contiguous() for t in pts]
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
-    lib = _cuda.typed_lib("separable_bwd", 12, "separable",
-                          extra=("separable_bwd_points_per_block",))
-    n_blocks = -(-n // lib.separable_bwd_points_per_block())
+    lib = _lib("separable_bwd", 12)
+    grid = grid_blocks(n, hidden)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
-    partials = torch.empty((n_blocks, sum(sizes)), dtype=pts[0].dtype,
+    partials = torch.empty((grid, sum(sizes)), dtype=pts[0].dtype,
                            device=pts[0].device)
     da = torch.empty_like(pts[0])
     db = torch.empty_like(pts[0])
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), dpsi, dlap, da, db, partials),
-                 n, hidden, p_sym, ry, rz)
+                 n, hidden, p_sym, ry, rz, extra_ints=(grid,))
     launches["separable_bwd"] += 1
     dws = tuple(g.reshape(s) for g, s in
                 zip(torch.split(partials.sum(0), sizes), shapes))

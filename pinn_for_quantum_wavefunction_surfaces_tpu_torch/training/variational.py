@@ -30,6 +30,10 @@ from ..models import ansatz
 from ..ops import operators
 from ..ops.pallas_separable import psi_lap_train_separable
 
+# line-search evaluations an L-BFGS step may spend beyond its first: optax's
+# zoom line search (the JAX package's optimiser) defaults to 20 steps
+LBFGS_MAX_LS = 20
+
 
 class VBatch(NamedTuple):
     x: torch.Tensor   # (n_r, n_pts)
@@ -136,8 +140,10 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
     iteration per step), not the JAX package's optax.lbfgs (zoom line
     search, a preconditioned first step): the two take different paths, so
     the port is held to the objective's values and goldens, not to the
-    trajectory. Each step re-evaluates the objective at its start (one
-    evaluation more than optax)."""
+    trajectory. A step evaluates the objective and its gradient at its
+    start (one evaluation more than optax), then 1 to LBFGS_MAX_LS times
+    in the line search; a rejected trial step is retried with a shorter
+    one, as optax's zoom search does."""
     p = _trainable(params)
     leaves = _leaves(p)
 
@@ -152,8 +158,11 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
 
     def fresh():
         # tolerance_grad 0: never stop early on a small gradient (optax
-        # does not); tolerance_change bounds the line-search bracket
+        # does not); tolerance_change bounds the line-search bracket.
+        # max_eval: without it torch allows max_iter * 5 // 4 = 1
+        # evaluation, which leaves the line search its first trial only
         return torch.optim.LBFGS(leaves, lr=1.0, max_iter=1,
+                                 max_eval=1 + LBFGS_MAX_LS,
                                  history_size=memory_size,
                                  line_search_fn="strong_wolfe",
                                  tolerance_grad=0.0, tolerance_change=1e-12)

@@ -202,6 +202,43 @@ def test_unported_families_raise(family):
         tans.init_params(tm, seed=0, device="cpu")
 
 
+@pytest.mark.parametrize("hidden", tps.SUPPORTED_HIDDEN)
+def test_grid_sizing(hidden):
+    """The kernels' tiles and K1-bwd's grid (rows of partial weight
+    gradients): fixed by n and H alone, capped at a multiple of the SM
+    count, and the blocks' strided walks cover every tile exactly once."""
+    per = tps.points_per_tile(hidden)
+    assert per * min(8, hidden) == tps.THREADS
+    cap = tps.GRID_BLOCKS_PER_SM * tps.N_SM
+    assert [tps.grid_blocks(n, hidden) for n in (0, 1, per, per + 1)] == \
+        [1, 1, 1, 2]
+    for n in (N, 9216, 164_502):   # ragged; a make evaluate quotient; flagship
+        tiles = tps.n_tiles(n, hidden)
+        assert (tiles - 1) * per < n <= tiles * per
+        grid = tps.grid_blocks(n, hidden)
+        assert grid == min(tiles, cap)
+        walked = sorted(t for blk in range(grid)
+                        for t in range(blk, tiles, grid))
+        assert walked == list(range(tiles))
+    assert tps.grid_blocks(164_502, hidden) == cap
+
+
+def test_pad_point_adds_exactly_zero():
+    """Lanes past n evaluate the pad point (1, 1, 1; R = 1, a = b = 1)
+    with zero cotangents: every cotangent they produce is exactly 0, so the
+    kernels' padded tiles change no sum."""
+    _, tm, params = jax_model(1, hidden=16)
+    ws, _, _ = kernel_inputs(params, tm, points(8))
+    one = torch.ones(8, dtype=torch.float64)
+    zero = torch.zeros(8, dtype=torch.float64)
+    psi, lap = tps.psi_lap_separable_plain(ws, one, one, one, one, one, one)
+    assert bool(torch.isfinite(psi).all() and torch.isfinite(lap).all())
+    dws, da, db = tps.psi_lap_separable_vjp_plain(ws, one, one, one, one, one,
+                                                  one, zero, zero)
+    for g in list(dws) + [da, db]:
+        assert bool((g == 0).all())
+
+
 def test_kernel_weights_layout():
     """Weights cast to the point dtype, biases reshaped to (1, H)."""
     _, _, params = jax_model(1, hidden=8)

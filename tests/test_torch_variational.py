@@ -166,6 +166,44 @@ def test_lbfgs_restarts_from_best_on_validation_drift():
     torch.testing.assert_close(calls[2], calls[1], rtol=0, atol=0)
 
 
+def test_lbfgs_retries_a_rejected_first_trial(monkeypatch):
+    """From this init the first L-BFGS trial step raises the objective.
+    With one line-search evaluation (torch's default max_eval at
+    max_iter=1) the step is rejected and the iterate stays where it was;
+    with LBFGS_MAX_LS the search retries a shorter step and the objective
+    falls."""
+    _, tc = configs(hidden=4)
+    init = tans.init_params(tc.model, seed=0, dtype="float64", device="cpu")
+    vb = tvar.spheroidal_vbatch(tc, n_r=2, n_xi=8, n_eta=6, device="cpu")
+    quotient_loss = tvar.quotient_loss
+    values = []
+
+    def counted(*args, **kw):
+        out = quotient_loss(*args, **kw)
+        values.append(out[0].item())
+        return out
+
+    def polish_step(max_ls):
+        monkeypatch.setattr(tvar, "LBFGS_MAX_LS", max_ls)
+        values.clear()
+        out = tvar._lbfgs_minimize(init, tc, vb, steps=1, head_weight=1.0)
+        with torch.no_grad():
+            final = float(quotient_loss(out, tc, vb)[0])
+        # the step's start, its line search, then the final iterate's score
+        return len(values) - 2, values[0], final
+
+    budget = tvar.LBFGS_MAX_LS
+    monkeypatch.setattr(tvar, "quotient_loss", counted)
+    n_ls, start, final = polish_step(0)
+    assert n_ls == 1
+    assert values[1] > start              # the one trial was rejected ...
+    assert final == start                 # ... and nothing moved
+    n_ls, start2, final = polish_step(budget)
+    assert start2 == start
+    assert 1 < n_ls <= budget             # retried within the budget
+    assert final < start
+
+
 def test_fixed_r_polish_golden():
     """The design claim of tests/test_separable.py:156-175 through the
     port: at one R the separable family polishes from the raw GZ init to
