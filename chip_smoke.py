@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
  1. header: the card's name and power limit, torch and CUDA versions;
  2. build: the five CUDA kernels from csrc/ (K1 and K2, forward and
     backward, and K3), one nvcc per source, all in parallel; ptxas
-    registers and spills of every instantiation; K1's shared memory per
-    block and resident blocks per SM at every width in both types;
+    registers and spills of every instantiation; K1's and K2's shared
+    memory per block and resident blocks per SM at every width in both
+    types;
  K1, the separable-spheroidal variational trainer (make flagship):
  3. kernel check at the flagship training batch (164 502 points of the
     dual spheroidal grid, artifacts/flagship_separable.npz weights), in
@@ -33,7 +34,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
     port's sample_batch from a fixed seed; artifacts/flagship.npz, P = +1,
     and artifacts/ungerade_2psu.npz, P = -1), in float64 and float32: K2-fwd
     against psi_lap_train_plain, K2-bwd against psi_lap_train_vjp_plain
-    under seeded cotangents, two K2-bwd launches equal bit for bit;
+    under seeded cotangents, two K2-bwd launches equal bit for bit; the
+    same in float64 at the other widths (H = 4, 8, 32; seeded weights) on a
+    9 216-point and a ragged 1 100-point batch, in both sectors;
  9. golden: flagship.npz's E_int through K2-fwd at R = 0.2, 1, 2, 4
     (float64) equal to the JAX package's CPU values to 1e-10 and above the
     exact oracle;
@@ -58,10 +61,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
     the spheroidal 96 x 96 grids at R = 0.5, 1, 2, 4 (float64) equal to the
     JAX package's CPU values to 1e-10, every model quotient through K3;
  15. make ref-recipe, cut: cli train (reference-parity model, float64) and
-    cli finetune for a few steps, then cli energy on finetune.npz at its
-    defaults (uniform n = 80, 39 R, LCAO, Wind oracle) through the port's
-    cli.main: the pickle's schema, finite errors, one K3 launch a model
-    quotient; wall time, points/s and K3's share of the device time;
+    cli finetune for a few steps (K2 launches, and cli train's steps/s),
+    then cli energy on finetune.npz at its defaults (uniform n = 80, 39 R,
+    LCAO, Wind oracle) through the port's cli.main: the pickle's schema,
+    finite errors, one K3 launch a model quotient; wall time, points/s and
+    K3's share of the device time;
  16. make evaluate: cli evaluate artifacts/flagship_separable.npz --steps
     8000 --dtype float64 into a temporary directory: its e_table equal to
     artifacts/evaluated.npz's to 1e-10 at all 153 knots, E_int within
@@ -194,8 +198,7 @@ def train_bwd_ops(h: int) -> int:
     cotangents (8 H^2), the first-layer adjoint (60 H) and the exponent's
     cotangent (30), and the weight-gradient sums (8 H^2 + H); then the
     output-weight and bias sums (4 H + 1), the GZ adjoint and dg (43). The
-    kernel evaluates each first-layer unit a second time in the adjoint;
-    that work is not needed and is not counted."""
+    kernels evaluate no unit twice (csrc/train_bwd.cu)."""
     return train_fwd_ops(h) + 32 * h * h + 186 * h + 104
 
 
@@ -400,6 +403,55 @@ def run_cli(args: list[str]) -> tuple[dict, str]:
         err.getvalue()
 
 
+def k2_width_params(mcfg, dev) -> dict:
+    """Symmetric params (GZ + alpha) at width mcfg.hidden: the seeded init
+    plus N(0, 0.3^2) noise on the MLP's and the alpha and beta heads'
+    weights (the heads' output layers start at zero), drawn in float64,
+    so that every layer shapes psi and the exponents vary with R."""
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    p = ansatz.init_params(mcfg, seed=mcfg.hidden, dtype="float64",
+                           device=dev)
+    noise = torch.Generator(device=dev).manual_seed(mcfg.hidden)
+    for k in ("h1", "h2", "out", "alpha1", "alpha2", "beta1", "beta2"):
+        for f in p[k]:
+            p[k][f] = p[k][f] + 0.3 * torch.randn(
+                p[k][f].shape, generator=noise, device=dev,
+                dtype=torch.float64)
+    return p
+
+
+def k2_check(kt, label, ws, args, kw, gen, names):
+    """K2-fwd and K2-bwd against the plain versions in float64, at the JAX
+    package's Pallas-vs-XLA tolerances (tests/test_pallas_train.py:66-91),
+    and two K2-bwd launches bit for bit; returns the worst relative errors
+    (psi, lap, backward normwise)."""
+    import torch
+    psi_k, lap_k = kt.train_fwd_cuda(ws, *args, **kw)
+    with torch.no_grad():
+        psi_p, lap_p = kt.psi_lap_train_plain(ws, *args, **kw)
+    n = args[0].numel()
+    dpsi = torch.randn(n, generator=gen, device=args[0].device,
+                       dtype=args[0].dtype)
+    dlap = torch.randn_like(dpsi)
+    dws, da, db, dg = kt.train_bwd_cuda(ws, *args, dpsi, dlap, **kw)
+    again = kt.train_bwd_cuda(ws, *args, dpsi, dlap, **kw)
+    with torch.no_grad():
+        want = kt.psi_lap_train_vjp_plain(ws, *args, dpsi, dlap, **kw)
+    torch.cuda.synchronize()
+    e_psi = check_close(f"K2-fwd psi {label}", psi_k, psi_p, 1e-12, 1e-14)
+    e_lap = check_close(f"K2-fwd lap {label}", lap_k, lap_p, 1e-11, 1e-12)
+    got = list(dws) + [da, db, dg]
+    worst = max(check_normwise(f"K2-bwd {nm} {label}", u, v, 1e-8)[1]
+                for nm, u, v in zip(names, got,
+                                    list(want[0]) + list(want[1:])))
+    if not all(torch.equal(u, v) for u, v in
+               zip(got, list(again[0]) + list(again[1:]))):
+        raise AssertionError(f"K2-bwd {label}: two launches differ")
+    return e_psi[1], e_lap[1], worst
+
+
 def k2_phases(dev, card: str) -> list[dict]:
     """Phases 8-12: the residual trainer of the symmetric family and its
     kernel K2. Returns the K2 entries of the kernels line."""
@@ -494,6 +546,27 @@ def k2_phases(dev, card: str) -> list[dict]:
                 inputs[dt_name] = (ws, args, kw)
                 errs[dt_name] = {"fwd": max(e_psi[0], e_lap[0]),
                                  "bwd": worst[0]}
+    # the other widths the kernels are built for, in float64 (the
+    # reference-parity type), on a make evaluate-sized and a ragged batch
+    for h in (4, 8, 32):
+        for p_sym in (1, -1):
+            for n in (9216, 1100):
+                mcfg = config.ModelConfig(inversion_symmetry=p_sym, gz=True,
+                                          trainable_exponent=True, hidden=h)
+                params = k2_width_params(mcfg, dev)
+                batch = sample_batch(gen, config.Config(model=mcfg), n=n,
+                                     dtype=torch.float64, device=dev)
+                with torch.no_grad():
+                    a = ansatz.orbital_exponent(params, batch.r)
+                    b = ansatz.gz_exponent(params, batch.r, p_sym, a)
+                    g = ansatz.gate(params, batch.r)
+                ws = kt.kernel_weights(params, mcfg, torch.float64)
+                args = (a, b, g, batch.x, batch.y, batch.z, batch.r)
+                e = k2_check(kt, f"H={h} P={p_sym} n={n} float64", ws, args,
+                             dict(p_sym=p_sym), gen, names)
+                print(f"K2 H={h} P={p_sym} n={n} float64: fwd psi rel "
+                      f"{e[0]:.3e} | lap rel {e[1]:.3e} | bwd worst "
+                      f"normwise {e[2]:.3e}; two launches bitwise equal")
     sys.stdout.flush()
 
     phase("9 golden (flagship.npz E_int through K2-fwd, float64)")
@@ -615,7 +688,7 @@ def k2_phases(dev, card: str) -> list[dict]:
     profile_device(lambda: engine.train(pcfg, start_step=10, device=dev), 1,
                    "setup alone")
 
-    t32 = times["float32"]
+    t32, t64 = times["float32"], times["float64"]
     out = []
     for which, line in (("fwd", 233), ("bwd", 264)):
         out.append({
@@ -632,6 +705,11 @@ def k2_phases(dev, card: str) -> list[dict]:
             "bound_ms": t32[f"{which}_bound"],
             "bound_by": t32[f"{which}_bound_by"],
             "library_ms": None,
+            "float64": {"max_abs_err": errs["float64"][which],
+                        "ms": t64[which],
+                        "plain_ms": t64[f"{which}_plain"],
+                        "bound_ms": t64[f"{which}_bound"],
+                        "bound_by": t64[f"{which}_bound_by"]},
         })
     return out
 
@@ -654,10 +732,14 @@ def k3_phases(dev, card: str) -> dict:
         etab
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
         ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
         pallas_residual as k3
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
         pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
 
     weights = k3_weights()
     h, hg = weights["h1"]["w"].shape[1], weights["gate1"]["w"].shape[1]
@@ -765,10 +847,20 @@ def k3_phases(dev, card: str) -> dict:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         s1, s2 = os.path.join(work, "stage1"), os.path.join(work, "stage2")
+        kt.reset_launches()
         run_cli(["train", "--out", s1, "--dtype", "float64", "--epochs",
                  str(REF_TRAIN_STEPS)])
+        train_counts = dict(kt.launches)
+        _, meta = checkpoint.load_params(os.path.join(s1, "final.npz"))
+        print(f"cli train (float64): {REF_TRAIN_STEPS / meta['runtime_s']:.2f}"
+              f" steps/s; K2 launches {train_counts}")
+        if train_counts["train_bwd"] < REF_TRAIN_STEPS:
+            raise AssertionError(f"cli train did not run K2-bwd each step: "
+                                 f"{train_counts}")
+        kt.reset_launches()
         run_cli(["finetune", os.path.join(s1, "best.npz"), "--out", s2,
                  "--dtype", "float64", "--epochs", str(REF_FINETUNE_STEPS)])
+        print(f"cli finetune (float64): K2 launches {dict(kt.launches)}")
         ft = os.path.join(s2, "finetune.npz")
         pkl = os.path.join(work, "energy_R_ion.pkl")
         n_r = len(np.round(np.arange(0.2, 4.0 + 0.1, 0.1), 2))
@@ -901,6 +993,8 @@ def main() -> int:
         _build
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
         pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
         variational
 
@@ -926,14 +1020,16 @@ def main() -> int:
     for name in _build.KERNELS:
         for line in ptxas_summary(_build.log_path(name).read_text()):
             print(f"  {name} {line}")
-    for name in ("separable_fwd", "separable_bwd"):
+    for mod, name in ((ks, "separable_fwd"), (ks, "separable_bwd"),
+                      (kt, "train_fwd"), (kt, "train_bwd")):
         for dt in (torch.float64, torch.float32):
-            for h in ks.SUPPORTED_HIDDEN:
-                blocks, smem = ks.occupancy(name, h, dt)
+            threads = ks.THREADS if mod is ks else kt.threads(dt)
+            for h in mod.SUPPORTED_HIDDEN:
+                blocks, smem = mod.occupancy(name, h, dt)
                 print(f"  {name} {str(dt)[6:]} H={h}: {smem} B shared "
-                      f"memory a block of {ks.THREADS} threads, {blocks} "
-                      f"resident blocks per SM "
-                      f"({blocks * ks.THREADS // 32} warps)")
+                      f"memory a block of {threads} threads, {blocks} "
+                      f"resident blocks per SM ({blocks * threads // 32} "
+                      "warps)")
     sys.stdout.flush()
 
     phase("3 kernel check (flagship training batch; one make evaluate "

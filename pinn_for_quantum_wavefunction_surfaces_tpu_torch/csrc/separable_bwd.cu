@@ -417,8 +417,9 @@ extern "C" int separable_bwd_f32(const void* x, const void* y, const void* z,
                          hidden, psym, grid, ry, rz, stream);
 }
 
-// Points a tile (the wrapper's grid_blocks must agree), or -1.
-extern "C" int separable_bwd_points_per_tile(int hidden) {
+// Points a tile at this width, the same in both types (the wrapper's
+// grid_blocks must agree), or -1.
+extern "C" int separable_bwd_points_per_tile(int hidden, int /*f64*/) {
   switch (hidden) {
     case 4: return Tile<4>::P;
     case 8: return Tile<8>::P;

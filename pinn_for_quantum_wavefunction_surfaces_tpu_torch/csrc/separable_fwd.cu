@@ -177,8 +177,9 @@ extern "C" int separable_fwd_f32(const void* x, const void* y, const void* z,
                          ry, rz, stream);
 }
 
-// Points a tile (the wrapper's grid_blocks must agree), or -1.
-extern "C" int separable_fwd_points_per_tile(int hidden) {
+// Points a tile at this width, the same in both types (the wrapper's
+// grid_blocks must agree), or -1.
+extern "C" int separable_fwd_points_per_tile(int hidden, int /*f64*/) {
   switch (hidden) {
     case 4: return Tile<4>::P;
     case 8: return Tile<8>::P;

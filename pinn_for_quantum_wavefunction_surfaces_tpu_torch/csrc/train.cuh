@@ -1,10 +1,14 @@
-// Per-point arithmetic shared by the symmetric-family (psi, lap psi) kernels
-// (K2: train_fwd.cu, train_bwd.cu).
+// Per-point arithmetic shared by the symmetric-family (psi, lap psi) kernels:
+// K2 (train_fwd.cu, train_bwd.cu, and train_tile.cuh for float64) and K3
+// (residual_fwd.cu).
 //
-// One CUDA thread evaluates one point. The arithmetic is the same, step for
-// step, as the plain PyTorch versions in ops/pallas_train.py
-// (psi_lap_train_plain and psi_lap_train_vjp_plain), which the CPU tests
-// hold against the JAX package.
+// The arithmetic is that of the plain PyTorch versions in
+// ops/pallas_train.py (psi_lap_train_plain and psi_lap_train_vjp_plain),
+// which the CPU tests hold against the JAX package; the kernels' adjoints
+// sum over units and points in their own order. The helpers here work on
+// one point in one thread: K3 and the float32 K2 kernels run them so, with
+// each point's H first-layer 4-stacks in registers. The float64 K2 kernels
+// share the per-point geometry (Env, gz_adjoint) and run the MLP on tiles.
 //
 // The formulation. A branch of the ansatz is the sigmoid MLP 2 -> H -> H -> 1
 // on the envelopes f1 = e^{-a r1}, f2 = e^{-a r2}; the mirrored branch is the
@@ -116,33 +120,39 @@ struct Unit2 {
   T p0, p1, p2, p3, s, e1, e2, qq, bv, bl;
 };
 
+// Second-layer unit from its pre-activation stack (p0 with its bias).
+template <typename T>
+__device__ __forceinline__ Unit2<T> unit2_act(T p0, T p1, T p2, T p3, T c12) {
+  Unit2<T> u;
+  u.p0 = p0;
+  u.p1 = p1;
+  u.p2 = p2;
+  u.p3 = p3;
+  u.s = m_sigmoid(u.p0);
+  u.e1 = u.s * (T(1) - u.s);
+  u.e2 = u.e1 * (T(1) - T(2) * u.s);
+  u.qq = u.p1 * u.p1 + u.p2 * u.p2 + T(2) * c12 * u.p1 * u.p2;
+  u.bv = u.s;
+  u.bl = u.e1 * u.p3 + u.e2 * u.qq;
+  return u;
+}
+
 template <typename T, int H>
 __device__ __forceinline__ Unit2<T> unit2(const T* W, int k, const Env<T>& e,
                                           const T (&a0)[H], const T (&a1)[H],
                                           const T (&a2)[H],
                                           const T (&a3)[H]) {
   using L = Layout<H>;
-  Unit2<T> u;
-  u.p0 = T(0);
-  u.p1 = T(0);
-  u.p2 = T(0);
-  u.p3 = T(0);
+  T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
 #pragma unroll
   for (int i = 0; i < H; ++i) {
     const T w = W[L::W2 + i * H + k];
-    u.p0 += a0[i] * w;
-    u.p1 += a1[i] * w;
-    u.p2 += a2[i] * w;
-    u.p3 += a3[i] * w;
+    p0 += a0[i] * w;
+    p1 += a1[i] * w;
+    p2 += a2[i] * w;
+    p3 += a3[i] * w;
   }
-  u.p0 += W[L::B2 + k];
-  u.s = m_sigmoid(u.p0);
-  u.e1 = u.s * (T(1) - u.s);
-  u.e2 = u.e1 * (T(1) - T(2) * u.s);
-  u.qq = u.p1 * u.p1 + u.p2 * u.p2 + T(2) * e.c12 * u.p1 * u.p2;
-  u.bv = u.s;
-  u.bl = u.e1 * u.p3 + u.e2 * u.qq;
-  return u;
+  return unit2_act(p0 + W[L::B2 + k], p1, p2, p3, e.c12);
 }
 
 // (value, laplacian) of one branch's output ow . B (no output bias).
@@ -198,131 +208,87 @@ __device__ __forceinline__ void gz_adjoint(T a, T b, T psym, const Env<T>& e,
         e.r1 * g.v2 * dv2 + ds2 * (sb - T(2) * e.i1);
 }
 
-// Forward and adjoint of one branch for output cotangents (cv, cl) on its
-// (value, laplacian), staging this thread's terms of the weight-gradient
-// sums in column ``tid`` of the shared buffers (row stride LD):
-//   sA [4H] the first-layer stacks (a0..a3),
-//   sG [4H] the cotangents of the second-layer pre-activation stacks,
-//   sD [H]  the output-weight terms, sE [3H] the first-layer terms (w1 row
-//           0, w1 row 1, b1); these two add to what ``first`` == false
-//           finds there (the other branch's terms).
-// Returns the branch's cotangent of the exponent a; (ov, ol) is its output.
-template <typename T, int H, int LD>
-__device__ __forceinline__ T branch_stage(const T* W, const Env<T>& e, T a,
-                                          T cv, T cl, int tid, bool first,
-                                          T* sA, T* sG, T* sD, T* sE, T& ov,
-                                          T& ol) {
-  using L = Layout<H>;
-  T a0[H], a1[H], a2[H], a3[H];
-  layer1<T, H>(W, e, a0, a1, a2, a3);
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    sA[j * LD + tid] = a0[j];
-    sA[(H + j) * LD + tid] = a1[j];
-    sA[(2 * H + j) * LD + tid] = a2[j];
-    sA[(3 * H + j) * LD + tid] = a3[j];
-  }
-  ov = T(0);
-  ol = T(0);
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    const Unit2<T> u = unit2<T, H>(W, k, e, a0, a1, a2, a3);
-    const T owk = W[L::OW + k];
-    ov += u.bv * owk;
-    ol += u.bl * owk;
-    const T cd = cv * u.bv + cl * u.bl;
-    sD[k * LD + tid] = first ? cd : sD[k * LD + tid] + cd;
-    // bv = s(p0), bl = e1(p0) p3 + e2(p0) qq, qq = p1^2 + p2^2 + 2 c12 p1 p2
-    const T dbv = cv * owk;
-    const T dbl = cl * owk;
-    const T e3 = u.e2 * (T(1) - T(2) * u.s) - T(2) * u.e1 * u.e1;
-    const T dq = dbl * u.e2;
-    sG[k * LD + tid] = dbv * u.e1 + dbl * (u.e2 * u.p3 + e3 * u.qq);
-    sG[(H + k) * LD + tid] = dq * (T(2) * u.p1 + T(2) * e.c12 * u.p2);
-    sG[(2 * H + k) * LD + tid] = dq * (T(2) * u.p2 + T(2) * e.c12 * u.p1);
-    sG[(3 * H + k) * LD + tid] = dbl * u.e1;
-  }
-  // first layer: cotangents of the stacks, then of z, (ga, gb), lz
-  T df1 = T(0), dg1 = T(0), dl1 = T(0), df2 = T(0), dg2 = T(0), dl2 = T(0);
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    T da0 = T(0), da1 = T(0), da2 = T(0), da3 = T(0);
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-      const T w = W[L::W2 + i * H + k];
-      da0 += sG[k * LD + tid] * w;
-      da1 += sG[(H + k) * LD + tid] * w;
-      da2 += sG[(2 * H + k) * LD + tid] * w;
-      da3 += sG[(3 * H + k) * LD + tid] * w;
-    }
-    const Unit1<T> u = unit1<T, H>(W, i, e);
-    const T d3 = u.d2 * (T(1) - T(2) * u.s) - T(2) * u.d1 * u.d1;
-    const T dz = da0 * u.d1 + (da1 * u.ga + da2 * u.gb + da3 * u.lz) * u.d2 +
-                 da3 * u.q * d3;
-    const T dga = da1 * u.d1 + da3 * u.d2 * (T(2) * u.ga + T(2) * e.c12 * u.gb);
-    const T dgb = da2 * u.d1 + da3 * u.d2 * (T(2) * u.gb + T(2) * e.c12 * u.ga);
-    const T dlz = da3 * u.d1;
-    const T c0 = dz * e.f1 + dga * e.g1 + dlz * e.l1;
-    const T c1 = dz * e.f2 + dgb * e.g2 + dlz * e.l2;
-    T* e0 = sE + i * LD + tid;
-    T* e1 = sE + (H + i) * LD + tid;
-    T* e2 = sE + (2 * H + i) * LD + tid;
-    *e0 = first ? c0 : *e0 + c0;
-    *e1 = first ? c1 : *e1 + c1;
-    *e2 = first ? dz : *e2 + dz;
-    const T w0 = W[L::W1 + i];
-    const T w1 = W[L::W1 + H + i];
-    df1 += dz * w0;
-    dg1 += dga * w0;
-    dl1 += dlz * w0;
-    df2 += dz * w1;
-    dg2 += dgb * w1;
-    dl2 += dlz * w1;
-  }
-  // f = e^{-a r}: df/da = -r f; g = -a f: dg/da = a r f - f;
-  // l = f (a^2 - 2a/r): dl/da = f (2a - 2/r) - r l
-  return df1 * (-e.r1 * e.f1) + dg1 * (a * e.r1 * e.f1 - e.f1) +
-         dl1 * (e.f1 * (T(2) * a - T(2) * e.i1) - e.r1 * e.l1) +
-         df2 * (-e.r2 * e.f2) + dg2 * (a * e.r2 * e.f2 - e.f2) +
-         dl2 * (e.f2 * (T(2) * a - T(2) * e.i2) - e.r2 * e.l2);
+// Adjoint of second-layer unit u for cotangents (cv, cl) on its branch's
+// (value, laplacian) and output weight owk: the cotangents g0..g3 of its
+// pre-activation stack, and its term cv bv + cl bl of the output weight's
+// gradient.
+template <typename T>
+struct Grad2 {
+  T g0, g1, g2, g3, dow;
+};
+
+template <typename T>
+__device__ __forceinline__ Grad2<T> unit2_adjoint(const Unit2<T>& u, T c12,
+                                                  T owk, T cv, T cl) {
+  // bv = s(p0), bl = e1(p0) p3 + e2(p0) qq, qq = p1^2 + p2^2 + 2 c12 p1 p2
+  const T dbv = cv * owk;
+  const T dbl = cl * owk;
+  const T e3 = u.e2 * (T(1) - T(2) * u.s) - T(2) * u.e1 * u.e1;
+  const T dq = dbl * u.e2;
+  Grad2<T> r;
+  r.g0 = dbv * u.e1 + dbl * (u.e2 * u.p3 + e3 * u.qq);
+  r.g1 = dq * (T(2) * u.p1 + T(2) * c12 * u.p2);
+  r.g2 = dq * (T(2) * u.p2 + T(2) * c12 * u.p1);
+  r.g3 = dbl * u.e1;
+  r.dow = cv * u.bv + cl * u.bl;
+  return r;
 }
 
-// Sum over a block's P points, in order, of one branch's terms of the
-// second-layer gradients: o < H^2 is w2[i][k], then b2[k].
-template <typename T, int H, int P, int LD>
-__device__ __forceinline__ T reduce_layer2(int o, const T* sA, const T* sG) {
-  T acc = T(0);
-  if (o < H * H) {
-    const int i = o / H, k = o % H;
-    for (int p = 0; p < P; ++p)
-      acc += sA[i * LD + p] * sG[k * LD + p] +
-             sA[(H + i) * LD + p] * sG[(H + k) * LD + p] +
-             sA[(2 * H + i) * LD + p] * sG[(2 * H + k) * LD + p] +
-             sA[(3 * H + i) * LD + p] * sG[(3 * H + k) * LD + p];
-  } else {
-    const int k = o - H * H;
-    for (int p = 0; p < P; ++p) acc += sG[k * LD + p];
-  }
-  return acc;
+// Adjoint of a first-layer unit with input weights (w0, w1) and sigmoid
+// value s, for cotangents (da0..da3) of its stack: the cotangents of its
+// pre-activation z, gradient coefficients (ga, gb) and laplacian lz. Nothing
+// transcendental is evaluated again: d1, d2, d3 are polynomials in s.
+template <typename T>
+struct Grad1 {
+  T dz, dga, dgb, dlz;
+};
+
+template <typename T>
+__device__ __forceinline__ Grad1<T> unit1_adjoint(T s, T w0, T w1,
+                                                  const Env<T>& e, T da0,
+                                                  T da1, T da2, T da3) {
+  const T d1 = s * (T(1) - s);
+  const T d2 = d1 * (T(1) - T(2) * s);
+  const T d3 = d2 * (T(1) - T(2) * s) - T(2) * d1 * d1;
+  const T ga = e.g1 * w0;
+  const T gb = e.g2 * w1;
+  const T lz = e.l1 * w0 + e.l2 * w1;
+  const T q = ga * ga + gb * gb + T(2) * e.c12 * ga * gb;
+  Grad1<T> r;
+  r.dz = da0 * d1 + (da1 * ga + da2 * gb + da3 * lz) * d2 + da3 * q * d3;
+  r.dga = da1 * d1 + da3 * d2 * (T(2) * ga + T(2) * e.c12 * gb);
+  r.dgb = da2 * d1 + da3 * d2 * (T(2) * gb + T(2) * e.c12 * ga);
+  r.dlz = da3 * d1;
+  return r;
 }
 
-// The block's partial of packed weight o: w1 and b1 from sE, w2 and b2
-// from the per-branch sums sacc, ow from sD, ob from sC (the value
-// cotangents).
-template <typename T, int H, int P, int LD>
-__device__ __forceinline__ T reduce_packed(int o, const T* sacc, const T* sD,
-                                           const T* sE, const T* sC) {
-  using L = Layout<H>;
-  if (o >= L::W2 && o < L::OW) return sacc[o - L::W2];
-  T acc = T(0);
-  if (o < L::W2) {
-    for (int p = 0; p < P; ++p) acc += sE[o * LD + p];
-  } else if (o < L::OB) {
-    for (int p = 0; p < P; ++p) acc += sD[(o - L::OW) * LD + p];
-  } else {
-    for (int p = 0; p < P; ++p) acc += sC[p];
-  }
-  return acc;
+// Derivatives in the exponent a of one branch's envelope stacks, so that a
+// unit adds w0 (dz kf1 + dga kg1 + dlz kl1) + w1 (dz kf2 + dgb kg2 +
+// dlz kl2) to the cotangent of a: f = e^{-a r}: df/da = -r f; g = -a f:
+// dg/da = a r f - f; l = f (a^2 - 2a/r): dl/da = f (2a - 2/r) - r l.
+template <typename T>
+struct EnvDa {
+  T kf1, kg1, kl1, kf2, kg2, kl2;
+};
+
+template <typename T>
+__device__ __forceinline__ EnvDa<T> env_da(T a, const Env<T>& e) {
+  EnvDa<T> k;
+  k.kf1 = -e.r1 * e.f1;
+  k.kg1 = a * e.r1 * e.f1 - e.f1;
+  k.kl1 = e.f1 * (T(2) * a - T(2) * e.i1) - e.r1 * e.l1;
+  k.kf2 = -e.r2 * e.f2;
+  k.kg2 = a * e.r2 * e.f2 - e.f2;
+  k.kl2 = e.f2 * (T(2) * a - T(2) * e.i2) - e.r2 * e.l2;
+  return k;
+}
+
+// The unit's share of the cotangent of a.
+template <typename T>
+__device__ __forceinline__ T unit1_da(const Grad1<T>& d, T w0, T w1,
+                                      const EnvDa<T>& k) {
+  return w0 * (d.dz * k.kf1 + d.dga * k.kg1 + d.dlz * k.kl1) +
+         w1 * (d.dz * k.kf2 + d.dgb * k.kg2 + d.dlz * k.kl2);
 }
 
 }  // namespace trn

@@ -86,6 +86,44 @@ def typed_lib(name: str, n_ptr: int, error_prefix: str,
     return lib
 
 
+def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
+              n_extra_int: int = 0) -> ctypes.CDLL:
+    """``typed_lib`` of a kernel that works in tiles, its
+    ``<name>_points_per_tile(hidden, f64)`` checked once against the
+    wrapper's ``points_per_tile(hidden, dtype)`` at every width and type
+    (the wrapper sizes grids and partials from it), and the argument types
+    of ``<name>_occupancy(hidden, f64, int* smem_bytes)`` set."""
+    lib = typed_lib(name, n_ptr, error_prefix, n_extra_int=n_extra_int)
+    if not getattr(lib, "_tiles_checked", False):
+        ci = ctypes.c_int
+        tile = getattr(lib, f"{name}_points_per_tile")
+        tile.argtypes, tile.restype = [ci, ci], ci
+        occ = getattr(lib, f"{name}_occupancy")
+        occ.argtypes, occ.restype = [ci, ci, ctypes.POINTER(ci)], ci
+        for h in SUPPORTED_HIDDEN:
+            for dt in (torch.float64, torch.float32):
+                got = tile(h, int(dt == torch.float64))
+                if got != points_per_tile(h, dt):
+                    raise RuntimeError(
+                        f"{name}: {got} points a tile at H={h} {dt}, the "
+                        f"wrapper assumes {points_per_tile(h, dt)}")
+        lib._tiles_checked = True
+    return lib
+
+
+def occupancy(lib, hidden: int, dtype) -> tuple[int, int]:
+    """(resident blocks per SM, shared memory bytes per block) of a
+    ``tiled_lib``'s kernel at this width and dtype, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    name = lib._port_name
+    smem = ctypes.c_int(0)
+    blocks = getattr(lib, f"{name}_occupancy")(
+        hidden, int(dtype == torch.float64), ctypes.byref(smem))
+    if blocks < 0:
+        raise RuntimeError(f"{name}: occupancy query failed at H={hidden}")
+    return blocks, smem.value
+
+
 def launch(lib, dtype, device, ptrs, n, hidden, p_sym, ry, rz,
            extra_ints: tuple = ()) -> None:
     """Call the ``_f32`` or ``_f64`` entry point of a ``typed_lib`` on the

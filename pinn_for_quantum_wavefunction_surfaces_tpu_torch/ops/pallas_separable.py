@@ -33,7 +33,6 @@ launches.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -316,34 +315,17 @@ def grid_blocks(n: int, hidden: int) -> int:
 def _lib(name: str, n_ptr: int):
     """The typed library of K1-fwd or K1-bwd, its tiles checked against
     points_per_tile once."""
-    lib = _cuda.typed_lib(name, n_ptr, "separable", n_extra_int=1)
-    if not getattr(lib, "_sep_checked", False):
-        ci = ctypes.c_int
-        tile = getattr(lib, f"{name}_points_per_tile")
-        tile.argtypes, tile.restype = [ci], ci
-        occ = getattr(lib, f"{name}_occupancy")
-        occ.argtypes, occ.restype = [ci, ci, ctypes.POINTER(ci)], ci
-        for h in SUPPORTED_HIDDEN:
-            if tile(h) != points_per_tile(h):
-                raise RuntimeError(f"{name}: {tile(h)} points a tile at "
-                                   f"H={h}, the wrapper assumes "
-                                   f"{points_per_tile(h)}")
-        lib._sep_checked = True
-    return lib
+    return _cuda.tiled_lib(name, n_ptr, "separable",
+                           lambda h, _dtype: points_per_tile(h),
+                           n_extra_int=1)
 
 
 def occupancy(name: str, hidden: int, dtype) -> tuple[int, int]:
     """(resident blocks per SM, shared memory bytes per block) of kernel
-    ``name`` ("separable_fwd" or "separable_bwd") at this width and dtype,
-    from cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
-    card."""
-    lib = _lib(name, 9 if name == "separable_fwd" else 12)
-    smem = ctypes.c_int(0)
-    blocks = getattr(lib, f"{name}_occupancy")(
-        hidden, int(dtype == torch.float64), ctypes.byref(smem))
-    if blocks < 0:
-        raise RuntimeError(f"{name}: occupancy query failed at H={hidden}")
-    return blocks, smem.value
+    ``name`` ("separable_fwd" or "separable_bwd") at this width and dtype
+    on the current card."""
+    return _cuda.occupancy(_lib(name, 9 if name == "separable_fwd" else 12),
+                           hidden, dtype)
 
 
 def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,

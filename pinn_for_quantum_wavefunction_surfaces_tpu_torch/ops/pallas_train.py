@@ -14,9 +14,10 @@ output bias in the gerade sector and 0 in the ungerade one.
 Three implementations of one arithmetic live here:
 - ``psi_lap_train_plain``: the forward in vectorised tensor ops;
 - ``psi_lap_train_vjp_plain``: its hand-written adjoint (weights, a, b, g),
-  step for step as the CUDA backward kernel does it;
+  the adjoint the CUDA backward kernels compute;
 - ``csrc/train_fwd.cu`` and ``csrc/train_bwd.cu``: the Hopper kernels
-  (CUDA C++ for sm_90a, built by ``ops/_build.py``; ``csrc/train.cuh``).
+  (CUDA C++ for sm_90a, built by ``ops/_build.py``; ``csrc/train.cuh``,
+  and ``csrc/train_tile.cuh`` for the float64 tiles on the tensor cores).
 
 ``TrainKernel`` (a ``torch.autograd.Function``) dispatches on the device of
 its inputs: CUDA tensors launch the kernels (or the call raises), CPU
@@ -146,7 +147,8 @@ def psi_lap_train_plain(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# Plain explicit adjoint (the CUDA backward kernel transliterates this)
+# Plain explicit adjoint (the CUDA backward kernels compute the same
+# adjoint, with the sums over points and units in their own order)
 
 
 def _branch_vjp(weights, e, a, cv, cl):
@@ -237,6 +239,57 @@ def psi_lap_train_vjp_plain(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
 # CUDA kernels (csrc/train_fwd.cu, csrc/train_bwd.cu)
 
 
+# The kernels' work layout. Float64 (csrc/train_tile.cuh): blocks of 256
+# threads walk tiles of 32 points (16 at H = 32). Float32: one thread a
+# point, 128 points a block. K2-fwd takes one block a tile; K2-bwd's grid
+# is capped at the resident blocks per SM its __launch_bounds__ asks for
+# times the H100's 132 SMs, so one wave.
+GRID_BLOCKS_PER_SM = {torch.float64: 2, torch.float32: 3}
+N_SM = 132
+
+
+def points_per_tile(hidden: int, dtype=torch.float64) -> int:
+    """Points a block evaluates at a time."""
+    if dtype == torch.float64:
+        return 16 if hidden > 16 else 32
+    return 128
+
+
+def n_tiles(n: int, hidden: int, dtype=torch.float64) -> int:
+    """Tiles of n points; the last one is padded."""
+    return -(-n // points_per_tile(hidden, dtype))
+
+
+def grid_blocks(n: int, hidden: int, dtype=torch.float64) -> int:
+    """Blocks of a K2-bwd launch: one a tile, at most GRID_BLOCKS_PER_SM *
+    N_SM; each block walks the tiles blockIdx, blockIdx + grid, ... in
+    order. The count depends on n, H and the dtype alone, so the rows of
+    partial weight gradients (one a block), their order, and so the bits do
+    too."""
+    return max(1, min(n_tiles(n, hidden, dtype),
+                      GRID_BLOCKS_PER_SM[dtype] * N_SM))
+
+
+def _lib(name: str, n_ptr: int):
+    """The typed library of K2-fwd or K2-bwd, its tiles checked against
+    points_per_tile once."""
+    return _cuda.tiled_lib(name, n_ptr, "train", points_per_tile,
+                           n_extra_int=int(name == "train_bwd"))
+
+
+def occupancy(name: str, hidden: int, dtype) -> tuple[int, int]:
+    """(resident blocks per SM, shared memory bytes per block) of kernel
+    ``name`` ("train_fwd" or "train_bwd") at this width and dtype on the
+    current card."""
+    return _cuda.occupancy(_lib(name, 10 if name == "train_fwd" else 14),
+                           hidden, dtype)
+
+
+def threads(dtype) -> int:
+    """Threads a block of either kernel."""
+    return 256 if dtype == torch.float64 else 128
+
+
 def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
                    ry: float = 0.0, rz: float = 0.0):
     """K2 forward on the card: (psi, lap) for CUDA tensors."""
@@ -247,7 +300,7 @@ def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    lib = _cuda.typed_lib("train_fwd", 10, "train")
+    lib = _lib("train_fwd", 10)
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
                  ry, rz)
@@ -257,9 +310,9 @@ def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
 
 def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
                    p_sym: int = 1, ry: float = 0.0, rz: float = 0.0):
-    """K2 backward on the card: (6 weight grads, da, db, dg). The kernel
-    writes per-block partial weight gradients in a fixed order (no
-    atomics), summed here over blocks — repeatable bit for bit."""
+    """K2 backward on the card: (6 weight grads, da, db, dg). Each block
+    writes one row of partial weight gradients, summed in a fixed order
+    (no atomics); the rows are summed here — repeatable bit for bit."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b, g)
     shapes = weight_shapes(hidden)
@@ -267,16 +320,16 @@ def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
     pts = [t.contiguous() for t in pts]
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
-    lib = _cuda.typed_lib("train_bwd", 14, "train",
-                          extra=("train_bwd_points_per_block",))
-    n_blocks = -(-n // lib.train_bwd_points_per_block())
+    dtype = pts[0].dtype
+    lib = _lib("train_bwd", 14)
+    grid = grid_blocks(n, hidden, dtype)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
-    partials = torch.empty((n_blocks, sum(sizes)), dtype=pts[0].dtype,
+    partials = torch.empty((grid, sum(sizes)), dtype=dtype,
                            device=pts[0].device)
     da, db, dg = (torch.empty_like(pts[0]) for _ in range(3))
-    _cuda.launch(lib, pts[0].dtype, pts[0].device,
+    _cuda.launch(lib, dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), dpsi, dlap, da, db, dg,
-                  partials), n, hidden, p_sym, ry, rz)
+                  partials), n, hidden, p_sym, ry, rz, extra_ints=(grid,))
     launches["train_bwd"] += 1
     dws = tuple(t.reshape(s) for t, s in
                 zip(torch.split(partials.sum(0), sizes), shapes))

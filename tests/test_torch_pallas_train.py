@@ -218,3 +218,52 @@ def test_shipped_symmetric_artifacts_match_jax(name, p_sym):
     np.testing.assert_allclose(lap.numpy(), np.asarray(s.l[..., 0]),
                                rtol=1e-11, atol=1e-12)
     np.testing.assert_allclose(et.numpy(), np.asarray(e), rtol=1e-14)
+
+
+@pytest.mark.parametrize("hidden", [4, 8, 16, 32])
+def test_grid_sizing(hidden):
+    """The kernels' tiles and K2-bwd's grid (rows of partial weight
+    gradients), in both types: fixed by n, H and the dtype alone, capped at
+    a multiple of the SM count, and the blocks' strided walks cover every
+    tile exactly once."""
+    for dtype in (torch.float64, torch.float32):
+        per = tpt.points_per_tile(hidden, dtype)
+        if dtype == torch.float64:
+            # a block of 256 threads: 2 branches x per points, 256 // (2 per)
+            # threads a (branch, point) pair, whole units each
+            assert 256 % (2 * per) == 0 and hidden % (256 // (2 * per)) == 0
+        else:
+            assert per == tpt.threads(dtype)
+        cap = tpt.GRID_BLOCKS_PER_SM[dtype] * tpt.N_SM
+        assert [tpt.n_tiles(n, hidden, dtype) for n in (0, 1, per, per + 1)] \
+            == [0, 1, 1, 2]
+        assert [tpt.grid_blocks(n, hidden, dtype)
+                for n in (0, 1, per, per + 1)] == [1, 1, 1, 2]
+        for n in (N, 9216, 100_000):   # ragged; a quotient; make train
+            tiles = tpt.n_tiles(n, hidden, dtype)
+            assert (tiles - 1) * per < n <= tiles * per
+            grid = tpt.grid_blocks(n, hidden, dtype)
+            assert grid == min(tiles, cap)
+            walked = sorted(t for blk in range(grid)
+                            for t in range(blk, tiles, grid))
+            assert walked == list(range(tiles))
+        assert tpt.grid_blocks(100_000, hidden, dtype) == cap
+
+
+@pytest.mark.parametrize("p_sym", [1, -1])
+def test_pad_point_adds_exactly_zero(p_sym):
+    """Lanes past n evaluate the pad point (1, 1, 1; R = 1, a = b = g = 1)
+    with zero cotangents: every cotangent they produce is exactly 0, so the
+    kernels' padded tiles change no sum."""
+    _, tm, params = sym_model(p_sym, True, True, hidden=16)
+    ws, _, _, _ = kernel_inputs(params, tm, points(8)[3])
+    one = torch.ones(8, dtype=torch.float64)
+    zero = torch.zeros(8, dtype=torch.float64)
+    kw = dict(p_sym=p_sym)
+    psi, lap = tpt.psi_lap_train_plain(ws, one, one, one, one, one, one,
+                                       one, **kw)
+    assert bool(torch.isfinite(psi).all() and torch.isfinite(lap).all())
+    dws, da, db, dg = tpt.psi_lap_train_vjp_plain(ws, one, one, one, one, one,
+                                                  one, one, zero, zero, **kw)
+    for g in list(dws) + [da, db, dg]:
+        assert bool((g == 0).all())
