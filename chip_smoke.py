@@ -7,9 +7,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
  1. header: the card's name and power limit, torch and CUDA versions;
  2. build: the five CUDA kernels from csrc/ (K1 and K2, forward and
     backward, and K3), one nvcc per source, all in parallel; ptxas
-    registers and spills of every instantiation; K1's and K2's shared
-    memory per block and resident blocks per SM at every width in both
-    types;
+    registers and spills of every instantiation (the backward kernels'
+    point-gradient ones marked PG); K1's and K2's shared memory per block
+    and resident blocks per SM at every width in both types, PG too;
  K1, the separable-spheroidal variational trainer (make flagship):
  3. kernel check at the flagship training batch (164 502 points of the
     dual spheroidal grid, artifacts/flagship_separable.npz weights), in
@@ -71,7 +71,18 @@ Phases (any failure exits non-zero; none is caught and passed over):
     artifacts/evaluated.npz's to 1e-10 at all 153 knots, E_int within
     [-1e-4, 0.01] mHa of the exact oracle, the table within 0.001 mHa, the
     head's fit RMS within 0.01 mHa, one K1-fwd launch a quotient; the wall
-    time of each part.
+    time of each part, and the device the E-head fit ran on;
+ The point cotangents of K1-bwd and K2-bwd (point_grads=True):
+ 17. autograd of sum(psi^2) + sum(lap) in x, y, z, r through
+    psi_lap_train_separable(..., point_grads=True) at the flagship batch
+    (float64 and float32) and psi_lap_train(..., point_grads=True) at the
+    make-train batch (flagship.npz and ungerade_2psu.npz, both types), the
+    launches counted; its point gradients against the CPU on a slice; the
+    PG kernels against the plain point_grads VJPs (dx..dr, the weights, a,
+    b, g) at those sizes and at H = 4, 8, 32 on 1 100 points in both
+    sectors, with bitwise repeats; central differences of psi and lap psi
+    in x and R at 64 float64 points; CUDA-event times of the PG and the
+    training launches side by side, beside the bound.
 
 Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
 the card line, and last
@@ -202,6 +213,23 @@ def train_bwd_ops(h: int) -> int:
     return train_fwd_ops(h) + 32 * h * h + 186 * h + 104
 
 
+def bwd_pg_ops(h: int) -> int:
+    """K1-bwd with point gradients (csrc/separable_bwd.cu, PG = true):
+    bwd_ops, the MLPs' input cotangents (8 H: a multiply-add for s and for
+    R/4 a unit and MLP), and the per-point adjoint of the features, the GZ
+    pair, the explicit R and the geometry (172; what the kernel evaluates
+    again of the forward is not counted)."""
+    return bwd_ops(h) + 8 * h + 172
+
+
+def train_bwd_pg_ops(h: int) -> int:
+    """K2-bwd with point gradients (csrc/train_bwd.cu, PG = true):
+    train_bwd_ops, per branch and unit the envelope cotangents and c12's
+    (21: 42 H), and per point both branches' envelope and geometry
+    adjoints and the GZ pair's (184)."""
+    return train_bwd_ops(h) + 42 * h + 184
+
+
 def residual_fwd_ops(h: int, hg: int) -> int:
     """Floating-point operations of K3 per point (each transcendental
     counted once; csrc/residual_fwd.cu): the two branches as in K2-fwd
@@ -214,7 +242,8 @@ def bound_ms(n: int, h: int, dtype: str, which: str, kernel: str = "K1",
              hg: int = 10):
     """(least time in ms, "bytes" or "operations") of one call: each input
     read once and each output written once at the memory rate, against the
-    operations at the peak rate of their type."""
+    operations at the peak rate of their type. which: "fwd", "bwd", or
+    "bwd_pg" (the backward with point gradients: dx, dy, dz, dr out)."""
     size = 8 if dtype == "float64" else 4
     if kernel == "K3":
         wsize = h * h + 5 * h + 1 + 3 * hg + 1
@@ -225,17 +254,23 @@ def bound_ms(n: int, h: int, dtype: str, which: str, kernel: str = "K1",
         if which == "fwd":
             nbytes = size * (8 * n + wsize)        # x y z r a b -> psi lap
             ops = n * fwd_ops(h)
-        else:
+        elif which == "bwd":
             nbytes = size * (10 * n + 2 * wsize)   # + dpsi dlap -> da db, dW
             ops = n * bwd_ops(h)
+        else:
+            nbytes = size * (14 * n + 2 * wsize)   # + dx dy dz dr
+            ops = n * bwd_pg_ops(h)
     else:
         wsize = h * h + 5 * h + 1
         if which == "fwd":
             nbytes = size * (9 * n + wsize)        # x y z r a b g -> psi lap
             ops = n * train_fwd_ops(h)
-        else:
+        elif which == "bwd":
             nbytes = size * (12 * n + 2 * wsize)   # + dpsi dlap -> da db dg, dW
             ops = n * train_bwd_ops(h)
+        else:
+            nbytes = size * (16 * n + 2 * wsize)   # + dx dy dz dr
+            ops = n * train_bwd_pg_ops(h)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = ops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
@@ -251,20 +286,22 @@ def card_line() -> str:
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instantiation of an nvcc -Xptxas -v log: its
-    type and width, registers, and stack and spill bytes."""
+    type and width (PG: a backward kernel's point-gradient instantiation),
+    registers, and stack and spill bytes."""
     out, inst, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*_kernelI([df])Li(\d+)E",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'.*_kernelI([df])Li(\d+)E(?:Lb([01])E)?", line)
         if m:
             inst = (("float64" if m.group(1) == "d" else "float32"),
-                    int(m.group(2)))
+                    int(m.group(2)), " PG" if m.group(3) == "1" else "")
             spill = ""
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and inst:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{inst[0]} H={inst[1]}: {regs} registers; {spill}")
+            out.append(f"{inst[0]} H={inst[1]}{inst[2]}: {regs} registers; "
+                       f"{spill}")
             inst = None
     return out
 
@@ -401,6 +438,25 @@ def run_cli(args: list[str]) -> tuple[dict, str]:
     sys.stdout.flush()
     return json.loads(out.getvalue().strip().splitlines()[-1]), \
         err.getvalue()
+
+
+def k1_width_params(h: int, dt, dev) -> dict:
+    """Separable params at width h: the seeded GZ init (whose MLP output
+    layers are zero) plus N(0, 0.3^2) noise on every MLP weight, drawn in
+    float64, so that every layer shapes psi."""
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    p = ansatz.init_params(config.ModelConfig(arch="separable", hidden=h),
+                           seed=h, dtype="float64", device=dev)
+    noise = torch.Generator(device=dev).manual_seed(h)
+    for k in ("lam1", "lam2", "lamout", "mu1", "mu2", "muout"):
+        for f in p[k]:
+            p[k][f] = p[k][f] + 0.3 * torch.randn(
+                p[k][f].shape, generator=noise, device=dev,
+                dtype=torch.float64)
+    return ansatz.as_params(p, dt, dev)
 
 
 def k2_width_params(mcfg, dev) -> dict:
@@ -628,9 +684,9 @@ def k2_phases(dev, card: str) -> list[dict]:
           f"{loss1:.6e}")
     if not (np.isfinite(loss1) and loss1 < loss0):
         raise AssertionError(f"loss did not decrease: {loss0} -> {loss1}")
-    for k, v in counts.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched in training")
+    if counts["train_fwd"] <= 0 or counts["train_bwd"] <= 0 or \
+            counts["train_bwd_pg"] != 0:
+        raise AssertionError(f"training launches: {counts}")
     print(f"training: {TRAIN_STEPS / res.runtime_s:.2f} steps/s, "
           f"{res.points_per_sec:.4e} points/s ({res.runtime_s:.3f} s)")
     fcfg = config.finetune_config(tcfg)
@@ -740,6 +796,8 @@ def k3_phases(dev, card: str) -> dict:
         pallas_separable as ks
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
         pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        distill
 
     weights = k3_weights()
     h, hg = weights["h1"]["w"].shape[1], weights["gate1"]["w"].shape[1]
@@ -914,8 +972,11 @@ def k3_phases(dev, card: str) -> dict:
         t0 = time.time()
         res, err = run_cli(["evaluate", src, "--dtype", "float64",
                             "--steps", "8000", "--out", out_dir])
+        walls = json.loads(err.strip().splitlines()[-1].split(": ", 1)[1])
         print(f"cli evaluate: {time.time() - t0:.1f} s; "
               + err.strip().splitlines()[-1])
+        print(f"the E-head fit ran on {distill.FIT_DEVICE} in "
+              f"{walls['fit']} s (params on {dev})")
         ev_counts = dict(ks.launches)
         got = etab.load_table(os.path.join(out_dir, "evaluated.npz"))
         want = etab.load_table(os.path.join(HERE, "artifacts",
@@ -934,7 +995,8 @@ def k3_phases(dev, card: str) -> dict:
             "tab_mean_err_mHa <= 0.001": res["tab_mean_err_mHa"] <= 0.001,
             "fit_rms_mHa <= 0.01": res["fit_rms_mHa"] <= 0.01,
             "one K1-fwd launch a quotient": ev_counts == {
-                "separable_fwd": n_quot, "separable_bwd": 0},
+                "separable_fwd": n_quot, "separable_bwd": 0,
+                "separable_bwd_pg": 0},
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
@@ -959,6 +1021,325 @@ def k3_phases(dev, card: str) -> dict:
         "bound_by": t["bound_by"],
         "library_ms": None,
     }
+
+
+# phase 17: the slice of the path held against the CPU, and the central
+# differences' points and step
+PG_CPU_POINTS, PG_FD_POINTS, PG_FD_H = 4096, 64, 1e-5
+
+
+def pg_check(kind, label, ws, args, kw, gen, tol_w, tol_p):
+    """A PG = true launch of K1-bwd or K2-bwd against the plain point_grads
+    VJP (every output normwise: the weight gradients and da, db (dg) to
+    tol_w, dx..dr to tol_p), and two PG launches bit for bit; the weight
+    gradients' largest normwise difference to the training launch's is
+    printed. Returns (worst abs, worst normwise) over all outputs."""
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    if kind == "K1":
+        bwd, vjp = ks.separable_bwd_cuda, ks.psi_lap_separable_vjp_plain
+        names = [f"{m}{k}/{f}" for m in ("lam", "mu")
+                 for k, f in (("1", "w"), ("1", "b"), ("2", "w"), ("2", "b"),
+                              ("out", "w"), ("out", "b"))] + ["a", "b"]
+    else:
+        bwd, vjp = kt.train_bwd_cuda, kt.psi_lap_train_vjp_plain
+        names = ["h1/w", "h1/b", "h2/w", "h2/b", "out/w", "out/b", "a", "b",
+                 "g"]
+    names += ["x", "y", "z", "r"]
+    n = args[-1].numel()
+    dpsi = torch.randn(n, generator=gen, device=args[0].device,
+                       dtype=args[0].dtype)
+    dlap = torch.randn_like(dpsi)
+
+    def flat(out):
+        return list(out[0]) + list(out[1:])
+
+    got = flat(bwd(ws, *args, dpsi, dlap, point_grads=True, **kw))
+    again = flat(bwd(ws, *args, dpsi, dlap, point_grads=True, **kw))
+    off = flat(bwd(ws, *args, dpsi, dlap, **kw))
+    with torch.no_grad():
+        want = flat(vjp(ws, *args, dpsi, dlap, point_grads=True, **kw))
+    torch.cuda.synchronize()
+    errs = [check_normwise(f"{kind}-bwd PG {nm} {label}", u, v,
+                           tol_p if nm in "xyzr" else tol_w)
+            for nm, u, v in zip(names, got, want)]
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"{kind}-bwd PG {label}: two launches differ")
+    to_off = max(float((u - v).abs().max() / v.abs().max().clamp_min(1e-300))
+                 for u, v in zip(got, off))
+    pts = [e for nm, e in zip(names, errs) if nm in "xyzr"]
+    print(f"{kind}-bwd PG {label}: worst normwise {max(e[1] for e in errs):.3e}"
+          f" (dx..dr {max(e[1] for e in pts):.3e}, abs "
+          f"{max(e[0] for e in pts):.3e}); two launches bitwise equal; the "
+          f"training launch's outputs within {to_off:.3e} normwise")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def pg_phase(dev, card: str) -> list[dict]:
+    """Phase 17: the point cotangents of K1-bwd and K2-bwd
+    (point_grads=True). Returns their entries of the kernels line."""
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        variational
+
+    phase("17 point cotangents (K1-bwd and K2-bwd, point_grads=True)")
+
+    def artifact(name):
+        tree, _ = checkpoint.load_params(os.path.join(HERE, "artifacts",
+                                                      name))
+        return tree["params"]
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    both = (("float64", torch.float64), ("float32", torch.float32))
+    # the path at the shipped models' sizes: K1 at the flagship batch, K2 at
+    # the make-train batch in both sectors
+    sep_cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                            dtype="float64")
+    vb = variational.dual_grid_vbatch(sep_cfg, N_R, N_XI, N_ETA, device=dev)
+    k1_pts = [t.reshape(-1) for t in (vb.x, vb.y, vb.z)] + [
+        vb.r[:, None].expand_as(vb.x).reshape(-1)]
+    cases = []   # (kernel, label, entry point, model config, tree, points)
+    for dt_name, dt in both:
+        cases.append(("K1", f"flagship {dt_name}",
+                      ks.psi_lap_train_separable, sep_cfg.model,
+                      artifact("flagship_separable.npz"),
+                      [t.to(dt).contiguous() for t in k1_pts]))
+        for name, p_sym in (("flagship", 1), ("ungerade_2psu", -1)):
+            mcfg = config.ModelConfig(inversion_symmetry=p_sym, gz=True,
+                                      trainable_exponent=True)
+            batch = sample_batch(gen, config.Config(model=mcfg), n=N_TRAIN,
+                                 dtype=dt, device=dev)
+            cases.append(("K2", f"{name} P={p_sym} {dt_name}",
+                          kt.psi_lap_train, mcfg, artifact(f"{name}.npz"),
+                          [batch.x, batch.y, batch.z, batch.r]))
+
+    def path_grads(fn, params, mcfg, pts):
+        """d/d(x, y, z, r) of sum(psi^2) + sum(lap) through the entry point
+        with point_grads=True."""
+        xyzr = [t.detach().clone().requires_grad_(True) for t in pts]
+        psi, lap, _ = fn(params, mcfg, *xyzr, point_grads=True)
+        return torch.autograd.grad((psi * psi).sum() + lap.sum(), xyzr)
+
+    params = {c[1]: ansatz.from_jax_params(c[4], dtype=c[5][0].dtype,
+                                           device=dev) for c in cases}
+    ks.reset_launches()
+    kt.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    grads = {c[1]: path_grads(c[2], params[c[1]], c[3], c[5]) for c in cases}
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {**ks.launches, **kt.launches}
+    print(f"the path (autograd in x, y, z, r through the entry points, "
+          f"{len(cases)} cases) in {wall:.3f} s; launches {counts}")
+    n_k1 = sum(c[0] == "K1" for c in cases)
+    if counts != {"separable_fwd": n_k1, "separable_bwd": 0,
+                  "separable_bwd_pg": n_k1, "train_fwd": len(cases) - n_k1,
+                  "train_bwd": 0, "train_bwd_pg": len(cases) - n_k1}:
+        raise AssertionError(f"the point-gradient path's launches: {counts}")
+    for label, gs in grads.items():
+        if not all(bool(torch.isfinite(g).all()) for g in gs):
+            raise AssertionError(f"{label}: point gradients not finite")
+    # the path's composition (kernel, heads, autograd) against the CPU's
+    # plain path on a slice of each float64 batch
+    for kind, label, fn, mcfg, tree, pts in cases:
+        if not label.endswith("float64"):
+            continue
+        sl = [t[:PG_CPU_POINTS] for t in pts]
+        got = path_grads(fn, params[label], mcfg, sl)
+        want = path_grads(fn, ansatz.from_jax_params(
+            tree, dtype=torch.float64, device="cpu"), mcfg,
+            [t.cpu() for t in sl])
+        errs = [check_normwise(f"{kind} path d{c} {label}", u.cpu(), v, 1e-8)
+                for c, u, v in zip("xyzr", got, want)]
+        print(f"{kind} path {label}: d(x, y, z, r) against the CPU on "
+              f"{PG_CPU_POINTS} points, worst normwise "
+              f"{max(e[1] for e in errs):.3e}")
+    sys.stdout.flush()
+
+    # the PG kernels against the plain point_grads VJPs, at the path's
+    # sizes and at the other widths on a ragged batch in both sectors
+    errs, inputs = {}, {}
+    for kind, label, fn, mcfg, tree, pts in cases:
+        p = params[label]
+        dt = pts[0].dtype
+        p_sym = mcfg.inversion_symmetry
+        kw = dict(p_sym=p_sym, ry=mcfg.ry, rz=mcfg.rz)
+        r = pts[3]
+        with torch.no_grad():
+            a = ansatz.orbital_exponent(p, r)
+            b = ansatz.gz_exponent(p, r, p_sym, a)
+            if kind == "K1":
+                ws, args = ks.kernel_weights(p, dt), (a, b, *pts)
+            else:
+                ws = kt.kernel_weights(p, mcfg, dt)
+                args = (a, b, ansatz.gate(p, r), *pts)
+        if dt == torch.float64:
+            # the JAX package's gradient tolerance (normwise here: sums over
+            # the points in another order; the ungerade branches cancel)
+            tol_w = tol_p = 1e-8
+        else:
+            # float32, as phases 3 and 8 hold the weight gradients; the
+            # point gradients differentiate lap psi once more, whose terms
+            # cancel up to ~2a/r1 near the nuclei
+            tol_w = tol_p = 1e-4 if kind == "K1" else 5e-4
+        e = pg_check(kind, label, ws, args, kw, gen, tol_w, tol_p)
+        errs[label] = e[0]
+        inputs[label] = (ws, args, kw)
+    for kind in ("K1", "K2"):
+        for h in (4, 8, 32):
+            for p_sym in (1, -1):
+                n = 1100
+                if kind == "K1":
+                    p = k1_width_params(h, torch.float64, dev)
+                    u = torch.rand((4, n), generator=gen, device=dev,
+                                   dtype=torch.float64)
+                    pts = [12.0 * u[0] - 6.0, 12.0 * u[1] - 6.0,
+                           12.0 * u[2] - 6.0, 0.5 + 2.5 * u[3]]
+                else:
+                    mcfg = config.ModelConfig(inversion_symmetry=p_sym,
+                                              gz=True,
+                                              trainable_exponent=True,
+                                              hidden=h)
+                    p = k2_width_params(mcfg, dev)
+                    bt = sample_batch(gen, config.Config(model=mcfg), n=n,
+                                      dtype=torch.float64, device=dev)
+                    pts = [bt.x, bt.y, bt.z, bt.r]
+                with torch.no_grad():
+                    a = ansatz.orbital_exponent(p, pts[3])
+                    b = ansatz.gz_exponent(p, pts[3], p_sym, a)
+                    if kind == "K1":
+                        ws, args = ks.kernel_weights(p, torch.float64), \
+                            (a, b, *pts)
+                    else:
+                        ws = kt.kernel_weights(p, mcfg, torch.float64)
+                        args = (a, b, ansatz.gate(p, pts[3]), *pts)
+                pg_check(kind, f"H={h} P={p_sym} n={n} float64", ws, args,
+                         dict(p_sym=p_sym), gen, 1e-8, 1e-8)
+    sys.stdout.flush()
+
+    # central differences of the forward kernels, independent of the plain
+    # versions: at 64 float64 points clear of the nuclei (the JAX tests'
+    # point sets), dx and dR for the cotangents (1, 0) (d psi) and (0, 1)
+    # (d lap psi); h = 1e-5: truncation ~h^2 and roundoff ~eps/h, both far
+    # below rtol 1e-6 (with a floor of 1e-6 of the largest derivative)
+    rng = np.random.default_rng(PG_FD_POINTS)
+    m = PG_FD_POINTS
+    fd_pts = [torch.as_tensor(v, dtype=torch.float64, device=dev) for v in
+              (rng.uniform(-6, 6, m), rng.uniform(-6, 6, m),
+               rng.uniform(-6, 6, m), rng.uniform(0.5, 3.0, m))]
+    one = torch.ones(m, dtype=torch.float64, device=dev)
+    zero = torch.zeros_like(one)
+    hh = PG_FD_H
+    for kind, label, fn, mcfg, tree, _ in cases:
+        if not label.endswith("float64"):
+            continue
+        p_sym = mcfg.inversion_symmetry
+        for sector in ((p_sym,) if kind == "K2" else (1, -1)):
+            p = params[label]
+            kw = dict(p_sym=sector)
+            r = fd_pts[3]
+            with torch.no_grad():
+                a = ansatz.orbital_exponent(p, r)
+                b = ansatz.gz_exponent(p, r, sector, a)
+                if kind == "K1":
+                    ws, head = ks.kernel_weights(p, torch.float64), (a, b)
+                    fwd, bwd = ks.separable_fwd_cuda, ks.separable_bwd_cuda
+                else:
+                    ws = kt.kernel_weights(p, mcfg, torch.float64)
+                    head = (a, b, ansatz.gate(p, r))
+                    fwd, bwd = kt.train_fwd_cuda, kt.train_bwd_cuda
+            worst = 0.0   # normwise: against the largest derivative
+            for out_i, cot in enumerate(((one, zero), (zero, one))):
+                res = bwd(ws, *head, *fd_pts, *cot, point_grads=True, **kw)
+                for c, k in (("x", 0), ("R", 3)):
+                    up = list(fd_pts)
+                    dn = list(fd_pts)
+                    up[k] = fd_pts[k] + hh
+                    dn[k] = fd_pts[k] - hh
+                    fd = (fwd(ws, *head, *up, **kw)[out_i]
+                          - fwd(ws, *head, *dn, **kw)[out_i]) / (2.0 * hh)
+                    got = res[-4] if c == "x" else res[-1]
+                    e = check_close(
+                        f"{kind} {'lap' if out_i else 'psi'} d{c} P={sector} "
+                        "against central differences", got, fd, 1e-6,
+                        1e-6 * float(fd.abs().max()))
+                    worst = max(worst, e[0] / float(fd.abs().max()))
+            print(f"{kind} {label} P={sector}: dx, dR of psi and lap psi "
+                  f"against central differences at {m} points, worst "
+                  f"normwise {worst:.3e}")
+    sys.stdout.flush()
+
+    times = {}
+    for kind, label, fn, mcfg, tree, pts in cases:
+        if not label.startswith("flagship"):
+            continue
+        ws, args, kw = inputs[label]
+        dt_name = label.split()[-1]
+        n = pts[0].numel()
+        dpsi = torch.randn(n, generator=gen, device=dev, dtype=pts[0].dtype)
+        dlap = torch.randn_like(dpsi)
+        bwd, vjp = ((ks.separable_bwd_cuda, ks.psi_lap_separable_vjp_plain)
+                    if kind == "K1" else
+                    (kt.train_bwd_cuda, kt.psi_lap_train_vjp_plain))
+        with torch.no_grad():
+            t = {"train": cuda_ms(lambda: bwd(ws, *args, dpsi, dlap, **kw),
+                                  label=f"{kind}-bwd"),
+                 "pg": cuda_ms(lambda: bwd(ws, *args, dpsi, dlap,
+                                           point_grads=True, **kw),
+                               label=f"{kind}-bwd PG"),
+                 "pg_plain": cuda_ms(lambda: vjp(ws, *args, dpsi, dlap,
+                                                 point_grads=True, **kw),
+                                     reps=1, label=f"{kind}-bwd PG plain")}
+        t["train_again"] = cuda_ms(
+            lambda: bwd(ws, *args, dpsi, dlap, **kw), label=f"{kind}-bwd")
+        t["bound"], t["bound_by"] = bound_ms(n, 16, dt_name, "bwd_pg", kind)
+        times[(kind, dt_name)] = t
+        print(f"{dt_name} n={n} H=16: {kind}-bwd PG {t['pg']:.4f} ms against "
+              f"the training launch's {t['train']:.4f} / "
+              f"{t['train_again']:.4f} (before, after); plain PG "
+              f"{t['pg_plain']:.4f}, bound {t['bound']:.4f} {t['bound_by']} "
+              f"({card})", flush=True)
+
+    out = []
+    for kind, name, line, primary in (
+            ("K1", "separable_bwd_pg", "pallas_separable.py:325", "float64"),
+            ("K2", "train_bwd_pg", "pallas_train.py:264", "float32")):
+        other = "float32" if primary == "float64" else "float64"
+
+        def numbers(dt_name):
+            t = times[(kind, dt_name)]
+            err = errs[f"flagship {dt_name}" if kind == "K1"
+                       else f"flagship P=1 {dt_name}"]
+            return {"max_abs_err": err, "ms": t["pg"],
+                    "plain_ms": t["pg_plain"], "bound_ms": t["bound"],
+                    "bound_by": t["bound_by"]}
+
+        entry = {"name": name, "route": "cuda",
+                 "source": f"{PKG}/csrc/{name[:-3]}.cu",
+                 "replaces": ("pinn_for_quantum_wavefunction_surfaces_tpu/"
+                              f"ops/{line}"),
+                 "launches": counts[name], "dtype": primary}
+        entry.update(numbers(primary))
+        entry["library_ms"] = None
+        entry[other] = numbers(other)
+        out.append(entry)
+    return out
 
 
 def _load_npz_params(path: str) -> dict:
@@ -1020,16 +1401,19 @@ def main() -> int:
     for name in _build.KERNELS:
         for line in ptxas_summary(_build.log_path(name).read_text()):
             print(f"  {name} {line}")
-    for mod, name in ((ks, "separable_fwd"), (ks, "separable_bwd"),
-                      (kt, "train_fwd"), (kt, "train_bwd")):
+    for mod, name, pg in ((ks, "separable_fwd", False),
+                          (ks, "separable_bwd", False),
+                          (ks, "separable_bwd", True),
+                          (kt, "train_fwd", False), (kt, "train_bwd", False),
+                          (kt, "train_bwd", True)):
         for dt in (torch.float64, torch.float32):
             threads = ks.THREADS if mod is ks else kt.threads(dt)
             for h in mod.SUPPORTED_HIDDEN:
-                blocks, smem = mod.occupancy(name, h, dt)
-                print(f"  {name} {str(dt)[6:]} H={h}: {smem} B shared "
-                      f"memory a block of {threads} threads, {blocks} "
-                      f"resident blocks per SM ({blocks * threads // 32} "
-                      "warps)")
+                blocks, smem = mod.occupancy(name, h, dt, pg)
+                print(f"  {name}{' PG' if pg else ''} {str(dt)[6:]} H={h}: "
+                      f"{smem} B shared memory a block of {threads} "
+                      f"threads, {blocks} resident blocks per SM "
+                      f"({blocks * threads // 32} warps)")
     sys.stdout.flush()
 
     phase("3 kernel check (flagship training batch; one make evaluate "
@@ -1049,20 +1433,6 @@ def main() -> int:
     kw = dict(p_sym=mcfg.inversion_symmetry, ry=mcfg.ry, rz=mcfg.rz)
     gen = torch.Generator(device=dev).manual_seed(0)
     errs, inputs = {}, {}
-    def width_params(h, dt):
-        """Separable params at width h: the seeded GZ init (whose MLP output
-        layers are zero) plus N(0, 0.3^2) noise on every MLP weight, drawn
-        in float64, so that every layer shapes psi."""
-        p = ansatz.init_params(config.ModelConfig(arch="separable", hidden=h),
-                               seed=h, dtype="float64", device=dev)
-        noise = torch.Generator(device=dev).manual_seed(h)
-        for k in ("lam1", "lam2", "lamout", "mu1", "mu2", "muout"):
-            for f in p[k]:
-                p[k][f] = p[k][f] + 0.3 * torch.randn(
-                    p[k][f].shape, generator=noise, device=dev,
-                    dtype=torch.float64)
-        return ansatz.as_params(p, dt, dev)
-
     both = (("float64", torch.float64), ("float32", torch.float32))
     # the flagship weights at the flagship batch and at one make evaluate
     # quotient in both types; the other widths the kernels are built for
@@ -1073,7 +1443,7 @@ def main() -> int:
     for batch_name, batch, h, (dt_name, dt) in (
             (c[0], c[1], c[2], d) for c in cases for d in c[3]):
         params = (ansatz.from_jax_params(art, dtype=dt, device=dev)
-                  if h is None else width_params(h, dt))
+                  if h is None else k1_width_params(h, dt, dev))
         rr = batch.r[:, None].expand_as(batch.x).reshape(-1).to(dt)
         pts = [t.reshape(-1).to(dt).contiguous()
                for t in (batch.x, batch.y, batch.z)]
@@ -1184,9 +1554,9 @@ def main() -> int:
     print(f"loss {loss0:.9f} -> {loss1:.9f}")
     if not (np.isfinite(loss1) and loss1 < loss0):
         raise AssertionError(f"loss did not decrease: {loss0} -> {loss1}")
-    for k, v in counts.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched in training")
+    if counts["separable_fwd"] <= 0 or counts["separable_bwd"] <= 0 or \
+            counts["separable_bwd_pg"] != 0:
+        raise AssertionError(f"polish launches: {counts}")
     t_adam = marks["adam_end"] - t0
     t_lbfgs = t1 - marks["adam_end"]
     lb = {k: (counts[k] - marks["adam_counts"][k]) / LBFGS_STEPS
@@ -1244,6 +1614,7 @@ def main() -> int:
 
     k2 = k2_phases(dev, card)
     k3_entry = k3_phases(dev, card)
+    pg = pg_phase(dev, card)
     phase()
 
     t64 = times["float64"]
@@ -1264,7 +1635,7 @@ def main() -> int:
             "bound_by": t64[f"{which}_bound_by"],
             "library_ms": None,
         })
-    kernels += k2 + [k3_entry]
+    kernels += k2 + [k3_entry] + pg
     print(f"smoke run {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -80,9 +80,12 @@ struct Tile {
 };
 
 // Per-point vectors of a tile in shared memory, [slot][P]: the MLP inputs,
-// the MLP output triples, and (K1-bwd) their cotangents.
+// the MLP output triples, and (K1-bwd) their cotangents; in K1-bwd's
+// point-gradient instantiation also each MLP's input cotangents (s: t or
+// eta^2, and cf = R/4).
 enum Slot { kT0, kE0, kCf, kL0, kL1, kL2, kM0, kM1, kM2, kDq0, kDl1, kDl2,
-            kDm1, kDm2, kFwdSlots = kDq0, kBwdSlots = kDm2 + 1 };
+            kDm1, kDm2, kDsL, kDsM, kDcfL, kDcfM, kFwdSlots = kDq0,
+            kBwdSlots = kDm2 + 1, kPgSlots = kDcfM + 1 };
 
 // The calling thread's first unit: it owns units unit0 .. unit0 + UPT - 1
 // of its point.
@@ -294,20 +297,20 @@ __device__ __forceinline__ void top_forward(T l0, T l1, T l2, T m0, T m1,
   s.lap = s.e * s.kk;
 }
 
-// Adjoint of top_forward and gz for cotangents (dpsi, dlap): the
-// cotangents of both MLP output triples (dq0 is shared by lam0 and mu0)
-// and of the GZ exponents a, b.
+// The cotangents inside the adjoint of top_forward for (dpsi, dlap), which
+// both top_adjoint and point_adjoint read: q0 (shared by lam0 and mu0), qq,
+// ql, xv, phil, gpt, gpe, and the GZ pair's two terms fa, fb.
 template <typename T>
-struct TopGrad {
-  T dq0, dl1, dl2, dm1, dm2, da, db;
+struct TopCot {
+  T dq0, dqq, dql, dxv, dphil, dgpt, dgpe, dfa, dfb;
 };
 
 template <typename T>
-__device__ __forceinline__ TopGrad<T> top_adjoint(T a, T b, T l1, T m1,
-                                                  T dpsi, T dlap,
-                                                  const GZ<T>& g,
-                                                  const Point<T>& p,
-                                                  const Top<T>& s) {
+__device__ __forceinline__ TopCot<T> top_cotangents(T a, T b, T l1, T m1,
+                                                    T dpsi, T dlap,
+                                                    const GZ<T>& g,
+                                                    const Point<T>& p,
+                                                    const Top<T>& s) {
   const T c = cap<T>();
   const T de = dpsi * g.phi0 + dlap * s.kk;
   const T dkk = dlap * s.e;
@@ -327,27 +330,120 @@ __device__ __forceinline__ TopGrad<T> top_adjoint(T a, T b, T l1, T m1,
   dth = dth - T(2) * s.d1 * dd2;
   dd1 = dd1 - T(2) * s.th * dd2;
   dth = dth - T(2) * s.th * dd1;
+  TopCot<T> k;
+  k.dq0 = dth * s.d1 / c;
+  k.dqq = dqq;
+  k.dql = dql;
+  k.dxv = dxv;
+  k.dphil = dphil;
+  k.dgpt = dxv * l1;
+  k.dgpe = dxv * m1;
+  const T dp1 = k.dgpt * p.kt + k.dgpe * p.ke;
+  const T dp2 = k.dgpt * p.kt - k.dgpe * p.ke;
+  k.dfa = dphi0 - dp1 * a - dp2 * b + dphil * g.sa;
+  k.dfb = dphi0 - dp1 * b - dp2 * a + dphil * g.sb;
+  return k;
+}
+
+// Adjoint of top_forward and gz for cotangents (dpsi, dlap): the
+// cotangents of both MLP output triples (dq0 is shared by lam0 and mu0)
+// and of the GZ exponents a, b.
+template <typename T>
+struct TopGrad {
+  T dq0, dl1, dl2, dm1, dm2, da, db;
+};
+
+template <typename T>
+__device__ __forceinline__ TopGrad<T> top_adjoint(T a, T b, T l1, T m1,
+                                                  T dpsi, T dlap,
+                                                  const GZ<T>& g,
+                                                  const Point<T>& p,
+                                                  const Top<T>& s) {
+  const TopCot<T> k = top_cotangents(a, b, l1, m1, dpsi, dlap, g, p, s);
   TopGrad<T> r;
-  r.dq0 = dth * s.d1 / c;
-  r.dl1 = dxv * s.gpt + dql * p.tl + dqq * T(2) * l1 * p.gtt;
-  r.dm1 = dxv * s.gpe + dql * p.el2 + dqq * T(2) * m1 * p.gee;
-  r.dl2 = dql * p.gtt;
-  r.dm2 = dql * p.gee;
-  const T dgpt = dxv * l1;
-  const T dgpe = dxv * m1;
-  const T dp1 = dgpt * p.kt + dgpe * p.ke;
-  const T dp2 = dgpt * p.kt - dgpe * p.ke;
-  const T dfa = dphi0 - dp1 * a - dp2 * b + dphil * g.sa;
-  const T dfb = dphi0 - dp1 * b - dp2 * a + dphil * g.sb;
+  r.dq0 = k.dq0;
+  r.dl1 = k.dxv * s.gpt + k.dql * p.tl + k.dqq * T(2) * l1 * p.gtt;
+  r.dm1 = k.dxv * s.gpe + k.dql * p.el2 + k.dqq * T(2) * m1 * p.gee;
+  r.dl2 = k.dql * p.gtt;
+  r.dm2 = k.dql * p.gee;
+  const T dp1 = k.dgpt * p.kt + k.dgpe * p.ke;
+  const T dp2 = k.dgpt * p.kt - k.dgpe * p.ke;
   const T s_a = T(2) * (a + b * p.c12);
   const T s_b = T(2) * (b + a * p.c12);
   r.da = (-dp1 * g.fa - dp2 * g.fb +
-          dphil * (g.fa * (s_a - T(2) * p.i1) + g.fb * (s_a - T(2) * p.i2)) -
-          p.r1 * g.fa * dfa - p.r2 * g.fb * dfb);
+          k.dphil * (g.fa * (s_a - T(2) * p.i1) + g.fb * (s_a - T(2) * p.i2)) -
+          p.r1 * g.fa * k.dfa - p.r2 * g.fb * k.dfb);
   r.db = (-dp1 * g.fb - dp2 * g.fa +
-          dphil * (g.fa * (s_b - T(2) * p.i2) + g.fb * (s_b - T(2) * p.i1)) -
-          p.r2 * g.fa * dfa - p.r1 * g.fb * dfb);
+          k.dphil * (g.fa * (s_b - T(2) * p.i2) + g.fb * (s_b - T(2) * p.i1)) -
+          p.r2 * g.fa * k.dfa - p.r1 * g.fb * k.dfb);
   return r;
+}
+
+// The point gradient (dx, dy, dz, dR) of one point for cotangents (dpsi,
+// dlap), given its MLP output triples and the MLPs' input cotangents ds_l
+// (of t), ds_m (of eta^2) and dcf (of R/4, both MLPs): the adjoint of the
+// top's features (tl, gtt, el2, gee, kt, ke), of the MLP inputs t and
+// eta^2, of the GZ pair and of the explicit R in t, eta and cf, then the
+// geometry's. The point's geometry, GZ pair and top are evaluated again
+// from its inputs (the same arithmetic as the forward, so the same bits).
+// The plain version is the point_grads branch of
+// ops/pallas_separable.psi_lap_separable_vjp_plain.
+template <typename T>
+__device__ __forceinline__ void point_adjoint(
+    T x, T y, T z, T R, T ry, T rz, T a, T b, T psym, T l0, T l1, T l2, T m0,
+    T m1, T m2, T dpsi, T dlap, T ds_l, T ds_m, T dcf, T& dx, T& dy, T& dz,
+    T& dR) {
+  Point<T> p;
+  GZ<T> g;
+  point_gz(x, y, z, R, ry, rz, a, b, psym, p, g);
+  Top<T> s;
+  top_forward(l0, l1, l2, m0, m1, m2, g, p, s);
+  const TopCot<T> k = top_cotangents(a, b, l1, m1, dpsi, dlap, g, p, s);
+  // the top's features
+  const T dtl = k.dql * l1;
+  const T dgtt = k.dqq * l1 * l1 + k.dql * l2;
+  const T del2 = k.dql * m1;
+  const T dgee = k.dqq * m1 * m1 + k.dql * m2;
+  const T dkt = k.dgpt * (g.p1 + g.p2);
+  const T dke = k.dgpe * (g.p1 - g.p2);
+  // the GZ pair in the geometry (fa, fb, and sa, sb through phil)
+  const T dsa = k.dphil * g.fa, dsb = k.dphil * g.fb;
+  T dr1 = -(a * g.fa * k.dfa + b * g.fb * k.dfb);
+  T dr2 = -(b * g.fa * k.dfa + a * g.fb * k.dfb);
+  T dc12 = T(2) * a * b * (dsa + dsb);
+  T di1 = T(-2) * (a * dsa + b * dsb);
+  T di2 = T(-2) * (b * dsa + a * dsb);
+  // t = e^{R - (r1+r2)/2} with tl, gtt, kt
+  const T hc = T(1) + p.c12;
+  const T dt0 = ds_l + dtl * (T(0.5) * hc - (p.i1 + p.i2)) +
+                dgtt * p.t0 * hc - T(0.5) * dkt * hc;
+  dc12 += T(0.5) * p.t0 * (dtl + dgtt * p.t0 - dkt);
+  di1 -= dtl * p.t0;
+  di2 -= dtl * p.t0;
+  const T dex = dt0 * p.t0;
+  T dr = dex + T(0.25) * dcf;
+  dr1 -= T(0.5) * dex;
+  dr2 -= T(0.5) * dex;
+  // ev = (r1 - r2)/(2R), eta^2 = ev^2, el2, gee, ke
+  const T inv_r = T(1) / R;
+  const T ev = (p.r1 - p.r2) * (T(0.5) * inv_r);
+  const T mc = T(1) - p.c12;
+  const T de0 = ds_m + dgee * T(2) * mc * inv_r * inv_r;
+  const T dev = T(2) * ev * de0 + del2 * T(2) * (p.i1 - p.i2) * inv_r +
+                dke * inv_r * mc;
+  di1 += del2 * T(2) * ev * inv_r;
+  di2 -= del2 * T(2) * ev * inv_r;
+  dc12 -= (del2 + T(2) * p.e0 * dgee) * inv_r * inv_r + dke * ev * inv_r;
+  const T dinv = del2 * (T(2) * ev * (p.i1 - p.i2) + T(2) * mc * inv_r) +
+                 dgee * T(4) * p.e0 * mc * inv_r + dke * ev * mc +
+                 dev * T(0.5) * (p.r1 - p.r2);
+  dr1 += T(0.5) * dev * inv_r - di1 * p.i1 * p.i1;
+  dr2 -= T(0.5) * dev * inv_r + di2 * p.i2 * p.i2;
+  dr -= dinv * inv_r * inv_r;
+  T dRg;
+  kern::geometry_adjoint(x, y, z, R, ry, rz, p.i1, p.i2, p.c12, dr1, dr2,
+                         dc12, dx, dy, dz, dRg);
+  dR = dr + dRg;
 }
 
 }  // namespace sep

@@ -4,7 +4,8 @@
 //   bwd_kernel (the pl.pallas_call in fused_bwd), which recomputes _core per
 //   (48, 128) tile, applies the tile-local jax.vjp, and writes per-point
 //   da, db plus per-tile partials of the 12 weight gradients (summed over
-//   tiles outside the kernel). Points are constants (point_grads=False).
+//   tiles outside the kernel); with point_grads=True (:255, :269-272) also
+//   dx, dy, dz, dr per point: the PG = true instantiations below.
 //
 // What bounds it on an H100: arithmetic, about three times the forward's:
 // the forward, the MLP adjoints and the weight-gradient sums, 36 H^2 +
@@ -41,6 +42,20 @@
 // float64 at H = 16: 2 blocks of 8 warps an SM, no spills. Lanes past n
 // evaluate the finite pad point with zero cotangents, so everything they
 // add is exactly 0.
+//
+// Point gradients (PG = true, a compile-time flag; PG = false is the
+// training path and compiles to the same code as before the flag): after
+// each MLP's first-layer adjoint the point's lanes sum, in a fixed
+// butterfly, the MLP's input cotangents ds = sum_j dz0_j w1[0, j] and
+// dcf = sum_j dz0_j w1[1, j] into four more per-point vectors; the tile
+// then ends with one per-point phase on the scalar lanes (point_adjoint,
+// separable.cuh): the point's geometry, GZ pair and top evaluated again,
+// the adjoint of the features, the GZ pair and the explicit R, then the
+// geometry's (common.cuh), written to dx, dy, dz, dr for live points only.
+// Nothing else changes: the weight gradients keep their order and bits.
+// Under the same bound of 2 blocks (128 registers) the float64 PG
+// instantiations at H = 4, 8, 16 spill 120-428 B (phase 2 of chip_smoke.py):
+// the point phase's scalars on top of the MLP adjoint's.
 
 #include "separable.cuh"
 
@@ -52,10 +67,11 @@ namespace {
 template <int H>
 __host__ __device__ constexpr int sums_per_mlp() { return 5 * H + 1; }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 __host__ __device__ constexpr int smem_elems() {
   return 2 * Tile<H>::WSP + 5 * Tile<H>::ROWS * H +
-         kWarps * 2 * sums_per_mlp<H>() + kBwdSlots * Tile<H>::P;
+         kWarps * 2 * sums_per_mlp<H>() +
+         (PG ? kPgSlots : kBwdSlots) * Tile<H>::P;
 }
 
 // dW2 on the tensor cores: each warp owns FT fixed 8 x 8 tiles of one MLP's
@@ -77,7 +93,7 @@ __host__ __device__ constexpr int scalar_dw2_per_thread() {
   return (H * H + kThreads - 1) / kThreads;
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
     separable_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                          const T* __restrict__ z, const T* __restrict__ r,
@@ -85,6 +101,8 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
                          const T* __restrict__ w, const T* __restrict__ dpsi,
                          const T* __restrict__ dlap, T* __restrict__ da_out,
                          T* __restrict__ db_out, T* __restrict__ partials,
+                         T* __restrict__ dx_out, T* __restrict__ dy_out,
+                         T* __restrict__ dz_out, T* __restrict__ dr_out,
                          int n, T psym, T ry, T rz) {
   using TL = Tile<H>;
   using L = Layout<H>;
@@ -254,6 +272,7 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
       __syncthreads();
       // the first layer's adjoint at the thread's units, seed (z0, w, 0)
       const T s = m == 0 ? st : se;
+      T ds = T(0), dc = T(0);  // PG: the MLP's input cotangents (s, cf)
 #pragma unroll
       for (int i = 0; i < TL::UPT; ++i) {
         const int j = u0 + i;
@@ -271,6 +290,10 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
         dg = dg - T(2) * t * dh;
         dt = dt - T(2) * t * dg;
         const T dz0 = dt * gt;
+        if constexpr (PG) {
+          ds += dz0 * wj;
+          dc += dz0 * W[L::W1 + H + j];
+        }
         const T c0 = warp_points_sum<H>(s * dz0 + dz1);
         const T c1 = warp_points_sum<H>(cf * dz0);
         const T c2 = warp_points_sum<H>(dz0);
@@ -282,6 +305,31 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
       }
       const T cob = warp_points_sum<H>(d0);
       if (lane == 0) sums[5 * H] += cob;
+      if constexpr (PG) {
+        ds = point_sum<H>(ds);
+        dc = point_sum<H>(dc);
+        if (q == 0) {
+          sV[(kDsL + m) * TL::P + lp] = ds;
+          sV[(kDcfL + m) * TL::P + lp] = dc;
+        }
+      }
+    }
+    if constexpr (PG) {
+      // the scalar lanes: the point gradient of each live point
+      __syncthreads();
+      if (live) {
+        const T* v = sV + threadIdx.x;
+        T gx, gy, gz, gr;
+        point_adjoint(x[p], y[p], z[p], r[p], ry, rz, a[p], b[p], psym,
+                      v[kL0 * TL::P], v[kL1 * TL::P], v[kL2 * TL::P],
+                      v[kM0 * TL::P], v[kM1 * TL::P], v[kM2 * TL::P], dpsi[p],
+                      dlap[p], v[kDsL * TL::P], v[kDsM * TL::P],
+                      v[kDcfL * TL::P] + v[kDcfM * TL::P], gx, gy, gz, gr);
+        dx_out[p] = gx;
+        dy_out[p] = gy;
+        dz_out[p] = gz;
+        dr_out[p] = gr;
+      }
     }
   }
 
@@ -330,42 +378,45 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
   }
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 cudaError_t prepare(size_t* smem) {
   static_assert(2 * Dw2<H>::KS * H * H <= 2 * Tile<H>::ROWS * H,
                 "the dW2 staging fits the two tiles");
-  *smem = sizeof(T) * smem_elems<T, H>();
-  return cudaFuncSetAttribute(separable_bwd_kernel<T, H>,
+  *smem = sizeof(T) * smem_elems<T, H, PG>();
+  return cudaFuncSetAttribute(separable_bwd_kernel<T, H, PG>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* a, const void* b, const void* w,
                    const void* dpsi, const void* dlap, void* da, void* db,
-                   void* partials, int n, int psym, int grid, double ry,
-                   double rz, cudaStream_t stream) {
+                   void* partials, void* dx, void* dy, void* dz, void* dr,
+                   int n, int psym, int grid, double ry, double rz,
+                   cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare<T, H>(&smem);
+  cudaError_t err = prepare<T, H, PG>(&smem);
   if (err != cudaSuccess) return err;
-  separable_bwd_kernel<T, H><<<grid, kThreads, smem, stream>>>(
+  separable_bwd_kernel<T, H, PG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(z), static_cast<const T*>(r),
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<const T*>(w), static_cast<const T*>(dpsi),
       static_cast<const T*>(dlap), static_cast<T*>(da), static_cast<T*>(db),
-      static_cast<T*>(partials), n, T(psym), T(ry), T(rz));
+      static_cast<T*>(partials), static_cast<T*>(dx), static_cast<T*>(dy),
+      static_cast<T*>(dz), static_cast<T*>(dr), n, T(psym), T(ry), T(rz));
   return cudaGetLastError();
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<T, H>(&smem) != cudaSuccess) return -1;
+  if (prepare<T, H, PG>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, separable_bwd_kernel<T, H>, kThreads, smem) != cudaSuccess)
+          &blocks, separable_bwd_kernel<T, H, PG>, kThreads, smem) !=
+      cudaSuccess)
     return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
@@ -374,14 +425,20 @@ int occupancy(int* smem_bytes) {
 template <typename T>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* a, const void* b, const void* w, const void* dpsi,
-             const void* dlap, void* da, void* db, void* partials, int n,
-             int hidden, int psym, int grid, double ry, double rz,
-             void* stream) {
+             const void* dlap, void* da, void* db, void* partials, void* dx,
+             void* dy, void* dz, void* dr, int n, int hidden, int psym,
+             int grid, int pg, double ry, double rz, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SEP_BWD_CASE(HH)                                                    \
-  case HH:                                                                  \
-    return launch<T, HH>(x, y, z, r, a, b, w, dpsi, dlap, da, db, partials, \
-                         n, psym, grid, ry, rz, s);
+  if (pg && (!dx || !dy || !dz || !dr))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define SEP_BWD_CASE(HH)                                                     \
+  case HH:                                                                   \
+    return pg ? launch<T, HH, true>(x, y, z, r, a, b, w, dpsi, dlap, da, db, \
+                                    partials, dx, dy, dz, dr, n, psym, grid, \
+                                    ry, rz, s)                               \
+              : launch<T, HH, false>(x, y, z, r, a, b, w, dpsi, dlap, da,    \
+                                     db, partials, dx, dy, dz, dr, n, psym,  \
+                                     grid, ry, rz, s);
   switch (hidden) {
     SEP_BWD_CASE(4)
     SEP_BWD_CASE(8)
@@ -393,28 +450,54 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
 #undef SEP_BWD_CASE
 }
 
+// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
+// width (PG: its point-gradient instantiation), and its shared memory per
+// block in *smem_bytes; -1 on error.
+template <bool PG>
+int occupancy_at(int hidden, int f64, int* smem_bytes) {
+#define SEP_BWD_OCC(HH)                                   \
+  case HH:                                                \
+    return f64 ? occupancy<double, HH, PG>(smem_bytes)    \
+               : occupancy<float, HH, PG>(smem_bytes);
+  switch (hidden) {
+    SEP_BWD_OCC(4)
+    SEP_BWD_OCC(8)
+    SEP_BWD_OCC(16)
+    SEP_BWD_OCC(32)
+    default:
+      return -1;
+  }
+#undef SEP_BWD_OCC
+}
+
 }  // namespace
 
+// dx, dy, dz, dr: the point gradients, written when pg != 0 (the PG = true
+// instantiations); null otherwise.
 extern "C" int separable_bwd_f64(const void* x, const void* y, const void* z,
                                  const void* r, const void* a, const void* b,
                                  const void* w, const void* dpsi,
                                  const void* dlap, void* da, void* db,
-                                 void* partials, int n, int hidden, int psym,
-                                 int grid, double ry, double rz,
+                                 void* partials, void* dx, void* dy, void* dz,
+                                 void* dr, int n, int hidden, int psym,
+                                 int grid, int pg, double ry, double rz,
                                  void* stream) {
-  return dispatch<double>(x, y, z, r, a, b, w, dpsi, dlap, da, db, partials, n,
-                          hidden, psym, grid, ry, rz, stream);
+  return dispatch<double>(x, y, z, r, a, b, w, dpsi, dlap, da, db, partials,
+                          dx, dy, dz, dr, n, hidden, psym, grid, pg, ry, rz,
+                          stream);
 }
 
 extern "C" int separable_bwd_f32(const void* x, const void* y, const void* z,
                                  const void* r, const void* a, const void* b,
                                  const void* w, const void* dpsi,
                                  const void* dlap, void* da, void* db,
-                                 void* partials, int n, int hidden, int psym,
-                                 int grid, double ry, double rz,
+                                 void* partials, void* dx, void* dy, void* dz,
+                                 void* dr, int n, int hidden, int psym,
+                                 int grid, int pg, double ry, double rz,
                                  void* stream) {
-  return dispatch<float>(x, y, z, r, a, b, w, dpsi, dlap, da, db, partials, n,
-                         hidden, psym, grid, ry, rz, stream);
+  return dispatch<float>(x, y, z, r, a, b, w, dpsi, dlap, da, db, partials, dx,
+                         dy, dz, dr, n, hidden, psym, grid, pg, ry, rz,
+                         stream);
 }
 
 // Points a tile at this width, the same in both types (the wrapper's
@@ -429,22 +512,13 @@ extern "C" int separable_bwd_points_per_tile(int hidden, int /*f64*/) {
   }
 }
 
-// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
-// width, and its shared memory per block in *smem_bytes; -1 on error.
 extern "C" int separable_bwd_occupancy(int hidden, int f64, int* smem_bytes) {
-#define SEP_BWD_OCC(HH)                                          \
-  case HH:                                                       \
-    return f64 ? occupancy<double, HH>(smem_bytes)               \
-               : occupancy<float, HH>(smem_bytes);
-  switch (hidden) {
-    SEP_BWD_OCC(4)
-    SEP_BWD_OCC(8)
-    SEP_BWD_OCC(16)
-    SEP_BWD_OCC(32)
-    default:
-      return -1;
-  }
-#undef SEP_BWD_OCC
+  return occupancy_at<false>(hidden, f64, smem_bytes);
+}
+
+extern "C" int separable_bwd_pg_occupancy(int hidden, int f64,
+                                          int* smem_bytes) {
+  return occupancy_at<true>(hidden, f64, smem_bytes);
 }
 
 extern "C" const char* separable_error_string(int err) {

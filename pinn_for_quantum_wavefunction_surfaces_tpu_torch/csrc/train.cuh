@@ -191,30 +191,64 @@ __device__ __forceinline__ GZ<T> gz(T a, T b, const Env<T>& e) {
   return g;
 }
 
+// Cotangents of the GZ pair's terms for psi += v1 + P v2,
+// lap += v1 s1 + P v2 s2.
+template <typename T>
+struct GZCot {
+  GZ<T> g;
+  T dv1, ds1, dv2, ds2;
+};
+
+template <typename T>
+__device__ __forceinline__ GZCot<T> gz_cotangents(T a, T b, T psym,
+                                                  const Env<T>& e, T dpsi,
+                                                  T dlap) {
+  GZCot<T> k;
+  k.g = gz(a, b, e);
+  k.dv1 = dpsi + dlap * k.g.s1;
+  k.ds1 = dlap * k.g.v1;
+  k.dv2 = psym * (dpsi + dlap * k.g.s2);
+  k.ds2 = psym * dlap * k.g.v2;
+  return k;
+}
+
 // Adjoint of psi += v1 + P v2, lap += v1 s1 + P v2 s2 in (a, b).
 template <typename T>
 __device__ __forceinline__ void gz_adjoint(T a, T b, T psym, const Env<T>& e,
                                            T dpsi, T dlap, T& da, T& db) {
-  const GZ<T> g = gz(a, b, e);
-  const T dv1 = dpsi + dlap * g.s1;
-  const T ds1 = dlap * g.v1;
-  const T dv2 = psym * (dpsi + dlap * g.s2);
-  const T ds2 = psym * dlap * g.v2;
+  const GZCot<T> k = gz_cotangents(a, b, psym, e, dpsi, dlap);
+  const GZ<T>& g = k.g;
   const T sa = T(2) * a + T(2) * b * e.c12;
   const T sb = T(2) * b + T(2) * a * e.c12;
-  da += -e.r1 * g.v1 * dv1 + ds1 * (sa - T(2) * e.i1) -
-        e.r2 * g.v2 * dv2 + ds2 * (sa - T(2) * e.i2);
-  db += -e.r2 * g.v1 * dv1 + ds1 * (sb - T(2) * e.i2) -
-        e.r1 * g.v2 * dv2 + ds2 * (sb - T(2) * e.i1);
+  da += -e.r1 * g.v1 * k.dv1 + k.ds1 * (sa - T(2) * e.i1) -
+        e.r2 * g.v2 * k.dv2 + k.ds2 * (sa - T(2) * e.i2);
+  db += -e.r2 * g.v1 * k.dv1 + k.ds1 * (sb - T(2) * e.i2) -
+        e.r1 * g.v2 * k.dv2 + k.ds2 * (sb - T(2) * e.i1);
+}
+
+// The same in the direct geometry (point gradients): adds the cotangents
+// of r1, r2 and c12 (v1 = e^{-a r1 - b r2}, s1 = base - 2a/r1 - 2b/r2 with
+// base's 2ab c12, and the swapped pair).
+template <typename T>
+__device__ __forceinline__ void gz_geometry_adjoint(T a, T b, T psym,
+                                                    const Env<T>& e, T dpsi,
+                                                    T dlap, T& dr1, T& dr2,
+                                                    T& dc12) {
+  const GZCot<T> k = gz_cotangents(a, b, psym, e, dpsi, dlap);
+  const T di1 = T(-2) * (a * k.ds1 + b * k.ds2);
+  const T di2 = T(-2) * (b * k.ds1 + a * k.ds2);
+  dr1 += -a * k.g.v1 * k.dv1 - b * k.g.v2 * k.dv2 - di1 * e.i1 * e.i1;
+  dr2 += -b * k.g.v1 * k.dv1 - a * k.g.v2 * k.dv2 - di2 * e.i2 * e.i2;
+  dc12 += T(2) * a * b * (k.ds1 + k.ds2);
 }
 
 // Adjoint of second-layer unit u for cotangents (cv, cl) on its branch's
 // (value, laplacian) and output weight owk: the cotangents g0..g3 of its
-// pre-activation stack, and its term cv bv + cl bl of the output weight's
-// gradient.
+// pre-activation stack, its term cv bv + cl bl of the output weight's
+// gradient, and (point gradients) its term of c12's cotangent, through qq.
 template <typename T>
 struct Grad2 {
-  T g0, g1, g2, g3, dow;
+  T g0, g1, g2, g3, dow, dc12;
 };
 
 template <typename T>
@@ -231,16 +265,18 @@ __device__ __forceinline__ Grad2<T> unit2_adjoint(const Unit2<T>& u, T c12,
   r.g2 = dq * (T(2) * u.p2 + T(2) * c12 * u.p1);
   r.g3 = dbl * u.e1;
   r.dow = cv * u.bv + cl * u.bl;
+  r.dc12 = dq * T(2) * u.p1 * u.p2;
   return r;
 }
 
 // Adjoint of a first-layer unit with input weights (w0, w1) and sigmoid
 // value s, for cotangents (da0..da3) of its stack: the cotangents of its
-// pre-activation z, gradient coefficients (ga, gb) and laplacian lz. Nothing
+// pre-activation z, gradient coefficients (ga, gb) and laplacian lz, and
+// (point gradients) its term of c12's cotangent, through q. Nothing
 // transcendental is evaluated again: d1, d2, d3 are polynomials in s.
 template <typename T>
 struct Grad1 {
-  T dz, dga, dgb, dlz;
+  T dz, dga, dgb, dlz, dc12;
 };
 
 template <typename T>
@@ -259,6 +295,7 @@ __device__ __forceinline__ Grad1<T> unit1_adjoint(T s, T w0, T w1,
   r.dga = da1 * d1 + da3 * d2 * (T(2) * ga + T(2) * e.c12 * gb);
   r.dgb = da2 * d1 + da3 * d2 * (T(2) * gb + T(2) * e.c12 * ga);
   r.dlz = da3 * d1;
+  r.dc12 = da3 * d2 * T(2) * ga * gb;
   return r;
 }
 
@@ -289,6 +326,57 @@ __device__ __forceinline__ T unit1_da(const Grad1<T>& d, T w0, T w1,
                                       const EnvDa<T>& k) {
   return w0 * (d.dz * k.kf1 + d.dga * k.kg1 + d.dlz * k.kl1) +
          w1 * (d.dz * k.kf2 + d.dgb * k.kg2 + d.dlz * k.kl2);
+}
+
+// Point gradients: the cotangents of a branch's envelope stacks (value f,
+// gradient coefficient g, laplacian l of each envelope) and of its c12,
+// summed over the units: a unit adds w0 (dz, dga, dlz) to envelope 1's,
+// w1 (dz, dgb, dlz) to envelope 2's, and its Grad1 and Grad2 dc12 terms.
+enum EnvCot { kCf1, kCg1, kCl1, kCf2, kCg2, kCl2, kCc12, kEnvCots };
+
+template <typename T>
+__device__ __forceinline__ void unit1_env_cot(const Grad1<T>& d, T w0, T w1,
+                                              T (&c)[kEnvCots]) {
+  c[kCf1] += d.dz * w0;
+  c[kCg1] += d.dga * w0;
+  c[kCl1] += d.dlz * w0;
+  c[kCf2] += d.dz * w1;
+  c[kCg2] += d.dgb * w1;
+  c[kCl2] += d.dlz * w1;
+  c[kCc12] += d.dc12;
+}
+
+// A branch's envelope cotangents carried to its r1, r2 and c12: per
+// envelope f = e^{-a r}: df/dr = -a f; g = -a f: dg/dr = a^2 f;
+// l = f (a^2 - 2a/r): dl/dr = -a l + 2a f / r^2 (the plain version is
+// ops/pallas_train._envelope_vjp).
+template <typename T>
+__device__ __forceinline__ void env_adjoint(T a, const Env<T>& e,
+                                            const T (&c)[kEnvCots], T& dr1,
+                                            T& dr2, T& dc12) {
+  dr1 += -a * e.f1 * c[kCf1] + a * a * e.f1 * c[kCg1] +
+         (T(2) * a * e.f1 * e.i1 * e.i1 - a * e.l1) * c[kCl1];
+  dr2 += -a * e.f2 * c[kCf2] + a * a * e.f2 * c[kCg2] +
+         (T(2) * a * e.f2 * e.i2 * e.i2 - a * e.l2) * c[kCl2];
+  dc12 += c[kCc12];
+}
+
+// One branch's envelope cotangents (and, for the direct branch, the GZ
+// pair's geometry cotangents dr1, dr2, dc12 already in them) carried
+// through its geometry to the point: adds to (dx, dy, dz, dR).
+template <typename T>
+__device__ __forceinline__ void branch_point_adjoint(
+    T x, T y, T z, T R, T ry, T rz, T a, bool mirror, const Env<T>& e,
+    const T (&c)[kEnvCots], T dr1, T dr2, T dc12, T& dx, T& dy, T& dz,
+    T& dR) {
+  env_adjoint(a, e, c, dr1, dr2, dc12);
+  T tx, ty, tz, tr;
+  kern::geometry_adjoint(mirror ? -x : x, y, z, R, ry, rz, e.i1, e.i2, e.c12,
+                         dr1, dr2, dc12, tx, ty, tz, tr);
+  dx += mirror ? -tx : tx;
+  dy += ty;
+  dz += tz;
+  dR += tr;
 }
 
 }  // namespace trn

@@ -4,7 +4,8 @@
 //   bwd_kernel (the pl.pallas_call in fused_bwd), which recomputes _core per
 //   (32, 128) tile, applies the tile-local jax.vjp, and writes per-point
 //   da, db, dg plus per-tile partials of the 6 weight gradients (summed over
-//   tiles outside the kernel). Points are constants (point_grads=False).
+//   tiles outside the kernel); with point_grads=True (:191, :206-210) also
+//   dx, dy, dz, dr per point: the PG = true instantiations below.
 //
 // What bounds it on an H100: arithmetic, about three times the forward's:
 // 48 H^2 + 290 H + 233 operations per point (17.2k at H = 16;
@@ -55,6 +56,23 @@
 //   blocks it needs no cap on registers, and is slower). At ~3x its
 //   operation bound, the one-thread-a-point products (the rate of FMA and
 //   shared-load instructions) bound it.
+//
+// Point gradients (PG = true, a compile-time flag of both kernels; PG =
+// false is the training path and compiles to the same code as before the
+// flag). A branch's adjoint already forms, per unit, the cotangents of the
+// unit's pre-activation, gradient coefficients and laplacian; summed over
+// the units with the input weights they give the cotangents of the
+// branch's envelope stacks (f, g, l of each envelope), and the units' q
+// and qq terms give that of c12 (train.cuh unit1_env_cot). Float64: each
+// pair's lanes sum these 7 values in a fixed butterfly into 7 more
+// per-pair vectors, and the tile's per-point phase carries both branches'
+// (and the GZ pair's) through the envelopes and the geometry to dx, dy,
+// dz, dr (train.cuh branch_point_adjoint, common.cuh geometry_adjoint; the
+// mirrored branch's dx changes sign). Float32: the thread of a point does
+// the same in registers after each branch, under the same 3-block bound
+// (168 registers; the PG instantiation at H = 16 needs 168 when allowed
+// 255). Only live points are written; the weight gradients keep their
+// order and bits.
 
 #include "train_tile.cuh"
 
@@ -87,12 +105,14 @@ __host__ __device__ constexpr int scalar_dw2_per_thread() {
 // 0, w1 row 1, b1, b2, ow
 constexpr int kUnitSums = 5;
 
-template <int H>
+// PG: each pair's envelope cotangents [kEnvCots][2P] after the sums
+template <int H, bool PG>
 constexpr int bwd_smem_elems() {
-  return tile_smem_elems<H>(2) + kTileWarps * kUnitSums * H;
+  return tile_smem_elems<H>(2) + kTileWarps * kUnitSums * H +
+         (PG ? kEnvCots * Tile<H>::BP : 0);
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 __global__ void __launch_bounds__(kTileThreads, 2)
     train_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ y,
                           const T* __restrict__ z, const T* __restrict__ r,
@@ -101,7 +121,9 @@ __global__ void __launch_bounds__(kTileThreads, 2)
                           const T* __restrict__ dpsi,
                           const T* __restrict__ dlap, T* __restrict__ da_out,
                           T* __restrict__ db_out, T* __restrict__ dg_out,
-                          T* __restrict__ partials, int n, T psym, T ry,
+                          T* __restrict__ partials, T* __restrict__ dx_out,
+                          T* __restrict__ dy_out, T* __restrict__ dz_out,
+                          T* __restrict__ dr_out, int n, T psym, T ry,
                           T rz) {
   static_assert(std::is_same<T, double>::value, "the float64 design");
   using TL = Tile<H>;
@@ -119,6 +141,7 @@ __global__ void __launch_bounds__(kTileThreads, 2)
   T* sG = sA + TL::ROWS * LD;  // [8P][LD] L, then G, then dA
   T* sV = sG + TL::ROWS * LD;  // [slot][2P] per-pair vectors
   T* sS = sV + kSlots * BP;    // [warp][kUnitSums][H] per-unit sums
+  T* sC = sS + kTileWarps * kUnitSums * H;  // PG: [kEnvCots][2P]
   tile_load_weights<T, H>(w, sw, sW2);
   for (int i = threadIdx.x; i < kTileWarps * kUnitSums * H; i += kTileThreads)
     sS[i] = T(0);
@@ -155,6 +178,7 @@ __global__ void __launch_bounds__(kTileThreads, 2)
     const T cv = sV[kCv * BP + bp], cl = sV[kCl * BP + bp];
     T ov = T(0), ol = T(0);
     T t2[2][UPT];  // b2, ow
+    T dc2 = T(0);  // PG: c12's cotangent through the units' qq
 #pragma unroll
     for (int i = 0; i < UPT; ++i) {
       const int k = q + TL::TPP * i;
@@ -171,6 +195,7 @@ __global__ void __launch_bounds__(kTileThreads, 2)
       gk[3 * P * LD] = d.g3;
       t2[0][i] = d.g0;
       t2[1][i] = d.dow;
+      if constexpr (PG) dc2 += d.dc12;
     }
     warp_unit_sums<H>(t2, sums + 3 * H);
     ov = pair_sum<H>(ov);
@@ -217,6 +242,8 @@ __global__ void __launch_bounds__(kTileThreads, 2)
     const EnvDa<T> kd = env_da(sV[kA * BP + bp], e);
     T dap = T(0);
     T t1[3][UPT];  // w1 row 0, w1 row 1, b1
+    T ec[kEnvCots] = {};  // PG: the pair's envelope cotangents
+    ec[kCc12] = dc2;
 #pragma unroll
     for (int i = 0; i < UPT; ++i) {
       const int j = q + TL::TPP * i;
@@ -229,10 +256,18 @@ __global__ void __launch_bounds__(kTileThreads, 2)
       t1[1][i] = d.dz * e.f2 + d.dgb * e.g2 + d.dlz * e.l2;
       t1[2][i] = d.dz;
       dap += unit1_da(d, w0, w1, kd);
+      if constexpr (PG) unit1_env_cot(d, w0, w1, ec);
     }
     warp_unit_sums<H>(t1, sums);
     dap = pair_sum<H>(dap);
     if (q == 0) sV[kDa * BP + bp] = dap;
+    if constexpr (PG) {
+#pragma unroll
+      for (int c = 0; c < kEnvCots; ++c) {
+        const T v = pair_sum<H>(ec[c]);
+        if (q == 0) sC[c * BP + bp] = v;
+      }
+    }
     __syncthreads();
     // one thread a point: the GZ pair's adjoint, da, db, dg
     if (tid < P) {
@@ -254,6 +289,30 @@ __global__ void __launch_bounds__(kTileThreads, 2)
         dg_out[p] = gpsi * nnv + glap * nnl;
       }
       ob += sV[kCv * BP + tid];  // the direct branch's: dpsi g
+      if constexpr (PG) {
+        if (live) {
+          // the GZ pair's geometry cotangents join the direct branch's
+          const T av = sV[kA * BP + tid];
+          T dr1 = T(0), dr2 = T(0), dc12 = T(0);
+          gz_geometry_adjoint(av, b[p], psym, ep, gpsi, glap, dr1, dr2, dc12);
+          T px = T(0), py = T(0), pz = T(0), pr = T(0);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const int pp = m * P + tid;
+            T c[kEnvCots];
+#pragma unroll
+            for (int k = 0; k < kEnvCots; ++k) c[k] = sC[k * BP + pp];
+            branch_point_adjoint(x[p], y[p], z[p], r[p], ry, rz, av, m == 1,
+                                 tile_env<T, H>(sV, pp), c,
+                                 m == 0 ? dr1 : T(0), m == 0 ? dr2 : T(0),
+                                 m == 0 ? dc12 : T(0), px, py, pz, pr);
+          }
+          dx_out[p] = px;
+          dy_out[p] = py;
+          dz_out[p] = pz;
+          dr_out[p] = pr;
+        }
+      }
     }
     __syncthreads();
   }
@@ -353,7 +412,7 @@ __device__ __forceinline__ void add_warp_sums(float* v, float* sums,
   if (lane < C) sums[slot] += v[0];
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
     train_bwd_point_kernel(const T* __restrict__ x, const T* __restrict__ y,
                            const T* __restrict__ z, const T* __restrict__ r,
@@ -362,7 +421,9 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
                            const T* __restrict__ dpsi,
                            const T* __restrict__ dlap, T* __restrict__ da_out,
                            T* __restrict__ db_out, T* __restrict__ dg_out,
-                           T* __restrict__ partials, int n, T psym, T ry,
+                           T* __restrict__ partials, T* __restrict__ dx_out,
+                           T* __restrict__ dy_out, T* __restrict__ dz_out,
+                           T* __restrict__ dr_out, int n, T psym, T ry,
                            T rz) {
   static_assert(std::is_same<T, float>::value, "the float32 design");
   using PT = PointTile<H>;
@@ -396,6 +457,7 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
     const int p = tile * P + tid;
     const bool live = p < n;
     T nnv = sw[L::OB], nnl = T(0), da = T(0);
+    T px = T(0), py = T(0), pz = T(0), pr = T(0);  // PG: the point gradient
     // one branch after the other; the inputs are read again where needed
     // rather than held in registers across the branches
 #pragma unroll 1
@@ -429,6 +491,7 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
         store4(rowA + 3 * H + j, a3 + j);
       }
       T ov = T(0), ol = T(0);
+      T ec[kEnvCots] = {};  // PG: the branch's envelope cotangents
 #pragma unroll 1
       for (int k0 = 0; k0 < H; k0 += 2) {
         T gq[4][2], dow[2];
@@ -440,6 +503,7 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
           ov += u.bv * owk;
           ol += u.bl * owk;
           const Grad2<T> d = unit2_adjoint(u, e.c12, owk, bcv, bcl);
+          if constexpr (PG) ec[kCc12] += d.dc12;
           dow[kk] = d.dow;
           gq[0][kk] = d.g0;
           gq[1][kk] = d.g1;
@@ -505,11 +569,16 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
           t1[ii] = d.dz * e.f2 + d.dgb * e.g2 + d.dlz * e.l2;
           t2[ii] = d.dz;
           da += unit1_da(d, w0, w1, kd);
+          if constexpr (PG) unit1_env_cot(d, w0, w1, ec);
         }
         add_warp_sums<4>(t0, sums + H + i0, lane);
         add_warp_sums<4>(t1, sums + 2 * H + i0, lane);
         add_warp_sums<4>(t2, sums + 3 * H + i0, lane);
       }
+      if constexpr (PG)
+        branch_point_adjoint(live ? x[p] : one, live ? y[p] : one,
+                             live ? z[p] : one, live ? r[p] : one, ry, rz, av,
+                             m == 1, e, ec, T(0), T(0), T(0), px, py, pz, pr);
     }
     const T av = live ? a[p] : one;
     const T gpsi = live ? dpsi[p] : T(0);
@@ -523,6 +592,20 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
       da_out[p] = da;
       db_out[p] = db;
       dg_out[p] = gpsi * nnv + glap * nnl;
+    }
+    if constexpr (PG) {
+      if (live) {
+        // the GZ pair, on the direct geometry
+        T dr1 = T(0), dr2 = T(0), dc12 = T(0);
+        gz_geometry_adjoint(av, b[p], psym, e0, gpsi, glap, dr1, dr2, dc12);
+        T tx, ty, tz, tr;
+        kern::geometry_adjoint(x[p], y[p], z[p], r[p], ry, rz, e0.i1, e0.i2,
+                               e0.c12, dr1, dr2, dc12, tx, ty, tz, tr);
+        dx_out[p] = px + tx;
+        dy_out[p] = py + ty;
+        dz_out[p] = pz + tz;
+        dr_out[p] = pr + tr;
+      }
     }
   }
 
@@ -557,16 +640,16 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
 // ---------------------------------------------------------------------------
 // launch
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 cudaError_t prepare(size_t* smem) {
   if constexpr (std::is_same<T, double>::value) {
-    *smem = sizeof(T) * bwd_smem_elems<H>();
-    return cudaFuncSetAttribute(train_bwd_tile_kernel<T, H>,
+    *smem = sizeof(T) * bwd_smem_elems<H, PG>();
+    return cudaFuncSetAttribute(train_bwd_tile_kernel<T, H, PG>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   } else {
     *smem = sizeof(T) * point_smem_elems<H>();
-    return cudaFuncSetAttribute(train_bwd_point_kernel<T, H>,
+    return cudaFuncSetAttribute(train_bwd_point_kernel<T, H, PG>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   }
@@ -582,14 +665,15 @@ constexpr int threads() {
   return std::is_same<T, double>::value ? kTileThreads : PointTile<H>::P;
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* a, const void* b, const void* g, const void* w,
                    const void* dpsi, const void* dlap, void* da, void* db,
-                   void* dg, void* partials, int n, int psym, int grid,
-                   double ry, double rz, cudaStream_t stream) {
+                   void* dg, void* partials, void* dx, void* dy, void* dz,
+                   void* dr, int n, int psym, int grid, double ry, double rz,
+                   cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare<T, H>(&smem);
+  cudaError_t err = prepare<T, H, PG>(&smem);
   if (err != cudaSuccess) return err;
   const T* px = static_cast<const T*>(x);
   const T* py = static_cast<const T*>(y);
@@ -601,31 +685,35 @@ cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
   const T* pw = static_cast<const T*>(w);
   const T* pdpsi = static_cast<const T*>(dpsi);
   const T* pdlap = static_cast<const T*>(dlap);
+  T* outs[8] = {static_cast<T*>(da), static_cast<T*>(db),
+                static_cast<T*>(dg), static_cast<T*>(partials),
+                static_cast<T*>(dx), static_cast<T*>(dy),
+                static_cast<T*>(dz), static_cast<T*>(dr)};
   if constexpr (std::is_same<T, double>::value)
-    train_bwd_tile_kernel<T, H><<<grid, threads<T, H>(), smem, stream>>>(
-        px, py, pz, pr, pa, pb, pg, pw, pdpsi, pdlap, static_cast<T*>(da),
-        static_cast<T*>(db), static_cast<T*>(dg), static_cast<T*>(partials), n,
-        T(psym), T(ry), T(rz));
+    train_bwd_tile_kernel<T, H, PG><<<grid, threads<T, H>(), smem, stream>>>(
+        px, py, pz, pr, pa, pb, pg, pw, pdpsi, pdlap, outs[0], outs[1],
+        outs[2], outs[3], outs[4], outs[5], outs[6], outs[7], n, T(psym),
+        T(ry), T(rz));
   else
-    train_bwd_point_kernel<T, H><<<grid, threads<T, H>(), smem, stream>>>(
-        px, py, pz, pr, pa, pb, pg, pw, pdpsi, pdlap, static_cast<T*>(da),
-        static_cast<T*>(db), static_cast<T*>(dg), static_cast<T*>(partials), n,
-        T(psym), T(ry), T(rz));
+    train_bwd_point_kernel<T, H, PG><<<grid, threads<T, H>(), smem, stream>>>(
+        px, py, pz, pr, pa, pb, pg, pw, pdpsi, pdlap, outs[0], outs[1],
+        outs[2], outs[3], outs[4], outs[5], outs[6], outs[7], n, T(psym),
+        T(ry), T(rz));
   return cudaGetLastError();
 }
 
-template <typename T, int H>
+template <typename T, int H, bool PG>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<T, H>(&smem) != cudaSuccess) return -1;
+  if (prepare<T, H, PG>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   cudaError_t err;
   if constexpr (std::is_same<T, double>::value)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_bwd_tile_kernel<T, H>, threads<T, H>(), smem);
+        &blocks, train_bwd_tile_kernel<T, H, PG>, threads<T, H>(), smem);
   else
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_bwd_point_kernel<T, H>, threads<T, H>(), smem);
+        &blocks, train_bwd_point_kernel<T, H, PG>, threads<T, H>(), smem);
   if (err != cudaSuccess) return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
@@ -635,13 +723,20 @@ template <typename T>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* a, const void* b, const void* g, const void* w,
              const void* dpsi, const void* dlap, void* da, void* db, void* dg,
-             void* partials, int n, int hidden, int psym, int grid, double ry,
-             double rz, void* stream) {
+             void* partials, void* dx, void* dy, void* dz, void* dr, int n,
+             int hidden, int psym, int grid, int pg, double ry, double rz,
+             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pg && (!dx || !dy || !dz || !dr))
+    return static_cast<int>(cudaErrorInvalidValue);
 #define TRAIN_BWD_CASE(HH)                                                  \
   case HH:                                                                  \
-    return launch<T, HH>(x, y, z, r, a, b, g, w, dpsi, dlap, da, db, dg,    \
-                         partials, n, psym, grid, ry, rz, s);
+    return pg ? launch<T, HH, true>(x, y, z, r, a, b, g, w, dpsi, dlap, da, \
+                                    db, dg, partials, dx, dy, dz, dr, n,    \
+                                    psym, grid, ry, rz, s)                  \
+              : launch<T, HH, false>(x, y, z, r, a, b, g, w, dpsi, dlap,    \
+                                     da, db, dg, partials, dx, dy, dz, dr,  \
+                                     n, psym, grid, ry, rz, s);
   switch (hidden) {
     TRAIN_BWD_CASE(4)
     TRAIN_BWD_CASE(8)
@@ -653,26 +748,52 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
 #undef TRAIN_BWD_CASE
 }
 
+// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
+// width (PG: its point-gradient instantiation), and its shared memory per
+// block in *smem_bytes; -1 on error.
+template <bool PG>
+int occupancy_at(int hidden, int f64, int* smem_bytes) {
+#define TRAIN_BWD_OCC(HH)                              \
+  case HH:                                             \
+    return f64 ? occupancy<double, HH, PG>(smem_bytes) \
+               : occupancy<float, HH, PG>(smem_bytes);
+  switch (hidden) {
+    TRAIN_BWD_OCC(4)
+    TRAIN_BWD_OCC(8)
+    TRAIN_BWD_OCC(16)
+    TRAIN_BWD_OCC(32)
+    default:
+      return -1;
+  }
+#undef TRAIN_BWD_OCC
+}
+
 }  // namespace
 
+// dx, dy, dz, dr: the point gradients, written when pg != 0 (the PG = true
+// instantiations); null otherwise.
 extern "C" int train_bwd_f64(const void* x, const void* y, const void* z,
                              const void* r, const void* a, const void* b,
                              const void* g, const void* w, const void* dpsi,
                              const void* dlap, void* da, void* db, void* dg,
-                             void* partials, int n, int hidden, int psym,
-                             int grid, double ry, double rz, void* stream) {
+                             void* partials, void* dx, void* dy, void* dz,
+                             void* dr, int n, int hidden, int psym, int grid,
+                             int pg, double ry, double rz, void* stream) {
   return dispatch<double>(x, y, z, r, a, b, g, w, dpsi, dlap, da, db, dg,
-                          partials, n, hidden, psym, grid, ry, rz, stream);
+                          partials, dx, dy, dz, dr, n, hidden, psym, grid, pg,
+                          ry, rz, stream);
 }
 
 extern "C" int train_bwd_f32(const void* x, const void* y, const void* z,
                              const void* r, const void* a, const void* b,
                              const void* g, const void* w, const void* dpsi,
                              const void* dlap, void* da, void* db, void* dg,
-                             void* partials, int n, int hidden, int psym,
-                             int grid, double ry, double rz, void* stream) {
+                             void* partials, void* dx, void* dy, void* dz,
+                             void* dr, int n, int hidden, int psym, int grid,
+                             int pg, double ry, double rz, void* stream) {
   return dispatch<float>(x, y, z, r, a, b, g, w, dpsi, dlap, da, db, dg,
-                         partials, n, hidden, psym, grid, ry, rz, stream);
+                         partials, dx, dy, dz, dr, n, hidden, psym, grid, pg,
+                         ry, rz, stream);
 }
 
 // Points a block takes at a time in the f64 (f64 != 0) or f32 kernel (the
@@ -692,22 +813,12 @@ extern "C" int train_bwd_points_per_tile(int hidden, int f64) {
 #undef TRAIN_BWD_TILE
 }
 
-// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
-// width, and its shared memory per block in *smem_bytes; -1 on error.
 extern "C" int train_bwd_occupancy(int hidden, int f64, int* smem_bytes) {
-#define TRAIN_BWD_OCC(HH)                          \
-  case HH:                                         \
-    return f64 ? occupancy<double, HH>(smem_bytes) \
-               : occupancy<float, HH>(smem_bytes);
-  switch (hidden) {
-    TRAIN_BWD_OCC(4)
-    TRAIN_BWD_OCC(8)
-    TRAIN_BWD_OCC(16)
-    TRAIN_BWD_OCC(32)
-    default:
-      return -1;
-  }
-#undef TRAIN_BWD_OCC
+  return occupancy_at<false>(hidden, f64, smem_bytes);
+}
+
+extern "C" int train_bwd_pg_occupancy(int hidden, int f64, int* smem_bytes) {
+  return occupancy_at<true>(hidden, f64, smem_bytes);
 }
 
 extern "C" const char* train_error_string(int err) {

@@ -52,7 +52,9 @@ def suffix(dtype) -> str:
 
 
 def ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device pointer; None is the null pointer (an output the
+    kernel does not write)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def pack(ws):
@@ -92,14 +94,18 @@ def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
     ``<name>_points_per_tile(hidden, f64)`` checked once against the
     wrapper's ``points_per_tile(hidden, dtype)`` at every width and type
     (the wrapper sizes grids and partials from it), and the argument types
-    of ``<name>_occupancy(hidden, f64, int* smem_bytes)`` set."""
+    of ``<name>_occupancy(hidden, f64, int* smem_bytes)`` set, and of
+    ``<name>_pg_occupancy`` (the point-gradient instantiations of a
+    backward kernel) where the library has it."""
     lib = typed_lib(name, n_ptr, error_prefix, n_extra_int=n_extra_int)
     if not getattr(lib, "_tiles_checked", False):
         ci = ctypes.c_int
         tile = getattr(lib, f"{name}_points_per_tile")
         tile.argtypes, tile.restype = [ci, ci], ci
-        occ = getattr(lib, f"{name}_occupancy")
-        occ.argtypes, occ.restype = [ci, ci, ctypes.POINTER(ci)], ci
+        for fname in (f"{name}_occupancy", f"{name}_pg_occupancy"):
+            if hasattr(lib, fname):
+                occ = getattr(lib, fname)
+                occ.argtypes, occ.restype = [ci, ci, ctypes.POINTER(ci)], ci
         for h in SUPPORTED_HIDDEN:
             for dt in (torch.float64, torch.float32):
                 got = tile(h, int(dt == torch.float64))
@@ -111,11 +117,13 @@ def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
     return lib
 
 
-def occupancy(lib, hidden: int, dtype) -> tuple[int, int]:
+def occupancy(lib, hidden: int, dtype,
+              point_grads: bool = False) -> tuple[int, int]:
     """(resident blocks per SM, shared memory bytes per block) of a
-    ``tiled_lib``'s kernel at this width and dtype, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
-    name = lib._port_name
+    ``tiled_lib``'s kernel (or its point-gradient instantiation) at this
+    width and dtype, from cudaOccupancyMaxActiveBlocksPerMultiprocessor on
+    the current card."""
+    name = lib._port_name + ("_pg" if point_grads else "")
     smem = ctypes.c_int(0)
     blocks = getattr(lib, f"{name}_occupancy")(
         hidden, int(dtype == torch.float64), ctypes.byref(smem))

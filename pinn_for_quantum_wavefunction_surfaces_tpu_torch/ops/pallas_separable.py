@@ -10,8 +10,9 @@ with the two width-H tanh MLPs run on 1-D derivative triples [f, f', f''].
 
 Three implementations of one arithmetic live here:
 - ``psi_lap_separable_plain``: the forward in vectorised tensor ops;
-- ``psi_lap_separable_vjp_plain``: its hand-written adjoint (weights, a, b),
-  step for step as the CUDA backward kernel does it;
+- ``psi_lap_separable_vjp_plain``: its hand-written adjoint (weights, a, b,
+  and with ``point_grads`` the points x, y, z, r), step for step as the
+  CUDA backward kernel does it;
 - ``csrc/separable_fwd.cu`` and ``csrc/separable_bwd.cu``: the Hopper
   kernels (CUDA C++ for sm_90a, built by ``ops/_build.py``).
 
@@ -40,9 +41,10 @@ from ..models import ansatz
 from ..models.ansatz import LOG_CORR_CAP
 from . import _cuda
 
-# launch counts of the two CUDA kernels (plain integers: a run can show that
-# its path went through the kernels). Only the CUDA wrappers add to them.
-launches = {"separable_fwd": 0, "separable_bwd": 0}
+# launch counts of the CUDA kernels, K1-bwd's point-gradient instantiation
+# apart (plain integers: a run can show that its path went through the
+# kernels). Only the CUDA wrappers add to them.
+launches = {"separable_fwd": 0, "separable_bwd": 0, "separable_bwd_pg": 0}
 
 SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 
@@ -76,6 +78,22 @@ def _geometry(x, y, z, r, ry, rz):
     i1, i2 = 1.0 / r1, 1.0 / r2
     c12 = (d1x * d2x + d1y * d2y + d1z * d2z) * i1 * i2
     return r1, r2, i1, i2, c12
+
+
+def geometry_vjp(xs, y, z, r, ry, rz, i1, i2, c12, dr1, dr2, dc12):
+    """Adjoint of the scalar geometry of one pair of nuclei (csrc/common.cuh
+    geometry_adjoint): the cotangents (dxs, dy, dz, dr) of the point and the
+    nuclear offset r from those of r1, r2 and c12 = u1.u2, for the
+    displacements d1 = (xs - r, y - ry, z - rz), d2 = (xs + r, y + ry,
+    z + rz): dr_i/dd_i = u_i, dc12/dd1 = (u2 - c12 u1)/r1 and the mirror
+    image for d2. Shared by both families (the symmetric family's mirrored
+    branch passes xs = -x)."""
+    u1 = ((xs - r) * i1, (y - ry) * i1, (z - rz) * i1)
+    u2 = ((xs + r) * i2, (y + ry) * i2, (z + rz) * i2)
+    k1, k2 = dc12 * i1, dc12 * i2
+    g1 = [dr1 * v1 + k1 * (v2 - c12 * v1) for v1, v2 in zip(u1, u2)]
+    g2 = [dr2 * v2 + k2 * (v1 - c12 * v2) for v1, v2 in zip(u1, u2)]
+    return g1[0] + g2[0], g1[1] + g2[1], g1[2] + g2[2], g2[0] - g1[0]
 
 
 def _features(r, r1, r2, i1, i2, c12):
@@ -176,7 +194,10 @@ def psi_lap_separable_plain(weights, a, b, x, y, z, r, *, p_sym: int = 1,
 
 def _mlp_vjp(s, cf, w1, w2, ow, act, dout):
     """Adjoint of _mlp_fwd w.r.t. its six weights, given the output
-    triple's cotangent dout = (d0, d1, d2), each (n,)."""
+    triple's cotangent dout = (d0, d1, d2), each (n,). Also returns the
+    cotangent dz0 (n, H) of the first layer's pre-activations, from which
+    the inputs' cotangents are ds = dz0 w1[0] and dcf = dz0 w1[1] (the seed
+    triple's other entries, 1 and 0, are constants)."""
     a1, lin, a2, tt, g, h, u, gg, hh = act
     owv = ow[:, 0]
     d0, dd1, dd2 = (c[:, None] for c in dout)
@@ -208,15 +229,18 @@ def _mlp_vjp(s, cf, w1, w2, ow, act, dout):
     dw1 = torch.stack([(s[:, None] * dz0 + dz1).sum(0),
                        (cf[:, None] * dz0).sum(0)])
     db1 = dz0.sum(0)[None, :]
-    return dw1, db1, dw2, db2_, dow, dob
+    return (dw1, db1, dw2, db2_, dow, dob), dz0
 
 
 def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
                                 p_sym: int = 1, ry: float = 0.0,
-                                rz: float = 0.0):
+                                rz: float = 0.0, point_grads: bool = False):
     """Cotangents (12 weight grads, da, db) of psi_lap_separable_plain for
-    output cotangents (dpsi, dlap). The points are constants (the
-    training path stops their gradients), so there is no dx..dr."""
+    output cotangents (dpsi, dlap). With ``point_grads`` also those of the
+    points, (..., dx, dy, dz, dr): the adjoint carried past the MLPs
+    through the features, the GZ pair and the geometry, as the kernel's
+    point_adjoint (csrc/separable.cuh) does. Otherwise the points are
+    constants (the training path stops their gradients)."""
     l_w, m_w = weights[:6], weights[6:]
     p = float(p_sym)
     c = LOG_CORR_CAP
@@ -277,9 +301,61 @@ def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
           + dphil * (fa * (s_b - 2.0 * i2) + fb * (s_b - 2.0 * i1))
           - r2 * fa * dfa - r1 * fb * dfb)
 
-    dl = _mlp_vjp(t0, cf, l_w[0], l_w[2], l_w[4], l_act, (dq0, dl1, dl2))
-    dm = _mlp_vjp(e0, cf, m_w[0], m_w[2], m_w[4], m_act, (dq0, dm1, dm2))
-    return tuple(dl) + tuple(dm), da, db
+    dl, dzl = _mlp_vjp(t0, cf, l_w[0], l_w[2], l_w[4], l_act,
+                       (dq0, dl1, dl2))
+    dm, dzm = _mlp_vjp(e0, cf, m_w[0], m_w[2], m_w[4], m_act,
+                       (dq0, dm1, dm2))
+    grads = (tuple(dl) + tuple(dm), da, db)
+    if not point_grads:
+        return grads
+
+    # the MLPs' inputs: s = t (lambda) or eta^2 (mu), and cf = R/4 (both)
+    ds_l, ds_m = dzl @ l_w[0][0], dzm @ m_w[0][0]
+    dcf = dzl @ l_w[0][1] + dzm @ m_w[0][1]
+    # the top's features: qq, ql, gpt = kt (p1 + p2), gpe = ke (p1 - p2)
+    dtl = dql * l1
+    dgtt = dqq * l1 * l1 + dql * l_tr[2]
+    del2 = dql * m1
+    dgee = dqq * m1 * m1 + dql * m_tr[2]
+    dkt = dgpt * (p1 + p2)
+    dke = dgpe * (p1 - p2)
+    # the GZ pair in the geometry (fa, fb, and sa, sb through phil)
+    dsa, dsb = dphil * fa, dphil * fb
+    dr1 = -(a * fa * dfa + b * fb * dfb)
+    dr2 = -(b * fa * dfa + a * fb * dfb)
+    dc12 = 2.0 * a * b * (dsa + dsb)
+    di1 = -2.0 * (a * dsa + b * dsb)
+    di2 = -2.0 * (b * dsa + a * dsb)
+    # t0 = e^{R - (r1+r2)/2} with tl, gtt, kt
+    hc = 1.0 + c12
+    dt0 = (ds_l + dtl * (0.5 * hc - (i1 + i2)) + dgtt * t0 * hc
+           - 0.5 * dkt * hc)
+    dc12 = dc12 + 0.5 * t0 * (dtl + dgtt * t0 - dkt)
+    di1 = di1 - dtl * t0
+    di2 = di2 - dtl * t0
+    dex = dt0 * t0
+    dr = dex + 0.25 * dcf
+    dr1 = dr1 - 0.5 * dex
+    dr2 = dr2 - 0.5 * dex
+    # ev = (r1 - r2)/(2R), eta^2 = ev^2, el2, gee, ke
+    inv_r = 1.0 / r
+    ev = (r1 - r2) * (0.5 * inv_r)
+    mc = 1.0 - c12
+    de0 = ds_m + dgee * 2.0 * mc * inv_r * inv_r
+    dev = (2.0 * ev * de0 + del2 * 2.0 * (i1 - i2) * inv_r
+           + dke * inv_r * mc)
+    di1 = di1 + del2 * 2.0 * ev * inv_r
+    di2 = di2 - del2 * 2.0 * ev * inv_r
+    dc12 = dc12 - (del2 + 2.0 * e0 * dgee) * inv_r * inv_r - dke * ev * inv_r
+    dinv = (del2 * (2.0 * ev * (i1 - i2) + 2.0 * mc * inv_r)
+            + dgee * 4.0 * e0 * mc * inv_r + dke * ev * mc
+            + dev * 0.5 * (r1 - r2))
+    dr1 = dr1 + 0.5 * dev * inv_r - di1 * i1 * i1
+    dr2 = dr2 - 0.5 * dev * inv_r - di2 * i2 * i2
+    dr = dr - dinv * inv_r * inv_r
+    dx, dy, dz, dr_g = geometry_vjp(x, y, z, r, ry, rz, i1, i2, c12, dr1,
+                                    dr2, dc12)
+    return grads + (dx, dy, dz, dr + dr_g)
 
 
 # ---------------------------------------------------------------------------
@@ -312,20 +388,23 @@ def grid_blocks(n: int, hidden: int) -> int:
     return max(1, min(n_tiles(n, hidden), GRID_BLOCKS_PER_SM * N_SM))
 
 
-def _lib(name: str, n_ptr: int):
-    """The typed library of K1-fwd or K1-bwd, its tiles checked against
+def _lib(name: str):
+    """The typed library of K1-fwd (its extra int: the tiles) or K1-bwd
+    (the grid and the point-gradient flag), its tiles checked against
     points_per_tile once."""
-    return _cuda.tiled_lib(name, n_ptr, "separable",
+    fwd = name == "separable_fwd"
+    return _cuda.tiled_lib(name, 9 if fwd else 16, "separable",
                            lambda h, _dtype: points_per_tile(h),
-                           n_extra_int=1)
+                           n_extra_int=1 if fwd else 2)
 
 
-def occupancy(name: str, hidden: int, dtype) -> tuple[int, int]:
+def occupancy(name: str, hidden: int, dtype,
+              point_grads: bool = False) -> tuple[int, int]:
     """(resident blocks per SM, shared memory bytes per block) of kernel
-    ``name`` ("separable_fwd" or "separable_bwd") at this width and dtype
-    on the current card."""
-    return _cuda.occupancy(_lib(name, 9 if name == "separable_fwd" else 12),
-                           hidden, dtype)
+    ``name`` ("separable_fwd" or "separable_bwd", and of the latter's
+    point-gradient instantiation) at this width and dtype on the current
+    card."""
+    return _cuda.occupancy(_lib(name), hidden, dtype, point_grads)
 
 
 def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
@@ -338,7 +417,7 @@ def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    lib = _lib("separable_fwd", 9)
+    lib = _lib("separable_fwd")
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
                  ry, rz, extra_ints=(max(1, n_tiles(n, hidden)),))
@@ -347,10 +426,13 @@ def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
 
 
 def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
-                       p_sym: int = 1, ry: float = 0.0, rz: float = 0.0):
-    """K1 backward on the card: (12 weight grads, da, db). Each block
-    writes one row of partial weight gradients, summed in a fixed order
-    (no atomics); the rows are summed here — repeatable bit for bit."""
+                       p_sym: int = 1, ry: float = 0.0, rz: float = 0.0,
+                       point_grads: bool = False):
+    """K1 backward on the card: (12 weight grads, da, db), and with
+    ``point_grads`` also (dx, dy, dz, dr) from the kernel's point-gradient
+    instantiation. Each block writes one row of partial weight gradients,
+    summed in a fixed order (no atomics); the rows are summed here —
+    repeatable bit for bit."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
     shapes = weight_shapes(hidden)
@@ -358,20 +440,23 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
     pts = [t.contiguous() for t in pts]
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
-    lib = _lib("separable_bwd", 12)
+    lib = _lib("separable_bwd")
     grid = grid_blocks(n, hidden)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     partials = torch.empty((grid, sum(sizes)), dtype=pts[0].dtype,
                            device=pts[0].device)
     da = torch.empty_like(pts[0])
     db = torch.empty_like(pts[0])
+    dpts = tuple(torch.empty_like(pts[0]) if point_grads else None
+                 for _ in range(4))
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
-                 (*pts, _cuda.pack(weights), dpsi, dlap, da, db, partials),
-                 n, hidden, p_sym, ry, rz, extra_ints=(grid,))
-    launches["separable_bwd"] += 1
+                 (*pts, _cuda.pack(weights), dpsi, dlap, da, db, partials,
+                  *dpts), n, hidden, p_sym, ry, rz,
+                 extra_ints=(grid, int(point_grads)))
+    launches["separable_bwd_pg" if point_grads else "separable_bwd"] += 1
     dws = tuple(g.reshape(s) for g, s in
                 zip(torch.split(partials.sum(0), sizes), shapes))
-    return dws, da, db
+    return (dws, da, db) + (dpts if point_grads else ())
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +465,13 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
 
 class SeparableKernel(torch.autograd.Function):
     """(psi, lap) = K1(a, b, x, y, z, r; weights) with its hand-written
-    backward. Gradients flow to the 12 weights and to a, b; the points are
-    constants."""
+    backward. cfg = (p_sym, ry, rz, point_grads). Gradients flow to the 12
+    weights and to a, b; to the points x, y, z, r only with point_grads
+    (otherwise they are constants)."""
 
     @staticmethod
     def forward(ctx, cfg, a, b, x, y, z, r, *weights):
-        p_sym, ry, rz = cfg
+        p_sym, ry, rz, _ = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(a, b, x, y, z, r, *weights)
         kw = dict(p_sym=p_sym, ry=ry, rz=rz)
@@ -396,15 +482,11 @@ class SeparableKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dpsi, dlap):
         a, b, x, y, z, r, *weights = ctx.saved_tensors
-        p_sym, ry, rz = ctx.cfg
-        kw = dict(p_sym=p_sym, ry=ry, rz=rz)
-        if a.is_cuda:
-            dws, da, db = separable_bwd_cuda(weights, a, b, x, y, z, r,
-                                             dpsi, dlap, **kw)
-        else:
-            dws, da, db = psi_lap_separable_vjp_plain(
-                weights, a, b, x, y, z, r, dpsi, dlap, **kw)
-        return (None, da, db, None, None, None, None) + tuple(dws)
+        p_sym, ry, rz, point_grads = ctx.cfg
+        kw = dict(p_sym=p_sym, ry=ry, rz=rz, point_grads=point_grads)
+        vjp = separable_bwd_cuda if a.is_cuda else psi_lap_separable_vjp_plain
+        dws, da, db, *dpts = vjp(weights, a, b, x, y, z, r, dpsi, dlap, **kw)
+        return (None, da, db, *(dpts or (None,) * 4)) + tuple(dws)
 
 
 def kernel_weights(params: dict, dtype) -> tuple:
@@ -415,22 +497,28 @@ def kernel_weights(params: dict, dtype) -> tuple:
         for k, f in _W_NAMES)
 
 
-def psi_lap_train_separable(params: dict, mcfg, x, y, z, r):
+def psi_lap_train_separable(params: dict, mcfg, x, y, z, r,
+                            point_grads: bool = False):
     """(psi, lap, E) through the fused separable kernel. The R-only heads
     (E, alpha, b) run and differentiate in torch autograd; the spatial
     network runs in the kernel through SeparableKernel, so autograd of any
-    loss composes exactly. The point coordinates are constants."""
+    loss composes exactly. By default the point coordinates are constants
+    (training treats the batch as data); with ``point_grads`` gradients
+    flow to x, y, z and r too, r's through the kernel and the heads."""
     ansatz.check_supported(params, mcfg)
     if "lam1" not in params:
         raise NotImplementedError(
             "not separable params: the symmetric family's kernel is "
             "ops.pallas_train.psi_lap_train")
     dtype = x.dtype
-    x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
+    r_pts = r
+    if not point_grads:
+        x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
     e = ansatz.energy(params, r)
     a = ansatz.orbital_exponent(params, r)
     b = ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a)
-    cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz))
+    cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz),
+           bool(point_grads))
     psi, lap = SeparableKernel.apply(cfg, a.to(dtype), b.to(dtype),
                                      x, y, z, r_pts,
                                      *kernel_weights(params, dtype))

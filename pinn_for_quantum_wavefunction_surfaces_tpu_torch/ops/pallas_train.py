@@ -13,8 +13,9 @@ output bias in the gerade sector and 0 in the ungerade one.
 
 Three implementations of one arithmetic live here:
 - ``psi_lap_train_plain``: the forward in vectorised tensor ops;
-- ``psi_lap_train_vjp_plain``: its hand-written adjoint (weights, a, b, g),
-  the adjoint the CUDA backward kernels compute;
+- ``psi_lap_train_vjp_plain``: its hand-written adjoint (weights, a, b, g,
+  and with ``point_grads`` the points x, y, z, r), the adjoint the CUDA
+  backward kernels compute;
 - ``csrc/train_fwd.cu`` and ``csrc/train_bwd.cu``: the Hopper kernels
   (CUDA C++ for sm_90a, built by ``ops/_build.py``; ``csrc/train.cuh``,
   and ``csrc/train_tile.cuh`` for the float64 tiles on the tensor cores).
@@ -36,10 +37,12 @@ import torch
 
 from ..models import ansatz
 from . import _cuda
+from .pallas_separable import geometry_vjp
 
-# launch counts of the two CUDA kernels (plain integers: a run can show that
-# its path went through the kernels). Only the CUDA wrappers add to them.
-launches = {"train_fwd": 0, "train_bwd": 0}
+# launch counts of the CUDA kernels, K2-bwd's point-gradient instantiation
+# apart (plain integers: a run can show that its path went through the
+# kernels). Only the CUDA wrappers add to them.
+launches = {"train_fwd": 0, "train_bwd": 0, "train_bwd_pg": 0}
 
 SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 
@@ -154,8 +157,10 @@ def psi_lap_train_plain(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
 def _branch_vjp(weights, e, a, cv, cl):
     """Forward and adjoint of one branch for output cotangents (cv, cl),
     (n,) each (csrc/train.cuh branch_stage). Returns the branch output
-    (ov, ol), its weight gradients (dw1, db1, dw2, db2, dow) and its
-    cotangent of a."""
+    (ov, ol), its weight gradients (dw1, db1, dw2, db2, dow), its
+    cotangent of a, and the cotangents (df1, dg1, dl1, df2, dg2, dl2, dc12)
+    of its envelope stacks and of c12 (which both layers' squared gradient
+    norms read)."""
     w1, b1, w2, b2, ow, _ = weights
     ov, ol, acts, u2 = _branch_fwd(weights, e)
     owv = ow[:, 0]
@@ -173,6 +178,7 @@ def _branch_vjp(weights, e, a, cv, cl):
     dw2 = sum(act.T @ d for act, d in zip(acts, dp))
     db2 = dp[0].sum(0)[None, :]
     da0, da1, da2, da3 = (d @ w2.T for d in dp)
+    dc12 = (dq * 2.0 * u2["p1"] * u2["p2"]).sum(1)
     # first layer: a0 = s, a1 = d1 ga, a2 = d1 gb, a3 = d1 lz + d2 q
     u = _unit1(w1, b1, e)
     d3 = u["d2"] * (1.0 - 2.0 * u["s"]) - 2.0 * u["d1"] * u["d1"]
@@ -183,6 +189,7 @@ def _branch_vjp(weights, e, a, cv, cl):
     dgb = da2 * u["d1"] + da3 * u["d2"] * (2.0 * u["gb"]
                                            + 2.0 * c12 * u["ga"])
     dlz = da3 * u["d1"]
+    dc12 = dc12 + (da3 * u["d2"] * 2.0 * u["ga"] * u["gb"]).sum(1)
     dw1 = torch.stack([
         (dz * _col(e["f1"]) + dga * _col(e["g1"]) + dlz * _col(e["l1"])).sum(0),
         (dz * _col(e["f2"]) + dgb * _col(e["g2"]) + dlz * _col(e["l2"])).sum(0)])
@@ -196,23 +203,44 @@ def _branch_vjp(weights, e, a, cv, cl):
           + dl1 * (e["f1"] * (2.0 * a - 2.0 * e["i1"]) - e["r1"] * e["l1"])
           + df2 * (-e["r2"] * e["f2"]) + dg2 * (a * e["r2"] * e["f2"] - e["f2"])
           + dl2 * (e["f2"] * (2.0 * a - 2.0 * e["i2"]) - e["r2"] * e["l2"]))
-    return (ov, ol), (dw1, db1, dw2, db2, dow), da
+    return (ov, ol), (dw1, db1, dw2, db2, dow), da, \
+        (df1, dg1, dl1, df2, dg2, dl2, dc12)
+
+
+def _envelope_vjp(a, e, cot):
+    """Cotangents (r1, r2, c12) of one branch from those of its envelope
+    stacks and of c12 (``_branch_vjp``; csrc/train.cuh env_adjoint): per
+    nucleus f = e^{-a r}: df/dr = -a f; g = -a f: dg/dr = a^2 f;
+    l = f (a^2 - 2a/r): dl/dr = -a l + 2a f / r^2."""
+    df1, dg1, dl1, df2, dg2, dl2, dc12 = cot
+
+    def radial(f, l, i, df, dg, dl):
+        return -a * f * df + a * a * f * dg + (2.0 * a * f * i * i - a * l) * dl
+
+    return (radial(e["f1"], e["l1"], e["i1"], df1, dg1, dl1),
+            radial(e["f2"], e["l2"], e["i2"], df2, dg2, dl2), dc12)
 
 
 def psi_lap_train_vjp_plain(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
                             p_sym: int = 1, ry: float = 0.0,
-                            rz: float = 0.0):
+                            rz: float = 0.0, point_grads: bool = False):
     """Cotangents (6 weight grads, da, db, dg) of psi_lap_train_plain for
-    output cotangents (dpsi, dlap). The points are constants (the
-    training path stops their gradients), so there is no dx..dr."""
+    output cotangents (dpsi, dlap). With ``point_grads`` also those of the
+    points, (..., dx, dy, dz, dr): each branch's envelope cotangents and the
+    GZ pair's carried through the geometry (the mirrored branch at
+    xs = -x), as the kernels do. Otherwise the points are constants (the
+    training path stops their gradients)."""
     p = float(p_sym)
     cv, cl = dpsi * g, dlap * g
     nnv, nnl = weights[5][0, 0], 0.0
     da = 0.0
     dws = None
+    branches = []
     for mirror, pb in ((False, 1.0), (True, p)):
         e = _envelopes(x, y, z, r, a, ry, rz, mirror)
-        (ov, ol), grads, da_m = _branch_vjp(weights, e, a, pb * cv, pb * cl)
+        (ov, ol), grads, da_m, cot = _branch_vjp(weights, e, a, pb * cv,
+                                                 pb * cl)
+        branches.append((mirror, e, cot))
         da = da + da_m
         nnv = nnv + pb * ov
         nnl = nnl + pb * ol
@@ -232,7 +260,28 @@ def psi_lap_train_vjp_plain(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
           - ep["r1"] * v2 * dv2 + ds2 * (sb - 2.0 * ep["i1"]))
     dg = dpsi * nnv + dlap * nnl
     dob = cv.sum().reshape(1, 1)
-    return tuple(dws) + (dob,), da, db, dg
+    grads = (tuple(dws) + (dob,), da, db, dg)
+    if not point_grads:
+        return grads
+
+    # the GZ pair on the direct geometry: v1 = e^{-a r1 - b r2}, v2 its
+    # swap, s1 = base - 2a/r1 - 2b/r2, s2 the swap, base with 2ab c12
+    di1 = -2.0 * (a * ds1 + b * ds2)
+    di2 = -2.0 * (b * ds1 + a * ds2)
+    gz_r1 = (-a * v1 * dv1 - b * v2 * dv2 - di1 * ep["i1"] * ep["i1"])
+    gz_r2 = (-b * v1 * dv1 - a * v2 * dv2 - di2 * ep["i2"] * ep["i2"])
+    gz_c12 = 2.0 * a * b * (ds1 + ds2)
+    dx = dy = dz = dr = 0.0
+    for mirror, e, cot in branches:
+        dr1, dr2, dc12 = _envelope_vjp(a, e, cot)
+        if not mirror:
+            dr1, dr2, dc12 = dr1 + gz_r1, dr2 + gz_r2, dc12 + gz_c12
+        gx, gy, gz_, gr = geometry_vjp(-x if mirror else x, y, z, r, ry, rz,
+                                       e["i1"], e["i2"], e["c12"], dr1, dr2,
+                                       dc12)
+        dx = dx - gx if mirror else dx + gx
+        dy, dz, dr = dy + gy, dz + gz_, dr + gr
+    return grads + (dx, dy, dz, dr)
 
 
 # ---------------------------------------------------------------------------
@@ -270,19 +319,22 @@ def grid_blocks(n: int, hidden: int, dtype=torch.float64) -> int:
                       GRID_BLOCKS_PER_SM[dtype] * N_SM))
 
 
-def _lib(name: str, n_ptr: int):
-    """The typed library of K2-fwd or K2-bwd, its tiles checked against
-    points_per_tile once."""
-    return _cuda.tiled_lib(name, n_ptr, "train", points_per_tile,
-                           n_extra_int=int(name == "train_bwd"))
+def _lib(name: str):
+    """The typed library of K2-fwd or K2-bwd (its extra ints: the grid and
+    the point-gradient flag), its tiles checked against points_per_tile
+    once."""
+    fwd = name == "train_fwd"
+    return _cuda.tiled_lib(name, 10 if fwd else 18, "train", points_per_tile,
+                           n_extra_int=0 if fwd else 2)
 
 
-def occupancy(name: str, hidden: int, dtype) -> tuple[int, int]:
+def occupancy(name: str, hidden: int, dtype,
+              point_grads: bool = False) -> tuple[int, int]:
     """(resident blocks per SM, shared memory bytes per block) of kernel
-    ``name`` ("train_fwd" or "train_bwd") at this width and dtype on the
-    current card."""
-    return _cuda.occupancy(_lib(name, 10 if name == "train_fwd" else 14),
-                           hidden, dtype)
+    ``name`` ("train_fwd" or "train_bwd", and of the latter's
+    point-gradient instantiation) at this width and dtype on the current
+    card."""
+    return _cuda.occupancy(_lib(name), hidden, dtype, point_grads)
 
 
 def threads(dtype) -> int:
@@ -300,7 +352,7 @@ def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    lib = _lib("train_fwd", 10)
+    lib = _lib("train_fwd")
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
                  ry, rz)
@@ -309,10 +361,13 @@ def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
 
 
 def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
-                   p_sym: int = 1, ry: float = 0.0, rz: float = 0.0):
-    """K2 backward on the card: (6 weight grads, da, db, dg). Each block
-    writes one row of partial weight gradients, summed in a fixed order
-    (no atomics); the rows are summed here — repeatable bit for bit."""
+                   p_sym: int = 1, ry: float = 0.0, rz: float = 0.0,
+                   point_grads: bool = False):
+    """K2 backward on the card: (6 weight grads, da, db, dg), and with
+    ``point_grads`` also (dx, dy, dz, dr) from the kernels' point-gradient
+    instantiations. Each block writes one row of partial weight gradients,
+    summed in a fixed order (no atomics); the rows are summed here —
+    repeatable bit for bit."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b, g)
     shapes = weight_shapes(hidden)
@@ -321,19 +376,22 @@ def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
     dtype = pts[0].dtype
-    lib = _lib("train_bwd", 14)
+    lib = _lib("train_bwd")
     grid = grid_blocks(n, hidden, dtype)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     partials = torch.empty((grid, sum(sizes)), dtype=dtype,
                            device=pts[0].device)
     da, db, dg = (torch.empty_like(pts[0]) for _ in range(3))
+    dpts = tuple(torch.empty_like(pts[0]) if point_grads else None
+                 for _ in range(4))
     _cuda.launch(lib, dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), dpsi, dlap, da, db, dg,
-                  partials), n, hidden, p_sym, ry, rz, extra_ints=(grid,))
-    launches["train_bwd"] += 1
+                  partials, *dpts), n, hidden, p_sym, ry, rz,
+                 extra_ints=(grid, int(point_grads)))
+    launches["train_bwd_pg" if point_grads else "train_bwd"] += 1
     dws = tuple(t.reshape(s) for t, s in
                 zip(torch.split(partials.sum(0), sizes), shapes))
-    return dws, da, db, dg
+    return (dws, da, db, dg) + (dpts if point_grads else ())
 
 
 # ---------------------------------------------------------------------------
@@ -342,12 +400,13 @@ def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
 
 class TrainKernel(torch.autograd.Function):
     """(psi, lap) = K2(a, b, g, x, y, z, r; weights) with its hand-written
-    backward. Gradients flow to the 6 weights and to a, b, g; the points
-    are constants."""
+    backward. cfg = (p_sym, ry, rz, point_grads). Gradients flow to the 6
+    weights and to a, b, g; to the points x, y, z, r only with point_grads
+    (otherwise they are constants)."""
 
     @staticmethod
     def forward(ctx, cfg, a, b, g, x, y, z, r, *weights):
-        p_sym, ry, rz = cfg
+        p_sym, ry, rz, _ = cfg
         ctx.cfg = cfg
         ctx.save_for_backward(a, b, g, x, y, z, r, *weights)
         kw = dict(p_sym=p_sym, ry=ry, rz=rz)
@@ -358,15 +417,12 @@ class TrainKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dpsi, dlap):
         a, b, g, x, y, z, r, *weights = ctx.saved_tensors
-        p_sym, ry, rz = ctx.cfg
-        kw = dict(p_sym=p_sym, ry=ry, rz=rz)
-        if a.is_cuda:
-            dws, da, db, dg = train_bwd_cuda(weights, a, b, g, x, y, z, r,
-                                             dpsi, dlap, **kw)
-        else:
-            dws, da, db, dg = psi_lap_train_vjp_plain(
-                weights, a, b, g, x, y, z, r, dpsi, dlap, **kw)
-        return (None, da, db, dg, None, None, None, None) + tuple(dws)
+        p_sym, ry, rz, point_grads = ctx.cfg
+        kw = dict(p_sym=p_sym, ry=ry, rz=rz, point_grads=point_grads)
+        vjp = train_bwd_cuda if a.is_cuda else psi_lap_train_vjp_plain
+        dws, da, db, dg, *dpts = vjp(weights, a, b, g, x, y, z, r, dpsi,
+                                     dlap, **kw)
+        return (None, da, db, dg, *(dpts or (None,) * 4)) + tuple(dws)
 
 
 def kernel_weights(params: dict, mcfg, dtype) -> tuple:
@@ -384,12 +440,15 @@ def kernel_weights(params: dict, mcfg, dtype) -> tuple:
             out["w"].to(dtype), ob)
 
 
-def psi_lap_train(params: dict, mcfg, x, y, z, r):
+def psi_lap_train(params: dict, mcfg, x, y, z, r,
+                  point_grads: bool = False):
     """(psi, lap, E) of the symmetric family through the fused kernel. The
     R-only heads (E, gate, alpha, b) run and differentiate in torch
     autograd; the spatial network runs in the kernel through TrainKernel,
-    so autograd of any loss composes exactly. The point coordinates are
-    constants.
+    so autograd of any loss composes exactly. By default the point
+    coordinates are constants (training treats the batch as data); with
+    ``point_grads`` gradients flow to x, y, z and r too (force-through-batch
+    analyses), r's through the kernel and the heads.
 
     Covers fixed exponents, trainable alpha(R) and Guillemin-Zener b(R).
     Raises NotImplementedError for the minimal family and R-input
@@ -400,13 +459,16 @@ def psi_lap_train(params: dict, mcfg, x, y, z, r):
             "separable params: their kernel is "
             "ops.pallas_separable.psi_lap_train_separable")
     dtype = x.dtype
-    x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
+    r_pts = r
+    if not point_grads:
+        x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
     e = ansatz.energy(params, r)
     g = ansatz.gate(params, r)
     a = (ansatz.orbital_exponent(params, r) if "alpha1" in params
          else torch.ones_like(r))
     b = ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a)
-    cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz))
+    cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz),
+           bool(point_grads))
     psi, lap = TrainKernel.apply(cfg, a.to(dtype), b.to(dtype), g.to(dtype),
                                  x, y, z, r_pts,
                                  *kernel_weights(params, mcfg, dtype))

@@ -27,6 +27,8 @@ from ..config import Config
 from ..models import ansatz
 
 HEAD = ("e1", "e2", "eout")
+# where fit_energy_head runs, whatever the params' device (its docstring)
+FIT_DEVICE = torch.device("cpu")
 # L-BFGS steps between rescalings of the objective, and line-search
 # evaluations a step
 LBFGS_BLOCK, LBFGS_MAX_LS = 200, 25
@@ -66,13 +68,37 @@ def fit_energy_head(params: dict, r_values, targets, lr: float = 3e-3,
     """Regress the E head onto (r, E*) pairs by the MSE: ``steps`` Adam
     steps, then ``lbfgs_steps`` full-batch L-BFGS steps, returning the best
     L-BFGS iterate (a late line-search overshoot must not erase the
-    descent). Runs on the device and in the dtype of ``params`` (port
-    params); every other subtree is returned untouched."""
-    ref = params["e1"]["w"]
-    kw = dict(dtype=ref.dtype, device=ref.device)
-    r = torch.as_tensor(np.asarray(r_values, np.float64), **kw)
-    t = torch.as_tensor(np.asarray(targets, np.float64), **kw)
-    head = {k: {f: v.detach().clone().requires_grad_(True)
+    descent). Port params; every other subtree is returned untouched (the
+    same tensor objects), and the fitted head lands on the device and in
+    the dtype of ``params``.
+
+    The fit always runs on the host CPU, whatever the params' device:
+    - the head depends on R alone, so it needs nothing of the wavefunction;
+    - 77 targets and a 1 153-weight head make every step a few dozen tiny
+      operations, each bound by its launch latency on a GPU;
+    - torch's strong-Wolfe L-BFGS reads values back to the host at every
+      evaluation, so the loop cannot be captured in a CUDA graph.
+    It runs on one torch thread: its operations are far too small to
+    share between threads, so a thread pool adds only its overhead, and
+    the bits are the same either way (tests/test_torch_distill_etab.py
+    holds the fit RMS to the bit)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _fit_on_host(params, r_values, targets, lr, steps, lbfgs_steps)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _fit_on_host(params, r_values, targets, lr, steps, lbfgs_steps):
+    """fit_energy_head's body, on FIT_DEVICE."""
+    host = FIT_DEVICE
+    dtype = params["e1"]["w"].dtype
+    r = torch.as_tensor(np.asarray(r_values, np.float64), dtype=dtype,
+                        device=host)
+    t = torch.as_tensor(np.asarray(targets, np.float64), dtype=dtype,
+                        device=host)
+    head = {k: {f: v.detach().to(host).clone().requires_grad_(True)
                 for f, v in params[k].items()} for k in HEAD}
     leaves = [v for k in HEAD for v in head[k].values()]
 
@@ -123,7 +149,8 @@ def fit_energy_head(params: dict, r_values, targets, lr: float = 3e-3,
                 v.copy_(b)
     out = dict(params)
     for k in HEAD:
-        out[k] = {f: v.detach() for f, v in head[k].items()}
+        out[k] = {f: v.detach().to(params[k][f].device)
+                  for f, v in head[k].items()}
     return out
 
 

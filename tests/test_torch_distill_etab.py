@@ -123,3 +123,38 @@ def test_distill_touches_only_the_head_and_lowers_fit_rms():
             same = torch.equal(new[k][f], params[k][f])
             assert same == (k not in ("e1", "e2", "eout")), (k, f)
             assert not new[k][f].requires_grad
+
+
+# fit_energy_head's fit RMS at smoke steps (100 Adam, 30 L-BFGS) on the
+# shipped flagship with a perturbed head, as recorded before the fit moved
+# to the host (it ran on the params' device, here the CPU): moving it must
+# change no bit on the CPU
+FIT_RMS_BEFORE = {"float64": 7.702212025317947e-05,
+                  "float32": 7.932721461153505e-05}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_fit_energy_head_runs_on_the_host(dtype):
+    """The head comes back on the params' device and in their dtype, every
+    other subtree is the same object, and the fit RMS equals the recorded
+    one (rtol 1e-12)."""
+    np_params = load_artifact("flagship_separable.npz")
+    rng = np.random.default_rng(11)
+    np_params["e2"]["w"] = np_params["e2"]["w"] + 0.01 * rng.normal(
+        size=np_params["e2"]["w"].shape)
+    params = tans.from_jax_params(np_params, dtype=dtype, device="cpu")
+    r = np.linspace(0.5, 3.5, 13)
+    t = -0.6 - 0.5 * np.exp(-r)
+    new = tdistill.fit_energy_head(params, r, t, steps=100, lbfgs_steps=30)
+    for k in params:
+        if k in tdistill.HEAD:
+            for f, v in new[k].items():
+                assert v.device == params[k][f].device
+                assert v.dtype == params[k][f].dtype == getattr(torch, dtype)
+                assert not v.requires_grad
+        else:
+            assert new[k] is params[k], k
+    with torch.no_grad():
+        e = tans.energy(new, torch.as_tensor(r, dtype=getattr(torch, dtype)))
+    rms = float(np.sqrt(np.mean((e.double().numpy() - t) ** 2)))
+    np.testing.assert_allclose(rms, FIT_RMS_BEFORE[dtype], rtol=1e-12)

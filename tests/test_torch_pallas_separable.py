@@ -177,7 +177,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     ws5, a5, b5 = kernel_inputs(p5, tm5, pts)
     with pytest.raises(ValueError, match="hidden=5"):
         tps.separable_fwd_cuda(ws5, a5, b5, *as_t(*pts))
-    assert tps.launches == {"separable_fwd": 0, "separable_bwd": 0}
+    assert tps.launches == {"separable_fwd": 0, "separable_bwd": 0,
+                            "separable_bwd_pg": 0}
 
 
 @pytest.mark.parametrize("family", ["xi_node", "eta_node", "m_abs",

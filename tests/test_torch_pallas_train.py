@@ -180,7 +180,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     ws5, a5, b5, g5 = kernel_inputs(p5, tm5, pts[3])
     with pytest.raises(ValueError, match="hidden=5"):
         tpt.train_fwd_cuda(ws5, a5, b5, g5, *as_t(*pts))
-    assert tpt.launches == {"train_fwd": 0, "train_bwd": 0}
+    assert tpt.launches == {"train_fwd": 0, "train_bwd": 0,
+                            "train_bwd_pg": 0}
 
 
 def test_rejects_r_input_minimal_and_separable():
