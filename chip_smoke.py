@@ -175,6 +175,31 @@ Phases (any failure exits non-zero; none is caught and passed over):
     steps: 5 K2-fwd and 5 K2-bwd launches, both named in the Chrome trace;
     with matplotlib, cli analyze --paper-set --history from that run
     writes all of PAPER_SET_NAMES.
+ Multi-device and the per-R sweep (slice 11; one card: world size 1, NCCL):
+ 21. a: make flagship at full length (its exact flags, 1 500 Adam + 800
+    L-BFGS steps) through cli variational --mesh 1, then cli evaluate
+    --steps 8000 --dtype float64 on its checkpoint: wall time, Adam and
+    L-BFGS steps/s, evaluations an L-BFGS step over all 800, K1 launches,
+    and E_int's mean, max and signed minimum against the exact oracle beside
+    the shipped artifact's; every R within [-1e-4, 0.01] mHa, both K1
+    kernels launched; b: --mesh 1 against the unsharded runs, bit for bit:
+    the polish's 40 Adam losses and params at the flagship grid, cli train
+    at make train's configuration (20 steps, K2-fwd and K2-bwd each step);
+    rayleigh_quotient_sharded at world size 1 equal to rayleigh_quotient to
+    rtol 1e-12 for flagship.npz (K2-fwd) and flagship_model.bin (K3); c:
+    cli sweep --polish 300 --arch separable --dtype float64 at R = 0.5, 1,
+    2, 4: each within [-1e-4, 0.01] mHa, seconds a polished R, K1
+    launches; d: cli sweep, the residual family at make train's model flags
+    (GZ + alpha, step schedule, float32, 100 000 points a model, M = 4 R,
+    300 epochs): every model's loss finite and lower, exactly M K2-fwd and
+    M K2-bwd launches a step, the family's steps/s.
+
+``python3 chip_smoke.py --mesh N`` (a host with N >= 2 cards) runs phases
+1 and 2, then the --mesh N paths across the N cards (NCCL) against the same
+runs on one card: cli train (make train's model in float64, 20 steps), the
+polish's Adam warmup at the flagship grid and then its sharded L-BFGS,
+rayleigh_quotient_sharded, and cli sweep's family of 4 models; each
+within 1e-8 (relative) of one card.
 
 Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
 the card line, and last
@@ -1734,8 +1759,9 @@ def excited_polish(label, flags, loss_name, card, work, ks=None):
     per_step = (evals[0] - adam) / lbfgs
     print(f"{label}: {t1 - t0:.2f} s wall; Adam {adam / t_adam:.2f} "
           f"steps/s, L-BFGS {lbfgs / (t1 - t0 - t_adam):.2f} steps/s; "
-          f"{per_step:.2f} evaluations per L-BFGS step (line search "
-          f"{per_step - 1:.2f}); launches {counts}; peak device memory "
+          f"{per_step:.2f} evaluations per L-BFGS step (its line search's; "
+          f"the first step evaluates its start too); launches {counts}; "
+          f"peak device memory "
           f"{peak / 2 ** 30:.3f} GiB ({card})", flush=True)
     path = os.path.join(out_dir, "variational.npz")
     return {"res": res, "counts": counts, "meta": checkpoint.load_meta(path),
@@ -2989,6 +3015,408 @@ def analysis_phase(dev, card: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# slice 11: the flagship recipe at full length (make flagship's flags), the
+# per-R sweeps, and the runs that --mesh 1 must repeat bit for bit
+FLAGSHIP_ADAM, FLAGSHIP_LBFGS = 1500, 800
+FLAGSHIP_FLAGS = ["--arch", "separable", "--adam-warmup", str(FLAGSHIP_ADAM),
+                  "--lbfgs", str(FLAGSHIP_LBFGS), "--spheroidal", "--n-r",
+                  "39", "--n-xi", "40", "--n-eta", "24", "--dtype", "float64"]
+MESH_TRAIN_STEPS = 20
+SWEEP_R = ("0.5", "1", "2", "4")
+SWEEP_POLISH_STEPS, SWEEP_EPOCHS = 300, 300
+# the band of phase 4 and of the sweep's golden test (mHa above the oracle)
+EINT_BAND = (-1e-4, 0.01)
+
+
+def _eint_errors(pkl: str):
+    """(R, E_int - exact in mHa) of a surface pickle, unrounded."""
+    import pickle
+
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    with open(pkl, "rb") as f:
+        surf = pickle.load(f)
+    e = surf["E_int"] if "E_int" in surf else surf["E_net"]
+    return surf["R"], 1e3 * (e - energy.exact_energy_ode(surf["R"]))
+
+
+def _quotient_cases(dev) -> dict:
+    """The sharded quotient's checkpoints in float64 on ``dev``: label ->
+    (params, config): flagship.npz (K2-fwd) and flagship_model.bin (K3)."""
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import modelbin
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    art = os.path.join(HERE, "artifacts")
+    return {
+        "flagship.npz (K2-fwd)": (
+            ansatz.from_jax_params(_load_npz_params(
+                os.path.join(art, "flagship.npz")), dtype="float64",
+                device=dev),
+            config.Config(model=config.ModelConfig(
+                gz=True, trainable_exponent=True), dtype="float64")),
+        "flagship_model.bin (K3)": (
+            ansatz.from_jax_params(modelbin.load_params(
+                os.path.join(art, "flagship_model.bin")), dtype="float64",
+                device=dev),
+            config.Config(dtype="float64"))}
+
+
+def mesh_sweep_phase(dev, card: str) -> None:
+    """Phase 21 (slice 11): the flagship at full length through the sharded
+    polish at world size 1 (NCCL), the --mesh 1 runs against the unsharded
+    ones, and cli sweep in both modes."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_residual as k3
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.parallel import \
+        mesh as pmesh
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        sweep, variational
+
+    art = os.path.join(HERE, "artifacts")
+    mods = (ks, kt, k3)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        phase(f"21a make flagship at full length through the sharded polish "
+              f"(cli variational --mesh 1, NCCL at world size 1: "
+              f"{FLAGSHIP_ADAM} Adam + {FLAGSHIP_LBFGS} L-BFGS steps), then "
+              "cli evaluate --steps 8000 --dtype float64")
+        _reset(*mods)
+        run = excited_polish("flagship", FLAGSHIP_FLAGS + ["--mesh", "1"],
+                             "quotient_loss", card, work)
+        c = run["counts"]
+        lbfgs_evals = (run["evals"] - FLAGSHIP_ADAM) / FLAGSHIP_LBFGS
+        print(f"make flagship (--mesh 1): {run['wall']:.1f} s; Adam "
+              f"{FLAGSHIP_ADAM / run['t_adam']:.2f} steps/s, L-BFGS "
+              f"{FLAGSHIP_LBFGS / (run['wall'] - run['t_adam']):.2f} "
+              f"steps/s, {lbfgs_evals:.3f} evaluations an L-BFGS step over "
+              f"all {FLAGSHIP_LBFGS}; K1-fwd {c['separable_fwd']}, K1-bwd "
+              f"{c['separable_bwd']} ({card})")
+        if c["separable_fwd"] <= 0 or c["separable_bwd"] <= 0 or \
+                c["separable_bwd_pg"]:
+            raise AssertionError(f"21a launches: {c}")
+        ev_dir = os.path.join(work, "flagship_eval")
+        t0 = time.time()
+        res, err = run_cli(["evaluate",
+                            os.path.join(work, "flagship", "variational.npz"),
+                            "--steps", "8000", "--dtype", "float64",
+                            "--device", "cuda", "--out", ev_dir])
+        print(f"cli evaluate: {time.time() - t0:.1f} s; "
+              + err.strip().splitlines()[-1])
+        r, e = _eint_errors(os.path.join(ev_dir, "energy_eval.pkl"))
+        _, e_ship = _eint_errors(os.path.join(art, "energy_eval.pkl"))
+        for label, v in (("fresh flagship", e), ("shipped artifact", e_ship)):
+            print(f"E_int - exact over {len(r)} R ({label}): mean "
+                  f"{np.abs(v).mean():.6f}, max {np.abs(v).max():.6f}, "
+                  f"signed min {v.min():+.6f} mHa (max at R = "
+                  f"{r[np.argmax(np.abs(v))]:.1f})")
+        miss = [(float(ri), float(v)) for ri, v in zip(r, e)
+                if not EINT_BAND[0] <= v <= EINT_BAND[1]]
+        if miss:
+            raise AssertionError(f"21a: the fresh flagship misses "
+                                 f"{EINT_BAND} mHa at (R, mHa) {miss}")
+        sys.stdout.flush()
+
+        phase(f"21b --mesh 1 against the unsharded runs (the polish's "
+              f"{ADAM_STEPS} Adam steps at the flagship grid; cli train at "
+              f"make train's configuration, {MESH_TRAIN_STEPS} steps; "
+              "rayleigh_quotient_sharded of flagship.npz (K2) and "
+              "flagship_model.bin (K3))")
+        cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                            dtype="float64")
+        init = ansatz.init_params(cfg.model, seed=cfg.train.seed,
+                                  dtype="float64", device=dev)
+
+        def adam_losses(mesh):
+            seen, real = [], variational.quotient_loss
+
+            def record(*a, **k):
+                out = real(*a, **k)
+                if torch.is_grad_enabled():
+                    seen.append(out[0].detach().clone())
+                return out
+
+            variational.quotient_loss = record
+            try:
+                p = variational.polish_spheroidal(
+                    init, cfg, n_r=N_R, n_xi=N_XI, n_eta=N_ETA, steps=0,
+                    adam_steps=ADAM_STEPS, mesh=mesh, device=dev)
+            finally:
+                variational.quotient_loss = real
+            return (torch.stack(seen).cpu().numpy(),
+                    ansatz.to_numpy_params(p))
+
+        plain, p_plain = adam_losses(None)
+        sharded, p_sharded = pmesh.launch(adam_losses, 1, device="cuda")
+        if len(plain) != ADAM_STEPS or not np.array_equal(plain, sharded):
+            raise AssertionError("21b: the polish's Adam losses differ under "
+                                 "--mesh 1")
+        _same_arrays(f"polish params after {ADAM_STEPS} Adam steps, "
+                     "--mesh 1 and without", p_sharded, p_plain)
+        print(f"  the {ADAM_STEPS} Adam losses equal bit for bit (last "
+              f"{plain[-1]:.12f})")
+        flags = ["train", "--gz", "--trainable-exponent", "--lr-schedule",
+                 "step", "--epochs", str(MESH_TRAIN_STEPS), "--device",
+                 "cuda"]
+        hist = {}
+        for mesh in ("0", "1"):
+            out = os.path.join(work, f"train_mesh{mesh}")
+            _reset(*mods)
+            run_cli(flags + ["--mesh", mesh, "--out", out])
+            counts = _all_launches(*mods)
+            with open(os.path.join(out, "history.pkl"), "rb") as f:
+                hist[mesh] = pickle.load(f)["Ltot"]
+            print(f"  cli train --mesh {mesh}: launches {counts}")
+            if counts["train_fwd"] != MESH_TRAIN_STEPS or \
+                    counts["train_bwd"] != MESH_TRAIN_STEPS:
+                raise AssertionError(f"21b train launches: {counts}")
+        if not np.array_equal(hist["0"], hist["1"]):
+            raise AssertionError("21b: cli train --mesh 1 differs from the "
+                                 "unsharded run")
+        _same_arrays("cli train final.npz, --mesh 1 and without",
+                     _load_npz_params(os.path.join(work, "train_mesh1",
+                                                   "final.npz")),
+                     _load_npz_params(os.path.join(work, "train_mesh0",
+                                                   "final.npz")))
+        print(f"  the {MESH_TRAIN_STEPS} losses equal bit for bit (last "
+              f"{hist['0'][-1]:.9e})")
+        for label, (params, qcfg) in _quotient_cases(dev).items():
+            want = energy.rayleigh_quotient(params, qcfg, 1.0, n=80)
+            _reset(*mods)
+            got = pmesh.launch(
+                lambda m, p=params, q=qcfg: energy.rayleigh_quotient_sharded(
+                    p, q, 1.0, m, n=80), 1, device="cuda")
+            counts = {k: v for k, v in _all_launches(*mods).items() if v}
+            rel = abs(got - want) / abs(want)
+            print(f"  rayleigh_quotient_sharded, {label}, R = 1, n = 80: "
+                  f"{got:.15f} against {want:.15f} (rel {rel:.2e}); "
+                  f"launches {counts}")
+            if not rel <= 1e-12 or not counts:
+                raise AssertionError(f"21b sharded quotient {label}: rel "
+                                     f"{rel}, launches {counts}")
+        sys.stdout.flush()
+
+        phase(f"21c cli sweep --polish {SWEEP_POLISH_STEPS} --arch separable "
+              f"--dtype float64 at R = {', '.join(SWEEP_R)}")
+        pkl = os.path.join(work, "sweep_polish.pkl")
+        _reset(*mods)
+        t0 = time.time()
+        run_cli(["sweep", "--polish", str(SWEEP_POLISH_STEPS), "--arch",
+                 "separable", "--dtype", "float64", "--r-values", *SWEEP_R,
+                 "--device", "cuda", "--out", pkl])
+        wall = time.time() - t0
+        counts = _all_launches(*mods)
+        r, e = _eint_errors(pkl)
+        per_r = counts["separable_bwd"] / len(r)
+        print(f"cli sweep --polish: {wall:.1f} s, {wall / len(r):.2f} s per "
+              f"R; K1-fwd {counts['separable_fwd']}, K1-bwd "
+              f"{counts['separable_bwd']} ({per_r:.1f} a polish) ({card})")
+        for ri, v in zip(r, e):
+            print(f"  R = {ri}: E_int - exact {v:+.6f} mHa")
+        if not all(EINT_BAND[0] <= v <= EINT_BAND[1] for v in e) or \
+                counts["separable_fwd"] <= 0 or counts["separable_bwd"] <= 0:
+            raise AssertionError(f"21c: errors {e} mHa, launches {counts}")
+        sys.stdout.flush()
+
+        phase(f"21d cli sweep (the residual family, make train's model "
+              f"flags: GZ + alpha, step schedule, float32, {N_TRAIN} points "
+              f"a model, M = {len(SWEEP_R)}; {SWEEP_EPOCHS} epochs)")
+        kept, real = {}, sweep.train_per_r_vmapped
+
+        def keep(*a, **k):
+            kept["out"] = real(*a, **k)
+            return kept["out"]
+
+        sweep.train_per_r_vmapped = keep
+        try:
+            _reset(*mods)
+            t0 = time.time()
+            run_cli(["sweep", "--gz", "--trainable-exponent",
+                     "--lr-schedule", "step", "--r-values", *SWEEP_R,
+                     "--epochs", str(SWEEP_EPOCHS), "--device", "cuda",
+                     "--out", os.path.join(work, "sweep.pkl")])
+            wall = time.time() - t0
+        finally:
+            sweep.train_per_r_vmapped = real
+        counts = _all_launches(*mods)
+        out = kept["out"]
+        m = len(SWEEP_R)
+        print(f"cli sweep: {wall:.1f} s, {SWEEP_EPOCHS / wall:.2f} steps/s "
+              f"of the family ({m * SWEEP_EPOCHS / wall:.2f} model-steps/s); "
+              f"launches {counts} ({counts['train_fwd'] / SWEEP_EPOCHS:.2f} "
+              f"K2-fwd and {counts['train_bwd'] / SWEEP_EPOCHS:.2f} K2-bwd a "
+              f"step) ({card})")
+        print(f"  loss at step 0 {out['loss_history'][0]} -> best "
+              f"{out['best_loss']}; E_net {out['E_net']}")
+        want = dict.fromkeys(counts, 0)
+        want.update(train_fwd=m * SWEEP_EPOCHS, train_bwd=m * SWEEP_EPOCHS)
+        if counts != want:
+            raise AssertionError(f"21d launches: {counts}")
+        if not (np.isfinite(out["loss_history"]).all()
+                and (out["best_loss"] < out["loss_history"][0]).all()):
+            raise AssertionError("21d: a model's loss is not finite or not "
+                                 "lower")
+        sys.stdout.flush()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# python3 chip_smoke.py --mesh N: the --mesh paths across N cards (NCCL)
+# against one card, at make train's batch and the flagship grid (n_r 40
+# splits over 2 and 4 ranks)
+MULTI_N_TRAIN, MULTI_N_R, MULTI_SWEEP_N_TRAIN = 100_000, 40, 20_000
+MULTI_TRAIN_STEPS, MULTI_ADAM_STEPS, MULTI_LBFGS_STEPS = 20, 40, 30
+MULTI_SWEEP_EPOCHS = 50
+
+
+def _quotients_job(mesh, n: int) -> dict:
+    """One rank's rayleigh_quotient_sharded of ``_quotient_cases`` at R = 1
+    on the uniform n^3 grid."""
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    return {label: energy.rayleigh_quotient_sharded(p, c, 1.0, mesh, n=n)
+            for label, (p, c) in _quotient_cases(mesh.device).items()}
+
+
+def _rel_err(got, want) -> float:
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def multi_device_phase(n: int, card: str, device: str = "cuda") -> None:
+    """--mesh N on N devices, each path against the same run on one: cli
+    train (float64: the all-reduced sums change only the order of
+    summation), the polish's Adam warmup and then its sharded L-BFGS, the
+    sharded quotient, and cli sweep's model-parallel family. The ranks
+    print their own lines; the results are read from their files."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import cli, config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.parallel import \
+        mesh as pmesh
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        variational
+    dev = torch.device(device)
+    work = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    errors = {}
+
+    def both(label, flags, read):
+        """``flags`` through the CLI with --mesh 0 and --mesh n: what
+        ``read(out)`` gives for each, and the wall times."""
+        got = {}
+        for mesh in ("0", str(n)):
+            out = os.path.join(work, f"{label}{mesh}")
+            t0 = time.time()
+            cli.main(flags + ["--mesh", mesh, "--out", out,
+                              "--device", device])
+            sys.stdout.flush()
+            print(f"  {label} --mesh {mesh}: {time.time() - t0:.1f} s "
+                  f"({card})", flush=True)
+            got[mesh] = read(out)
+        return got["0"], got[str(n)]
+
+    try:
+        phase(f"M1 cli train --mesh {n} against one device (make train's "
+              f"model, float64, {MULTI_N_TRAIN} points, "
+              f"{MULTI_TRAIN_STEPS} steps)")
+
+        def history(out):
+            with open(os.path.join(out, "history.pkl"), "rb") as f:
+                return pickle.load(f)["Ltot"]
+
+        one, many = both("train", [
+            "train", "--gz", "--trainable-exponent", "--lr-schedule", "step",
+            "--dtype", "float64", "--n-train", str(MULTI_N_TRAIN),
+            "--epochs", str(MULTI_TRAIN_STEPS)], history)
+        errors["train losses"] = _rel_err(many, one)
+
+        phase(f"M2 cli variational --spheroidal --mesh {n} against one "
+              f"device ({MULTI_ADAM_STEPS} Adam steps at the flagship grid, "
+              f"n_r {MULTI_N_R}), then {MULTI_LBFGS_STEPS} sharded L-BFGS "
+              "steps")
+        grid = ["variational", "--arch", "separable", "--spheroidal",
+                "--n-r", str(MULTI_N_R), "--n-xi", "40", "--n-eta", "24",
+                "--dtype", "float64", "--adam-warmup", str(MULTI_ADAM_STEPS)]
+
+        def polished(out):
+            return _load_npz_params(os.path.join(out, "variational.npz"))
+
+        one, many = both("polish", grid, polished)
+        # normwise by array: the zero-initialised output layers' entries
+        # are tiny
+        errors["polish params after Adam"] = max(
+            float(np.max(np.abs(many[k][f] - one[k][f]))
+                  / max(float(np.max(np.abs(one[k][f]))), 1e-300))
+            for k in one for f in one[k])
+        cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                            dtype="float64")
+        vb = variational.dual_grid_vbatch(cfg, MULTI_N_R, 40, 24, device=dev)
+        out = os.path.join(work, "lbfgs")
+        cli.main(grid + ["--lbfgs", str(MULTI_LBFGS_STEPS), "--mesh", str(n),
+                         "--out", out, "--device", device])
+        with torch.no_grad():
+            losses = [float(variational.quotient_loss(ansatz.from_jax_params(
+                p, device=dev), cfg, vb)[0])
+                for p in (one, polished(out))]
+        print(f"  the objective after Adam {losses[0]:.12f}, after the "
+              f"sharded L-BFGS {losses[1]:.12f}")
+        if not losses[1] < losses[0]:
+            raise AssertionError(f"M2: the sharded L-BFGS did not lower the "
+                                 f"objective: {losses}")
+
+        phase(f"M3 rayleigh_quotient_sharded on {n} devices against one "
+              "(R = 1, n = 80)")
+        got = pmesh.launch(_quotients_job, n, device=device, args=(80,))
+        for label, (p, c) in _quotient_cases(dev).items():
+            want = energy.rayleigh_quotient(p, c, 1.0, n=80)
+            errors[f"quotient {label}"] = _rel_err(got[label], want)
+            print(f"  {label}: {got[label]:.15f} against {want:.15f}")
+
+        phase(f"M4 cli sweep --mesh {n} against one device (the family of "
+              f"4 models, make train's model, float64, "
+              f"{MULTI_SWEEP_N_TRAIN} points a model, {MULTI_SWEEP_EPOCHS} "
+              "epochs)")
+
+        def family(out):
+            with open(out, "rb") as f:
+                d = pickle.load(f)
+            return np.concatenate([d["best_loss"], d["E_net"]])
+
+        one, many = both("sweep", [
+            "sweep", "--gz", "--trainable-exponent", "--lr-schedule", "step",
+            "--dtype", "float64", "--n-train", str(MULTI_SWEEP_N_TRAIN),
+            "--epochs", str(MULTI_SWEEP_EPOCHS), "--r-values", *SWEEP_R],
+            lambda out: family(out))
+        errors["sweep best losses and E heads"] = _rel_err(many, one)
+        for k, v in errors.items():
+            print(f"  {k}: max relative difference {v:.3e}")
+        bad = {k: v for k, v in errors.items() if not v <= 1e-8}
+        if bad:
+            raise AssertionError(f"--mesh {n} differs from one device: {bad}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _same_arrays(label: str, got: dict, want: dict) -> None:
     """Two param trees with the same keys, dtypes and bits."""
     import numpy as np
@@ -3012,6 +3440,13 @@ def _load_npz_params(path: str) -> dict:
 
 def main() -> int:
     import torch
+    argv = sys.argv[1:]
+    if argv and (len(argv) != 2 or argv[0] != "--mesh"
+                 or not argv[1].isdigit() or int(argv[1]) < 2):
+        print("usage: chip_smoke.py [--mesh N]  (N >= 2 cards)",
+              file=sys.stderr)
+        return 2
+    multi = int(argv[1]) if argv else 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
               file=sys.stderr)
@@ -3099,6 +3534,15 @@ def main() -> int:
                       f"{blocks} resident blocks per SM "
                       f"({blocks * k3.threads(dt) // 32} warps)")
     sys.stdout.flush()
+
+    if multi:
+        multi_device_phase(multi, card)
+        phase()
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     phase("3 kernel check (flagship training batch; one make evaluate "
           "quotient)")
@@ -3241,10 +3685,10 @@ def main() -> int:
           f"{n_train} points a step); L-BFGS: {LBFGS_STEPS / t_lbfgs:.2f} "
           f"steps/s, launches per step {lb} (the validation-grid forward "
           f"included); whole run {t1 - t0:.2f} s")
-    # a step evaluates the loss and its gradient at its start, then in the
-    # line search: one K1-bwd launch an evaluation
+    # a step evaluates the loss and its gradient in its line search (the
+    # first step at its start too): one K1-bwd launch an evaluation
     print(f"line-search evaluations per L-BFGS step: "
-          f"{lb['separable_bwd'] - 1:.2f} (budget "
+          f"{lb['separable_bwd']:.2f} (budget "
           f"{variational.LBFGS_MAX_LS})", flush=True)
 
     phase(f"6 times (CUDA events, {card})")
@@ -3293,6 +3737,7 @@ def main() -> int:
     excited_phase(dev, card)
     family_phase(dev, card)
     analysis_phase(dev, card)
+    mesh_sweep_phase(dev, card)
     phase()
 
     t64 = times["float64"]

@@ -10,7 +10,9 @@ forward-only kernel ops.pallas_residual), the spline E(R) table
 (analysis.etab), the E-head distillation (training.distill) and the exact
 oracle; npz, the reference's .pt and model.bin checkpoints (io); and the
 ``variational``, ``train``, ``finetune``, ``energy``, ``distill`` and
-``evaluate`` CLI subcommands. Separable params run through the kernel of
+``evaluate`` CLI subcommands; the per-R sweep (training.sweep, ``cli
+sweep``) and multi-device runs on torch.distributed (parallel: ``--mesh
+N``, one rank a device). Separable params run through the kernel of
 ops.pallas_separable, 2-input symmetric params through ops.pallas_train;
 the minimal family, R-input models and the excited states take the plain
 forward-Laplacian pass. The kernels' sources are in csrc/.

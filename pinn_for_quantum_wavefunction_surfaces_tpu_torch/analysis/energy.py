@@ -9,7 +9,8 @@ The PyTorch counterpart of the JAX package's ``analysis/energy.py``:
 on three grids: the uniform n^3 Simpson grid of the reference
 (``rayleigh_quotient``), the nucleus-adapted Cartesian grid
 (``rayleigh_quotient_adapted``) and the prolate-spheroidal Gauss grid
-(``rayleigh_quotient_spheroidal``).
+(``rayleigh_quotient_spheroidal``); ``rayleigh_quotient_sharded`` splits
+the Cartesian grids' x axis over the ranks of a mesh.
 
 psi and lap psi come from ``psi_lap_forward``, keyed by the params and the
 config as the JAX package's ``ansatz.psi_fwdlap`` is, and forward only:
@@ -151,6 +152,37 @@ def rayleigh_quotient_adapted(params, cfg: Config, ri: float,
     yg, wy = quadrature.adapted_axis(n, box, (0.0,), strength, sharpness)
     num, den = _rayleigh_grid(params, cfg, ri, xg, wx, yg, wy, yg, wy, which)
     return float(num / den)
+
+
+def rayleigh_quotient_sharded(params, cfg: Config, ri: float, mesh,
+                              n: Optional[int] = None, scheme: str = "avg",
+                              which: str = "model",
+                              grid: str = "uniform") -> float:
+    """E_int on the uniform (or ``grid="adapted"``) n^3 grid with its x
+    axis split over the ranks of ``mesh`` (``parallel.mesh.Mesh``): the
+    axis is padded at its edge to a multiple of the mesh size with
+    zero-weight nodes, each rank streams its block of x-slabs through
+    ``_rayleigh_grid`` (the kernel of the params' family on CUDA), and the
+    (num, den) sums are all-reduced. Every rank returns the quotient.
+    ``params`` are on the rank's device."""
+    n = n or cfg.train.n_test
+    box = cfg.domain.box
+    if grid == "adapted":
+        ax, w = quadrature.adapted_axis(n, box, (-ri, ri))
+        ax_yz, w_yz = quadrature.adapted_axis(n, box, (0.0,))
+    elif grid == "uniform":
+        ax = np.linspace(-box, box, n)
+        w = quadrature.simpson_weights(n, 2.0 * box / (n - 1), scheme)
+        ax_yz, w_yz = ax, w
+    else:
+        raise ValueError(f"unknown grid {grid!r}: 'uniform' or 'adapted'")
+    n_pad = -(-n // mesh.size) * mesh.size
+    ax = np.pad(np.asarray(ax, np.float64), (0, n_pad - n), mode="edge")
+    w = np.pad(np.asarray(w, np.float64), (0, n_pad - n))
+    sl = mesh.block(n_pad, "grid nodes")
+    num, den = _rayleigh_grid(params, cfg, ri, ax[sl], w[sl], ax_yz, w_yz,
+                              ax_yz, w_yz, which)
+    return float(mesh.sum(num) / mesh.sum(den))
 
 
 def spheroidal_grid(c: float, n_xi: int, n_eta: int,

@@ -21,6 +21,10 @@
         artifacts/evaluated.npz --j-max 5
     python -m pinn_for_quantum_wavefunction_surfaces_tpu_torch.cli export \\
         artifacts/flagship.npz model.bin
+    python -m pinn_for_quantum_wavefunction_surfaces_tpu_torch.cli sweep \\
+        --r-values 0.5 1 2 4 --polish 300 --arch separable --dtype float64
+    python -m pinn_for_quantum_wavefunction_surfaces_tpu_torch.cli train \\
+        --mesh 2 --device cpu --epochs 100 --n-train 2048
 
 ``train`` and ``finetune`` run the residual PINN trainer of every family
 (``--arch symmetric|minimal|separable``, ``--r-input``; stage 1, then the
@@ -39,8 +43,13 @@ with ``--device cpu``, and writes the JAX package's files (npz checkpoint
 layout, meta keys, history and surface pickles, figures, final JSON line).
 ``vibrations`` solves the nuclear levels on an evaluated artifact's E(R)
 table (numpy and scipy), and ``export`` converts checkpoints (.npz, .bin,
-.pt; .csv for an E(R) table). Drawing needs matplotlib. Of the JAX
-package's subcommands only ``sweep`` and ``bench`` are not ported.
+.pt; .csv for an E(R) table). ``sweep`` trains one model per R (the
+residual family together, or ``--polish`` the per-R spheroidal polish).
+``train``, ``finetune``, ``variational --spheroidal`` and ``sweep`` take
+``--mesh N``: N ranks, one a device (NCCL on CUDA, gloo on the CPU),
+spawned from this one command line (or the ranks of a torchrun job of that
+size). Drawing needs matplotlib. Of the JAX package's subcommands only
+``bench`` is not ported.
 """
 
 from __future__ import annotations
@@ -136,15 +145,8 @@ def _load_as(path: str, dtype: str) -> dict:
             for k, v in _load_params(path).items()}
 
 
-def cmd_variational(args) -> None:
-    """Variational training of a checkpoint or of the seeded init: the
-    spheroidal polish (``--spheroidal``; deflated against ``--deflate``
-    references when given), full-batch L-BFGS on one importance sample
-    (``--lbfgs N``), or the Monte-Carlo Adam trainer."""
-    from .io import checkpoint
-    from .models import ansatz
-    from .training import variational
-    cfg = _build_cfg(args)
+def _check_variational(args) -> None:
+    """Exits on flags that do not go together, before any rank starts."""
     if args.spheroidal and not (args.lbfgs or args.adam_warmup):
         raise SystemExit("--spheroidal is the deterministic objective: give "
                          "it an optimisation budget (--lbfgs N and/or "
@@ -155,10 +157,39 @@ def cmd_variational(args) -> None:
     if args.deflate and not args.spheroidal:
         raise SystemExit("--deflate needs the deterministic objective: add "
                          "--spheroidal (MC deflation is not implemented)")
+    if args.mesh and not args.spheroidal:
+        raise SystemExit("--mesh shards the --spheroidal polish over R rows; "
+                         "the Monte-Carlo trainer and --lbfgs on one "
+                         "importance sample run on one device: drop --mesh")
+    if args.mesh and args.fixed_r is not None:
+        # one R: nothing to shard along the R axis
+        raise SystemExit("--mesh shards the polish over R rows; with "
+                         "--fixed-r there is only one R: drop --mesh")
+
+
+def _rank_mesh(args):
+    """(mesh, coordinator): this rank's mesh under --mesh (None without),
+    and whether this process writes files and prints (rank 0)."""
+    mesh = getattr(args, "rank_mesh", None)
+    return mesh, mesh is None or mesh.is_coordinator
+
+
+def cmd_variational(args) -> None:
+    """Variational training of a checkpoint or of the seeded init: the
+    spheroidal polish (``--spheroidal``; deflated against ``--deflate``
+    references when given; sharded over R rows with ``--mesh N``),
+    full-batch L-BFGS on one importance sample (``--lbfgs N``), or the
+    Monte-Carlo Adam trainer."""
+    from .io import checkpoint
+    from .models import ansatz
+    from .training import variational
+    cfg = _build_cfg(args)
+    mesh, coordinator = _rank_mesh(args)
     params = None
     if args.checkpoint:
         params = _load_as(args.checkpoint, cfg.dtype)
-    os.makedirs(args.out, exist_ok=True)
+    if coordinator:
+        os.makedirs(args.out, exist_ok=True)
     if not args.spheroidal and not args.lbfgs:
         res = variational.train_variational(
             cfg, params=params, n_r=args.n_r, n_pts=args.n_pts,
@@ -182,7 +213,7 @@ def cmd_variational(args) -> None:
             steps=args.lbfgs, adam_steps=args.adam_warmup,
             warmup_save=os.path.join(args.out, "warmup.npz"),
             best_save=os.path.join(args.out, "best_sofar.npz"),
-            log_cb=_log, deflate_params=deflate_params,
+            mesh=mesh, log_cb=_log, deflate_params=deflate_params,
             memory_size=args.lbfgs_memory, device=args.device)
         polish = "spheroidal-lbfgs" if args.lbfgs else "spheroidal-adam"
     else:
@@ -190,6 +221,8 @@ def cmd_variational(args) -> None:
             params, cfg, n_r=args.n_r, n_pts=args.n_pts, steps=args.lbfgs,
             log_cb=_log, device=args.device)
         polish = "lbfgs"
+    if not coordinator:
+        return
     meta = {"polish": polish, **_family_meta(cfg)}
     if cfg.domain.xi_span != 20.0:
         # non-default quadrature extent is part of the objective
@@ -221,15 +254,6 @@ def cmd_variational(args) -> None:
                       "deflated": deflate_params is not None,
                       "spheroidal": bool(args.spheroidal),
                       "device": args.device}))
-
-
-def _residual_cfg(args):
-    """Config of the residual trainer; exits for what waits for a later
-    slice of the port."""
-    if args.mesh and args.mesh > 1:
-        raise SystemExit("--mesh N > 1 is not ported yet: the multi-device "
-                         "slice (ROADMAP Queue 1, multi-device) brings it")
-    return _build_cfg(args)
 
 
 def _load_params(path: str) -> dict:
@@ -558,13 +582,17 @@ def cmd_evaluate(args) -> None:
 
 
 def cmd_train(args) -> None:
-    """Stage-1 residual training (the paper schedule by default)."""
+    """Stage-1 residual training (the paper schedule by default; the batch
+    sharded over the ranks with ``--mesh N``)."""
     from .io import checkpoint
     from .training import engine
     from .utils.metrics import MetricLogger, save_history
-    cfg = _residual_cfg(args)
-    os.makedirs(args.out, exist_ok=True)
-    log = MetricLogger(os.path.join(args.out, "metrics.jsonl"))
+    cfg = _build_cfg(args)
+    mesh, coordinator = _rank_mesh(args)
+    log = None
+    if coordinator:
+        os.makedirs(args.out, exist_ok=True)
+        log = MetricLogger(os.path.join(args.out, "metrics.jsonl"))
 
     def ckpt_cb(state, step):
         checkpoint.save(os.path.join(args.out, "best.npz"),
@@ -588,12 +616,15 @@ def cmd_train(args) -> None:
         else:
             params = _load_params(args.resume)
     with contextlib.ExitStack() as stack:
-        if args.profile:
+        if args.profile and coordinator:
             from .utils.profiling import trace
             stack.enter_context(trace(args.profile))
         res = engine.train(cfg, params=params, opt_state=opt_state,
                            start_step=start_step, log_cb=log,
-                           checkpoint_cb=ckpt_cb, device=args.device)
+                           checkpoint_cb=ckpt_cb, mesh=mesh,
+                           device=args.device)
+    if not coordinator:
+        return
     log.close()
     checkpoint.save(os.path.join(args.out, "final.npz"),
                     {"params": res.params},
@@ -617,19 +648,57 @@ def cmd_finetune(args) -> None:
     from .io import checkpoint
     from .training import engine
     from .utils.metrics import save_history
-    cfg = finetune_config(_residual_cfg(args))
+    cfg = finetune_config(_build_cfg(args))
     if args.epochs:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, epochs=args.epochs))
+    mesh, coordinator = _rank_mesh(args)
     params = _load_params(args.checkpoint)
-    os.makedirs(args.out, exist_ok=True)
-    res = engine.finetune(cfg, params=params, log_cb=_log,
+    res = engine.finetune(cfg, params=params, log_cb=_log, mesh=mesh,
                           device=args.device)
+    if not coordinator:
+        return
+    os.makedirs(args.out, exist_ok=True)
     checkpoint.save(os.path.join(args.out, "finetune.npz"),
                     {"params": res.best_params},
                     meta={"best_loss": res.best_loss, **_family_meta(cfg)})
     save_history(os.path.join(args.out, "history_finetune.pkl"), res.history)
     print(json.dumps({"best_loss": res.best_loss}))
+
+
+def _check_sweep(args) -> None:
+    if args.polish and args.mesh:
+        raise SystemExit("--polish runs per-R single-row quotients and does "
+                         "not shard over a mesh; drop --mesh")
+
+
+def cmd_sweep(args) -> None:
+    """Per-R multi-model family: the residual family trained together (the
+    models split over the ranks with ``--mesh N``), or with ``--polish N``
+    the per-R deterministic spheroidal polish. Writes the JAX CLI's pickle
+    (R, E_net, best_loss) and JSON line."""
+    import pickle
+    from .training import sweep
+    cfg = _build_cfg(args)
+    mesh, coordinator = _rank_mesh(args)
+    rs = args.r_values or list(np.round(np.arange(
+        cfg.domain.r_lo, cfg.domain.r_hi + 1e-9, args.r_step), 2))
+    if args.polish:
+        out = sweep.polish_per_r(cfg, rs, steps=args.polish,
+                                 device=args.device)
+    else:
+        out = sweep.train_per_r_vmapped(cfg, rs, mesh=mesh,
+                                        device=args.device)
+    if not coordinator:
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)) or ".",
+                exist_ok=True)
+    with open(args.out, "wb") as f:
+        pickle.dump({"R": out["R"], "E_net": out["E_net"],
+                     "best_loss": out["best_loss"]}, f)
+    print(json.dumps({"out": args.out,
+                      "R": list(map(float, out["R"])),
+                      "E_net": [round(float(e), 6) for e in out["E_net"]]}))
 
 
 def _add_common(p):
@@ -706,10 +775,35 @@ def _add_residual(p):
                    help="penalty keeping the neural correction small "
                         "relative to LCAO (e.g. 1e-3)")
     _add_symmetric_model(p)
+    _add_sector(p)
     p.add_argument("--resample-frac", type=float, dest="resample_frac")
+    _add_mesh(p, "shard the collocation batch over N devices")
+
+
+def _add_sector(p):
+    """The flags of the target sector and its quadrature (the JAX CLI's,
+    with its defaults)."""
+    p.add_argument("--m-abs", type=int, default=0, dest="m_abs",
+                   help="|m| of the target sector: the separable ansatz "
+                        "gains the harmonic transverse factor Re[(y + i "
+                        "z)^m] (pi: 1, delta: 2, phi: 3)")
+    p.add_argument("--wide-alpha", action="store_true", dest="wide_alpha",
+                   help="orbital exponent alpha(R) in (0.3, 2.25) instead "
+                        "of (0.75, 2.25) (separable family)")
+    p.add_argument("--xi-span", type=float, dest="xi_span",
+                   help="prolate-spheroidal quadrature extent in bohr "
+                        "(default 20)")
+    p.add_argument("--r-cluster", dest="r_cluster",
+                   choices=["uniform", "log"],
+                   help="R-row layout of the variational objective: 'log' "
+                        "clusters the rows toward the united-atom end")
+
+
+def _add_mesh(p, what: str):
     p.add_argument("--mesh", type=int, default=0,
-                   help="devices to shard the batch over (only 0 or 1 in "
-                        "this port so far)")
+                   help=f"{what} (0: off): one rank a device, NCCL on CUDA "
+                        "(cuda:0..N-1), gloo on the CPU; raises when the "
+                        "host has fewer devices")
 
 
 def _add_symmetric_model(p):
@@ -791,11 +885,8 @@ def main(argv=None) -> None:
                    help="antithetic radial pairs in the shells' draws")
     p.add_argument("--stratified-r", action="store_true", dest="stratified_r",
                    help="one R draw per stratum of the R range per step")
-    p.add_argument("--wide-alpha", action="store_true", dest="wide_alpha",
-                   help="orbital exponent alpha(R) in (0.3, 2.25)")
-    p.add_argument("--xi-span", type=float, dest="xi_span")
-    p.add_argument("--r-cluster", dest="r_cluster",
-                   choices=["uniform", "log"])
+    _add_sector(p)
+    _add_mesh(p, "shard the --spheroidal polish's R rows over N devices")
     p.add_argument("--spheroidal", action="store_true",
                    help="deterministic objective: exact per-R quotients on "
                         "prolate-spheroidal Gauss grids")
@@ -817,9 +908,6 @@ def main(argv=None) -> None:
                         "doubly radially excited states (3s sigma_g)")
     p.add_argument("--eta-node", action="store_true", dest="eta_node",
                    help="trainable angular node factor (3d sigma_g)")
-    p.add_argument("--m-abs", type=int, default=0, dest="m_abs",
-                   help="|m| of the target sector: the harmonic transverse "
-                        "factor Re[(y + i z)^m] (pi: 1, delta: 2, phi: 3)")
     p.add_argument("--deflate", metavar="CKPT", action="append",
                    help="frozen reference-state checkpoint of the same "
                         "sector: minimise the deflated quotient, targeting "
@@ -829,7 +917,7 @@ def main(argv=None) -> None:
                    help="the oracle state recorded in the checkpoint's "
                         "meta, instead of the count of --deflate "
                         "references (needed past same-sector crossings)")
-    p.set_defaults(fn=cmd_variational)
+    p.set_defaults(fn=cmd_variational, check=_check_variational)
 
     p = sub.add_parser("energy", help="E(R) surface extraction")
     _add_scoring(p)
@@ -895,6 +983,17 @@ def main(argv=None) -> None:
                         "checkpoint's meta, else from --state)")
     p.set_defaults(fn=cmd_evaluate)
 
+    p = sub.add_parser("sweep", help="per-R multi-model family (legacy "
+                                     "mode)")
+    _add_residual(p)
+    p.add_argument("--r-values", type=float, nargs="*", dest="r_values")
+    p.add_argument("--r-step", type=float, default=0.5, dest="r_step")
+    p.add_argument("--out", default="runs/sweep/energy_sweep.pkl")
+    p.add_argument("--polish", type=int, default=0,
+                   help="per-R deterministic spheroidal L-BFGS polish with "
+                        "this many steps instead of residual training")
+    p.set_defaults(fn=cmd_sweep, check=_check_sweep)
+
     p = sub.add_parser("export", help="convert checkpoint formats")
     p.add_argument("input", help=".npz | .pt | .bin")
     p.add_argument("output", help=".npz | .bin | .pt, or .csv for an "
@@ -930,6 +1029,19 @@ def main(argv=None) -> None:
     p.set_defaults(fn=cmd_vibrations)
 
     args = ap.parse_args(argv)
+    check = getattr(args, "check", None)
+    if check is not None:
+        check(args)
+    if getattr(args, "mesh", 0):
+        from .parallel import mesh as pmesh
+        pmesh.launch(_on_rank, args.mesh, device=args.device, args=(args,))
+    else:
+        args.fn(args)
+
+
+def _on_rank(mesh, args) -> None:
+    """The subcommand on one rank of its ``--mesh``."""
+    args.rank_mesh = mesh
     args.fn(args)
 
 

@@ -36,18 +36,24 @@ LBFGS_BLOCK, LBFGS_MAX_LS = 200, 25
 
 def rayleigh_targets(params: dict, cfg: Config, r_values=None,
                      n: Optional[int] = None, scheme: str = "avg",
-                     grid: str = "spheroidal") -> tuple[np.ndarray,
-                                                        np.ndarray]:
+                     grid: str = "spheroidal",
+                     mesh=None) -> tuple[np.ndarray, np.ndarray]:
     """E*(R) at each R (port params): spheroidal Gauss quadrature by
     default, or the adapted or uniform Cartesian grids with n nodes an
-    axis. Default R values: r_lo to r_hi in steps of 0.05."""
+    axis. Default R values: r_lo to r_hi in steps of 0.05. With ``mesh``
+    every target is the uniform grid's quotient with its x axis split over
+    the ranks (``energy.rayleigh_quotient_sharded``), as in the JAX
+    package."""
     dom = cfg.domain
     if r_values is None:
         r_values = np.round(np.arange(dom.r_lo, dom.r_hi + 0.05, 0.05), 3)
     r_values = np.asarray(r_values, np.float64)
     targets = np.zeros(len(r_values))
     for i, ri in enumerate(r_values):
-        if grid == "spheroidal":
+        if mesh is not None:
+            targets[i] = aen.rayleigh_quotient_sharded(
+                params, cfg, float(ri), mesh, n=n, scheme=scheme)
+        elif grid == "spheroidal":
             targets[i] = aen.rayleigh_quotient_spheroidal(params, cfg,
                                                           float(ri))
         elif grid == "adapted":
@@ -155,13 +161,14 @@ def _fit_on_host(params, r_values, targets, lr, steps, lbfgs_steps):
 
 
 def distill(params: dict, cfg: Config, n: Optional[int] = None,
-            r_values=None, lr: float = 3e-3,
-            steps: int = 5000) -> tuple[dict, dict]:
+            r_values=None, lr: float = 3e-3, steps: int = 5000,
+            mesh=None) -> tuple[dict, dict]:
     """Quadrature targets, then the head regression (port params). Returns
     (new_params, info) with info's targets, fit, fit RMS (Ha) and the wall
-    seconds of the two parts."""
+    seconds of the two parts. ``mesh``: the targets are sharded quotients
+    (``rayleigh_targets``); every rank fits the same head."""
     t0 = time.perf_counter()
-    r, t = rayleigh_targets(params, cfg, r_values, n=n)
+    r, t = rayleigh_targets(params, cfg, r_values, n=n, mesh=mesh)
     t1 = time.perf_counter()
     new_params = fit_energy_head(params, r, t, lr=lr, steps=steps)
     ref = new_params["e1"]["w"]

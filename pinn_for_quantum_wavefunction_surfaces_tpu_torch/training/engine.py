@@ -22,6 +22,9 @@ history stay on the device until a chunk ends.
   Adam parameter (one ``torch.where`` tracks the best, one op updates the
   EMA); frozen leaves are constants outside it, so autograd computes no
   gradient for them at all (fine-tuning launches no backward kernel).
+- Mesh: ``train(..., mesh=)`` runs on every rank of a
+  ``parallel.mesh.Mesh``, the batch sharded over the ranks and the loss's
+  sums and the gradient all-reduced (``Trainer``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..config import Config
 from ..device import resolve_device, resolve_dtype
 from ..models import ansatz
 from ..ops.sampling import Batch, sample_batch
+from ..parallel.mesh import shard_batch
 from .losses import loss_fn
 
 # Frozen subtrees of the symmetric family's fine-tune stage: only the E
@@ -158,6 +162,109 @@ def _restore_opt(cfg, opt, flat, layout, opt_state) -> int:
     return count
 
 
+class History(NamedTuple):
+    """One step's history row (the JAX package's ``engine.History``)."""
+    l_tot: torch.Tensor
+    l_pde: torch.Tensor
+    l_bc: torch.Tensor
+    energy: torch.Tensor   # E at the batch's (global) last point
+
+
+class Trainer:
+    """One training run's live state on a device, one rank's with a mesh:
+    the step counter, the trainable vector and its Adam state, the batch,
+    the best loss and params, the EMA and the generator. ``advance`` takes
+    one step; ``state()`` is its ``TrainState``.
+
+    With ``mesh`` the batch is this rank's block of the global batch, every
+    batch sum and count of the loss is all-reduced over the ranks
+    (``Mesh.sum``, differentiable), each rank differentiates its 1/N share
+    of the global loss, and the gradients are summed: every rank then
+    applies the same update to the same params, and tracks the best on the
+    same global loss."""
+
+    def __init__(self, cfg: Config, params: Optional[dict] = None,
+                 opt_state=None, start_step: int = 0,
+                 frozen: frozenset = frozenset(), best_params=None,
+                 best_loss=None, ema_params=None, batch=None,
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 device="cuda"):
+        t = cfg.train
+        self.cfg, self.mesh = cfg, mesh
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        dtype = resolve_dtype(cfg.dtype)
+        if params is None:
+            params = ansatz.init_params(cfg.model, seed=t.seed, dtype=dtype,
+                                        device=dev)
+        params = ansatz.as_params(params, dtype, dev)
+        self.device, self.dtype = dev, dtype
+        self.layout = _Layout(params, frozen)
+        self.flat = self.layout.flat(params, dtype, dev).requires_grad_(True)
+        self.opt = make_optimizer(cfg, self.flat)
+        self.sched_count = 0
+        if opt_state is not None:
+            self.sched_count = _restore_opt(cfg, self.opt, self.flat,
+                                            self.layout, opt_state)
+        self.loss_dtype = torch.promote_types(dtype, torch.float32)
+        self.best_loss = torch.full((), float("inf") if best_loss is None
+                                    else float(best_loss),
+                                    dtype=self.loss_dtype, device=dev)
+        self.best_flat = (self.flat.detach().clone() if best_params is None
+                          else self.layout.flat(best_params, dtype, dev))
+        self.ema_flat = (self.flat.detach().clone() if ema_params is None
+                         else self.layout.flat(ema_params, dtype, dev))
+        self.step = int(start_step)
+        self.batch = batch
+        self.generator = generator
+
+    def advance(self, sample: Callable[[torch.Generator], Batch]) -> History:
+        """One Adam step: a fresh ``sample(generator)`` first when the
+        schedule resamples (every ``resample_every`` steps while ``step <
+        resample_frac * epochs``). Returns the step's history (tensors on
+        the device; the loss is that of the params before the update)."""
+        cfg, m, t = self.cfg, self.mesh, self.cfg.train
+        if self.step % t.resample_every == 0 and \
+                self.step < int(t.resample_frac * t.epochs):
+            self.batch = sample(self.generator)
+        self.opt.zero_grad(set_to_none=True)
+        l_tot, aux = loss_fn(self.layout.tree(self.flat), cfg, self.batch,
+                             allreduce=None if m is None else m.sum)
+        e_last = aux.e_last
+        if m is None:
+            l_tot.backward()
+        else:
+            (l_tot / m.size).backward()
+            m.sum_grads([self.flat])
+            # E of the global last point: the last rank's last point
+            e_last = m.sum(torch.where(
+                torch.tensor(m.rank == m.size - 1, device=self.device),
+                e_last.detach(), torch.zeros_like(e_last)))
+        with torch.no_grad():
+            improved = l_tot < self.best_loss
+            self.best_flat = torch.where(improved, self.flat, self.best_flat)
+            self.best_loss = torch.where(improved, l_tot.to(self.loss_dtype),
+                                         self.best_loss)
+            hist = History(l_tot.detach(), aux.l_pde.detach(),
+                           aux.l_bc.detach(), e_last.detach())
+        self.opt.param_groups[0]["lr"] = learning_rate(cfg, self.sched_count)
+        self.opt.step()
+        self.sched_count += 1
+        with torch.no_grad():
+            d = t.ema_decay
+            self.ema_flat = d * self.ema_flat + (1.0 - d) * self.flat
+        self.step += 1
+        return hist
+
+    def state(self) -> TrainState:
+        lay = self.layout
+        return TrainState(
+            self.step, lay.tree(self.flat.detach()),
+            None if lay.frozen else _opt_tree(self.cfg, self.opt, self.flat,
+                                              lay, self.sched_count),
+            self.batch, lay.tree(self.best_flat), self.best_loss,
+            lay.tree(self.ema_flat), self.generator)
+
+
 def train(cfg: Config,
           params: Optional[dict] = None,
           opt_state=None,
@@ -165,8 +272,11 @@ def train(cfg: Config,
           frozen: frozenset = frozenset(),
           checkpoint_cb: Optional[Callable[[TrainState, int], None]] = None,
           log_cb: Optional[Callable[[int, dict], None]] = None,
+          mesh=None,
+          batch: Optional[Batch] = None,
           device="cuda") -> TrainResult:
-    """Run the training schedule on ``device``.
+    """Run the training schedule on ``device`` (with ``mesh``: on every
+    rank of it, each on its own device).
 
     ``cfg.train.epochs`` is the TOTAL schedule length: resuming with
     ``start_step = s`` runs the remaining ``epochs - s`` steps, so the
@@ -175,37 +285,32 @@ def train(cfg: Config,
     (``cfg.train.seed``); ``opt_state`` is an Adam state in the JAX layout
     (a state.npz's "opt" tree). The host reads the device every
     ``scan_chunk`` steps: ``log_cb(step, metrics)`` and, past the persist
-    gate and on a new best, ``checkpoint_cb(state, step)``."""
+    gate and on a new best, ``checkpoint_cb(state, step)``. ``batch``:
+    the first (global) batch, trained on until the schedule resamples
+    (default: drawn from the generator).
+
+    ``mesh`` (``parallel.mesh.Mesh``) shards the batch over the ranks as
+    the JAX package's GSPMD path does: every rank draws the same global
+    batch from the same generator and keeps its block
+    (``parallel.mesh.shard_batch``), so the run equals the unsharded one up
+    to the order of the all-reduced sums (bit for bit at world size 1).
+    Only rank 0 calls ``log_cb`` and ``checkpoint_cb``."""
     t = cfg.train
-    dev = resolve_device(device)
-    dtype = resolve_dtype(cfg.dtype)
-    if params is None:
-        params = ansatz.init_params(cfg.model, seed=t.seed, dtype=dtype,
-                                    device=dev)
-    params = ansatz.as_params(params, dtype, dev)
-    layout = _Layout(params, frozen)
-    flat = layout.flat(params, dtype, dev).requires_grad_(True)
-    opt = make_optimizer(cfg, flat)
-    sched_count = 0
-    if opt_state is not None:
-        sched_count = _restore_opt(cfg, opt, flat, layout, opt_state)
-    gen = torch.Generator(device=dev).manual_seed(int(t.seed))
-    batch = sample_batch(gen, cfg, device=dev)
-    loss_dtype = torch.promote_types(dtype, torch.float32)
-    best_loss = torch.full((), float("inf"), dtype=loss_dtype, device=dev)
-    best_flat = flat.detach().clone()
-    ema_flat = flat.detach().clone()
-    resample_cutoff = int(t.resample_frac * t.epochs)
-    d = t.ema_decay
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    tr = Trainer(cfg, params, opt_state=opt_state, start_step=start_step,
+                 frozen=frozen, mesh=mesh, device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(
+                     int(t.seed)))
 
-    def state_at(step):
-        return TrainState(
-            step, layout.tree(flat.detach()),
-            None if layout.frozen else _opt_tree(cfg, opt, flat, layout,
-                                                 sched_count),
-            batch, layout.tree(best_flat), best_loss, layout.tree(ema_flat),
-            gen)
+    def block(batch):
+        return batch if mesh is None else shard_batch(batch, mesh)
 
+    def sample(gen):
+        return block(sample_batch(gen, cfg, device=dev))
+
+    tr.batch = sample(tr.generator) if batch is None else \
+        block(Batch(*(a.to(dev) for a in batch)))
+    coordinator = mesh is None or mesh.is_coordinator
     chunks = []
     n_done = start_step
     persist_after = int(t.best_after_frac * t.epochs)
@@ -213,37 +318,20 @@ def train(cfg: Config,
     t0 = time.perf_counter()
     while n_done < t.epochs:
         n = min(t.scan_chunk, t.epochs - n_done)
-        hist = torch.empty((n, 4), dtype=dtype, device=dev)
+        hist = torch.empty((n, 4), dtype=tr.dtype, device=dev)
         for j in range(n):
-            step = n_done + j
-            if step % t.resample_every == 0 and step < resample_cutoff:
-                batch = sample_batch(gen, cfg, device=dev)
-            opt.zero_grad(set_to_none=True)
-            l_tot, aux = loss_fn(layout.tree(flat), cfg, batch)
-            l_tot.backward()
-            with torch.no_grad():
-                improved = l_tot < best_loss
-                best_flat = torch.where(improved, flat, best_flat)
-                best_loss = torch.where(improved, l_tot.to(loss_dtype),
-                                        best_loss)
-                hist[j] = torch.stack([l_tot, aux.l_pde, aux.l_bc,
-                                       aux.e_last])
-            opt.param_groups[0]["lr"] = learning_rate(cfg, sched_count)
-            opt.step()
-            sched_count += 1
-            with torch.no_grad():
-                ema_flat = d * ema_flat + (1.0 - d) * flat
+            hist[j] = torch.stack(tuple(tr.advance(sample)))
         n_done += n
         chunks.append(hist.cpu().numpy())
-        best = float(best_loss)
-        if log_cb is not None:
+        best = float(tr.best_loss)
+        if log_cb is not None and coordinator:
             last = chunks[-1][-1]
             log_cb(n_done, {"Ltot": float(last[0]), "Lpde": float(last[1]),
                             "Lbc": float(last[2]), "E": float(last[3]),
                             "best": best})
-        if (checkpoint_cb is not None and n_done > persist_after
-                and best < last_persisted_best):
-            checkpoint_cb(state_at(n_done), n_done)
+        if (checkpoint_cb is not None and coordinator
+                and n_done > persist_after and best < last_persisted_best):
+            checkpoint_cb(tr.state(), n_done)
             last_persisted_best = best
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -252,12 +340,12 @@ def train(cfg: Config,
     h = np.concatenate(chunks) if chunks else np.zeros((0, 4), np.float32)
     history = {"Ltot": h[:, 0], "Lpde": h[:, 1], "Lbc": h[:, 2],
                "Energy": h[:, 3]}
-    state = state_at(n_done)
+    state = tr.state()
     return TrainResult(
         state=state,
         params=ansatz.to_numpy_params(state.params),
         best_params=ansatz.to_numpy_params(state.best_params),
-        best_loss=float(best_loss),
+        best_loss=float(tr.best_loss),
         history=history,
         runtime_s=runtime,
         points_per_sec=steps_run * t.n_train / max(runtime, 1e-9),

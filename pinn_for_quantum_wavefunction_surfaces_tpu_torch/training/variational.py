@@ -30,7 +30,8 @@ states, whose rows are constants of the optimisation computed forward only
 (``reference_states_on_batch``, through ``energy.psi_lap_forward``: a
 ground-family reference is one K1-fwd launch a grid on the card).
 
-Not in this port yet: the mesh-sharded polish.
+With a mesh (``parallel.mesh``) the spheroidal polish shards its R rows
+over the ranks (``polish_spheroidal(mesh=)``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from ..models import ansatz
 from ..ops import operators, routing
 from ..ops.sampling import sample_importance
 from . import engine
+from .lbfgs import LBFGS
 
 # line-search evaluations an L-BFGS step may spend beyond its first: optax's
 # zoom line search (the JAX package's optimiser) defaults to 20 steps
@@ -80,17 +82,33 @@ def _psi_hpsi_rows(params: dict, cfg: Config, vb: VBatch):
     return psi, -0.5 * lap + v * psi
 
 
+def _row_mean(mesh):
+    """Mean over the R rows of every rank: (sum, count) all-reduced over
+    ``mesh`` (differentiably), or over this batch's rows without one."""
+    ar = (lambda v: v) if mesh is None else mesh.sum
+
+    def mean(v):
+        n = ar(torch.full((), v.shape[0], dtype=v.dtype, device=v.device))
+        return ar(torch.sum(v)) / n
+    return mean
+
+
 def quotient_loss(params: dict, cfg: Config, vb: VBatch,
-                  head_weight: float = 1.0):
-    """(loss, aux): mean Rayleigh quotient over the R rows + head MSE."""
+                  head_weight: float = 1.0, mesh=None):
+    """(loss, aux): mean Rayleigh quotient over the R rows + head MSE.
+    With ``mesh`` the batch is this rank's rows; each row's quotient
+    reduces here, and the means over R are all-reduced over the ranks.
+    aux's ``e_r`` is this batch's rows."""
+    mean = _row_mean(mesh)
     psi, hpsi = _psi_hpsi_rows(params, cfg, vb)
     num = torch.sum(vb.w * psi * hpsi, dim=1)
     den = torch.sum(vb.w * psi * psi, dim=1)
     e_r = num / den
     e_head = ansatz.energy(params, vb.r)
-    l_head = torch.mean((e_head - e_r.detach()) ** 2)
-    loss = torch.mean(e_r) + head_weight * l_head
-    return loss, {"e_mean": torch.mean(e_r), "l_head": l_head, "e_r": e_r}
+    l_head = mean((e_head - e_r.detach()) ** 2)
+    e_mean = mean(e_r)
+    loss = e_mean + head_weight * l_head
+    return loss, {"e_mean": e_mean, "l_head": l_head, "e_r": e_r}
 
 
 # Weight on the span{phi_i}-contamination term of the deflated loss, in Ha
@@ -104,7 +122,7 @@ OVERLAP_PENALTY = 4.0
 
 def quotient_loss_deflated(params: dict, cfg: Config, vb: VBatch,
                            psi0: torch.Tensor, hpsi0: torch.Tensor,
-                           head_weight: float = 1.0):
+                           head_weight: float = 1.0, mesh=None):
     """(loss, aux): the penalty-deflated Rayleigh quotient per R row,
     targeting the lowest state of the sector orthogonal to the frozen
     references phi_i:
@@ -122,8 +140,10 @@ def quotient_loss_deflated(params: dict, cfg: Config, vb: VBatch,
     psi0, hpsi0: (n_rows, n_pts), or (k, n_rows, n_pts) for k references
     row-orthogonalised by ``reference_states_on_batch`` (the contamination
     sum assumes an orthogonal stack), on the rows of ``vb``. hpsi0 is kept
-    for the JAX package's signature and unused."""
+    for the JAX package's signature and unused. ``mesh``: as in
+    quotient_loss (the references are this rank's rows too)."""
     del hpsi0
+    mean = _row_mean(mesh)
     psi, hpsi = _psi_hpsi_rows(params, cfg, vb)
     if psi0.ndim == 2:
         psi0 = psi0[None]                          # (k=1, rows, pts)
@@ -135,12 +155,12 @@ def quotient_loss_deflated(params: dict, cfg: Config, vb: VBatch,
     q_r = s_ / n_
     contam = torch.sum(o * o / n0, dim=0) / n_     # (rows,) in [0, 1]
     e_head = ansatz.energy(params, vb.r)
-    l_head = torch.mean((e_head - q_r.detach()) ** 2)
-    loss = (torch.mean(q_r) + head_weight * l_head
-            + OVERLAP_PENALTY * torch.mean(contam))
-    return loss, {"e_mean": torch.mean(q_r), "l_head": l_head, "e_r": q_r,
-                  "perp_frac": torch.min(1.0 - contam),
-                  "contam": torch.max(contam)}
+    l_head = mean((e_head - q_r.detach()) ** 2)
+    e_mean = mean(q_r)
+    loss = e_mean + head_weight * l_head + OVERLAP_PENALTY * mean(contam)
+    c_max = torch.max(contam) if mesh is None else mesh.max(torch.max(contam))
+    return loss, {"e_mean": e_mean, "l_head": l_head, "e_r": q_r,
+                  "perp_frac": 1.0 - c_max, "contam": c_max}
 
 
 def reference_state_on_batch(params0: dict, cfg: Config, vb: VBatch):
@@ -256,6 +276,17 @@ def _trainable(params: dict) -> dict:
                 for f, t in v.items()} for k, v in params.items()}
 
 
+def _backward(loss: torch.Tensor, leaves, mesh) -> None:
+    """Gradients of the global ``loss`` in the leaves' ``.grad``: with
+    ``mesh``, each rank differentiates its 1/N share and the shares are
+    summed over the ranks."""
+    if mesh is None:
+        loss.backward()
+        return
+    (loss / mesh.size).backward()
+    mesh.sum_grads(leaves)
+
+
 def _snapshot(params: dict) -> dict:
     return {k: {f: t.detach().clone() for f, t in v.items()}
             for k, v in params.items()}
@@ -265,7 +296,7 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
                     head_weight: float, log_cb=None, loss_fn=None,
                     memory_size: int = 15, val_fn=None,
                     restart_margin: float = 1e-3,
-                    best_save: Optional[str] = None) -> dict:
+                    best_save: Optional[str] = None, mesh=None) -> dict:
     """L-BFGS on ``loss_fn`` (default quotient_loss) over a fixed batch.
 
     Returns the BEST iterate, not the last (late steps can overshoot).
@@ -274,15 +305,18 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
     drifts ``restart_margin`` (Ha) above the running best, the optimiser
     restarts from the best iterate with fresh curvature memory.
     ``best_save``: checkpoint the running best every 100 steps.
+    ``mesh``: ``loss_fn`` and ``val_fn`` give global values (all-reduced
+    over the ranks), and the gradient is summed over the ranks
+    (``_backward``); every rank then takes the same steps.
 
-    The optimiser is torch.optim.LBFGS (strong-Wolfe line search, one
-    iteration per step), not the JAX package's optax.lbfgs (zoom line
-    search, a preconditioned first step): the two take different paths, so
-    the port is held to the objective's values and goldens, not to the
-    trajectory. A step evaluates the objective and its gradient at its
-    start (one evaluation more than optax), then 1 to LBFGS_MAX_LS times
-    in the line search; a rejected trial step is retried with a shorter
-    one, as optax's zoom search does."""
+    The optimiser is ``lbfgs.LBFGS``: optax.lbfgs's curvature memory (the
+    JAX package's optimiser) on torch's strong-Wolfe line search, not
+    optax's zoom search, so the two packages take different paths and the
+    port is held to the objective's values and goldens, not to the
+    trajectory. A step evaluates the objective and its gradient 1 to
+    LBFGS_MAX_LS times in its line search (a rejected trial step is
+    retried with a shorter one, as optax's zoom search does), and once
+    more at its start only after a restart."""
     loss_fn = quotient_loss if loss_fn is None else loss_fn
     p = _trainable(params)
     leaves = _leaves(p)
@@ -293,19 +327,11 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
     def closure():
         opt.zero_grad()
         loss = f(p)
-        loss.backward()
+        _backward(loss, leaves, mesh)
         return loss
 
     def fresh():
-        # tolerance_grad 0: never stop early on a small gradient (optax
-        # does not); tolerance_change bounds the line-search bracket.
-        # max_eval: without it torch allows max_iter * 5 // 4 = 1
-        # evaluation, which leaves the line search its first trial only
-        return torch.optim.LBFGS(leaves, lr=1.0, max_iter=1,
-                                 max_eval=1 + LBFGS_MAX_LS,
-                                 history_size=memory_size,
-                                 line_search_fn="strong_wolfe",
-                                 tolerance_grad=0.0, tolerance_change=1e-12)
+        return LBFGS(leaves, memory_size=memory_size, max_ls=LBFGS_MAX_LS)
 
     def save_best():
         if best_save is not None:
@@ -334,13 +360,13 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
                 opt = fresh()
                 n_restarts += 1
                 v = best_v
-            value = opt.step(closure).item()
+            value = opt.step(closure)
             if log_cb is not None and i % 25 == 0:
                 log_cb(i, {"E_obj": value, "E_val": v, "E_best": best_v,
                            "restarts": n_restarts})
         else:
             cur = _snapshot(p)
-            value = opt.step(closure).item()
+            value = opt.step(closure)
             if value < best_v:
                 best_p, best_v = cur, value
             if log_cb is not None and i % 25 == 0:
@@ -358,20 +384,21 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
 
 def _adam_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
                    head_weight: float, lr: float = 3e-3,
-                   log_cb=None, loss_fn=None) -> dict:
+                   log_cb=None, loss_fn=None, mesh=None) -> dict:
     """Deterministic-Adam warmup on ``loss_fn`` (default quotient_loss) over
     a fixed batch: one gradient evaluation per step, with the staircase
     schedule lr * 0.5^floor(step / (steps // 4)). Logs every 100 steps and
-    at the end."""
+    at the end. ``mesh``: as in _lbfgs_minimize."""
     loss_fn = quotient_loss if loss_fn is None else loss_fn
     p = _trainable(params)
-    opt = torch.optim.Adam(_leaves(p), lr=lr)   # optax.adam's defaults
+    leaves = _leaves(p)
+    opt = torch.optim.Adam(leaves, lr=lr)   # optax.adam's defaults
     sched = torch.optim.lr_scheduler.StepLR(
         opt, step_size=max(steps // 4, 1), gamma=0.5)
     for i in range(steps):
         opt.zero_grad()
         loss, _ = loss_fn(p, cfg, vb, head_weight)
-        loss.backward()
+        _backward(loss, leaves, mesh)
         opt.step()
         sched.step()
         done = i + 1
@@ -453,12 +480,24 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
     (port params or numpy trees), a dict for one or a list for k; the
     objective becomes quotient_loss_deflated, targeting the sector's
     (k+1)-th state. The references' rows are computed once on the training
-    grid and once on the validation grid. ``mesh`` is not ported yet and
-    raises."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh-sharded polish is not ported")
-    dev = resolve_device(device)
+    grid and once on the validation grid.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the polish runs on every rank of it,
+    each on its own device, as the JAX package shards it: n_r rounds up to
+    a multiple of the mesh size (unless ``cfg.domain.fixed_r`` is set); the
+    training batch's, the validation grid's and the references' R rows
+    split over the ranks in contiguous blocks; each row's quotient reduces
+    on its rank, and the means over R and the gradient are all-reduced.
+    Every rank takes the same steps on the same values, so the params stay
+    equal bit for bit on every rank. Only rank 0 logs and writes
+    ``warmup_save`` and ``best_save``."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     dtype = resolve_dtype(cfg.dtype)
+    if mesh is not None and cfg.domain.fixed_r is None:
+        # a few more R rows only densify the surface
+        n_r = -(-n_r // mesh.size) * mesh.size
+    if mesh is not None and not mesh.is_coordinator:
+        log_cb = warmup_save = best_save = None
     if params is None:
         params = ansatz.init_params(cfg.model, seed=cfg.train.seed,
                                     dtype=dtype, device=dev)
@@ -468,38 +507,52 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
             "f32 L-BFGS on the quotient objective diverges after ~1k steps; "
             "best-iterate tracking limits the damage, but polish in f64 "
             "for production runs", stacklevel=2)
+
+    def rows(batch: VBatch) -> VBatch:
+        """This rank's block of the batch's R rows."""
+        if mesh is None:
+            return batch
+        sl = mesh.block(batch.r.shape[0], "R rows")
+        return VBatch(*(a[sl] for a in batch))
+
     if dual_grid:
         vb = dual_grid_vbatch(cfg, n_r, n_xi, n_eta, xi_span, dtype, dev)
     else:
         vb = spheroidal_vbatch(cfg, n_r=n_r, n_xi=n_xi, n_eta=n_eta,
                                xi_span=xi_span, dtype=dtype, device=dev)
-    loss_fn = quotient_loss
+    vb = rows(vb)
+
+    def loss_fn(p, cfg_, vb_, hw):
+        return quotient_loss(p, cfg_, vb_, hw, mesh=mesh)
     frozen = None
     if deflate_params is not None:
         refs = (deflate_params if isinstance(deflate_params, (list, tuple))
                 else [deflate_params])
         frozen = [ansatz.as_params(p, dtype, dev) for p in refs]
+        # the references' rows are row-wise: on this rank's rows they are
+        # the (k, rows, pts) stack's block along axis 1
         psi0, hpsi0 = reference_states_on_batch(frozen, cfg, vb)
 
         def loss_fn(p, cfg_, vb_, hw):
-            return quotient_loss_deflated(p, cfg_, vb_, psi0, hpsi0, hw)
+            return quotient_loss_deflated(p, cfg_, vb_, psi0, hpsi0, hw,
+                                          mesh=mesh)
     val_fn = None
     if val_grid and steps:
-        vbv = validation_vbatch(cfg, n_r, n_xi, n_eta, dual_grid, xi_span,
-                                dtype, dev)
+        vbv = rows(validation_vbatch(cfg, n_r, n_xi, n_eta, dual_grid,
+                                     xi_span, dtype, dev))
         if frozen is not None:
             # the validation grid's own reference rows
             psi0v, hpsi0v = reference_states_on_batch(frozen, cfg, vbv)
 
             def val_fn(p):
                 return quotient_loss_deflated(p, cfg, vbv, psi0v, hpsi0v,
-                                              head_weight)[0]
+                                              head_weight, mesh=mesh)[0]
         else:
             def val_fn(p):
-                return quotient_loss(p, cfg, vbv, head_weight)[0]
+                return quotient_loss(p, cfg, vbv, head_weight, mesh=mesh)[0]
     if adam_steps:
         params = _adam_minimize(params, cfg, vb, adam_steps, head_weight,
-                                log_cb=log_cb, loss_fn=loss_fn)
+                                log_cb=log_cb, loss_fn=loss_fn, mesh=mesh)
         if warmup_save:
             from ..io import checkpoint
             checkpoint.save(warmup_save,
@@ -507,7 +560,7 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
                             meta={"polish": "spheroidal-adam-warmup"})
     return _lbfgs_minimize(params, cfg, vb, steps, head_weight, log_cb,
                            loss_fn=loss_fn, memory_size=memory_size,
-                           val_fn=val_fn, best_save=best_save)
+                           val_fn=val_fn, best_save=best_save, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -265,8 +265,11 @@ def test_cli_train_and_finetune_write_their_files(tmp_path, capsys):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     base = ["train", "--device", "cpu", "--epochs", "1", "--n-train", "64",
             "--out", str(tmp_path)]
-    with pytest.raises(SystemExit, match="multi-device"):
-        cli.main(base + ["--mesh", "2"])
+    # --mesh N beyond the cards there are raises (without CUDA: at once)
+    with pytest.raises((RuntimeError, ValueError),
+                       match="CUDA is not available|requested"):
+        cli.main(base + ["--mesh", str(torch.cuda.device_count() + 1),
+                         "--device", "cuda"])
     # --profile is ported (tests/test_torch_cli_analysis.py)
     for flag in ("--kernel", "--remat"):
         with pytest.raises(SystemExit):
