@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
  1. header: the card's name and power limit, torch and CUDA versions,
     whether matplotlib is installed;
  2. build: the five CUDA kernels from csrc/ (K1 and K2, forward and
-    backward, and K3), one nvcc per source, all in parallel; ptxas
+    backward, and K3) and the bench line's ceiling chains
+    (csrc/ceiling.cu), one nvcc per source, all in parallel; ptxas
     registers and spills of every instantiation (the backward kernels'
     point-gradient ones marked PG), and no K3 instantiation at H <= 16 may
     spill; the shared memory per block and resident blocks per SM of K1
@@ -194,12 +195,39 @@ Phases (any failure exits non-zero; none is caught and passed over):
     300 epochs): every model's loss finite and lower, exactly M K2-fwd and
     M K2-bwd launches a step, the family's steps/s.
 
+ The remaining entry points (slice 12), each through its own entry point
+ with the launch counts set to 0 just before it and read just after:
+ 22. a: cli bench at its defaults (symmetric and separable, float32,
+    100 000 points, 100 steps, best of 3): the line printed, both
+    families' points/s finite, 0 < peak_fraction, the FMA ceiling at most
+    105% of 67 TFLOP/s, exactly 400 launches of K2-fwd, K2-bwd, K1-fwd and
+    K1-bwd, K2's and K1's kernels in the profiler's rows of a short run of
+    each; the ceiling chains (csrc/ceiling.cu, built in phase 2) against
+    their plain versions at 4 iterations and at the bench's own shape
+    (normwise, CEILING_FULL_TOL), and their rates on a line of their own;
+    b: graft_entry.entry() on the card (one K1-fwd launch) against the same
+    fn on the host CPU, 1e-4 relative; c: dryrun_multichip(1) (NCCL at
+    world size 1; K1 and K2 launched); d: benchmarks pallas_ab (421 K3
+    launches) and pallas_train_ab --model flagship and parity (100 K2-fwd
+    and 100 K2-bwd each) at their defaults, their max_abs_diff and
+    loss_rel_dev within the scripts' bounds, and a planted fault (the
+    NN's output weights 0.1% off in the fwdlap side) above each bound; e:
+    benchmarks scaling at its defaults on one card (80 K2-fwd and K2-bwd,
+    the quadrature through K3); f: benchmarks dispersion at full width
+    (40 x 24, 300 steps, float64) at six R for both families: every
+    separable R within [-1e-4, 0.01] mHa of the exact oracle, every GZ R
+    above -1e-4 mHa, the gaps printed; the figure only where matplotlib
+    imports; g: benchmarks ref_recipe_score on phase 15's cut make
+    ref-recipe checkpoint (39 K3 launches), its numbers equal to the same
+    script's on the host CPU to 1e-9 mHa.
+
 ``python3 chip_smoke.py --mesh N`` (a host with N >= 2 cards) runs phases
 1 and 2, then the --mesh N paths across the N cards (NCCL) against the same
 runs on one card: cli train (make train's model in float64, 20 steps), the
 polish's Adam warmup at the flagship grid and then its sharded L-BFGS,
 rayleigh_quotient_sharded, and cli sweep's family of 4 models; each
-within 1e-8 (relative) of one card.
+within 1e-8 (relative) of one card; then dryrun_multichip(N) and the
+scaling benchmark on 1 to N cards.
 
 Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
 the card line, and last
@@ -1062,6 +1090,11 @@ K3_GRID_N, K3_N_UNIFORM = 80, 1 << 20
 # points) nor of a float32 block (128)
 K3_N_RAGGED, K3_WIDTH_GATE_SCALE = 1100, 4.0
 REF_TRAIN_STEPS, REF_FINETUNE_STEPS = 200, 100
+# the seed of cli train's config, named in the kept checkpoint's run
+REF_SEED = 12345
+# files one phase leaves to a later one (removed at the end of the run)
+KEEP_DIR = os.path.join(tempfile.gettempdir(),
+                        f"chip_smoke_keep_{os.getpid()}")
 
 
 def k3_term_sizes(kt, ws, x, y, z, r, *, p_sym, ry, rz):
@@ -1262,6 +1295,10 @@ def k3_phases(dev, card: str) -> dict:
                  "--dtype", "float64", "--epochs", str(REF_FINETUNE_STEPS)])
         print(f"cli finetune (float64): K2 launches {dict(kt.launches)}")
         ft = os.path.join(s2, "finetune.npz")
+        # phase 22g scores this checkpoint with ref_recipe_score
+        keep = os.path.join(KEEP_DIR, "ref_recipe", f"s{REF_SEED}", "stage2")
+        os.makedirs(keep, exist_ok=True)
+        shutil.copy(ft, keep)
         n_r = len(np.round(np.arange(0.2, 4.0 + 0.1, 0.1), 2))
         per = K3_GRID_N * K3_GRID_N
         want_launches = n_r * -(-K3_GRID_N // max(1, energy.CHUNK_POINTS
@@ -1407,7 +1444,14 @@ def pg_check(kind, label, ws, args, kw, gen, tol_w, tol_p):
     VJP (every output normwise: the weight gradients and da, db (dg) to
     tol_w, dx..dr to tol_p), and two PG launches bit for bit; the weight
     gradients' largest normwise difference to the training launch's is
-    printed. Returns (worst abs, worst normwise) over all outputs."""
+    printed. Returns (worst abs, worst normwise) over all outputs.
+
+    The plain VJP runs in float64 on the same inputs (float32 ones cast
+    up), and both cotangents come from ``gen``: the ungerade weight
+    gradients are sums of cancelling terms, whose float32 roundoff alone
+    varies from 3e-5 to 3e-4 normwise with the draw, in the plain VJP as
+    in the kernel, so a float32 reference put up to twice that error on
+    the kernel."""
     import torch
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
         pallas_separable as ks
@@ -1424,18 +1468,21 @@ def pg_check(kind, label, ws, args, kw, gen, tol_w, tol_p):
                  "g"]
     names += ["x", "y", "z", "r"]
     n = args[-1].numel()
-    dpsi = torch.randn(n, generator=gen, device=args[0].device,
-                       dtype=args[0].dtype)
-    dlap = torch.randn_like(dpsi)
+    dpsi, dlap = (torch.randn(n, generator=gen, device=args[0].device,
+                              dtype=args[0].dtype) for _ in range(2))
 
     def flat(out):
         return list(out[0]) + list(out[1:])
+
+    def f64(ts):
+        return [t.to(torch.float64) for t in ts]
 
     got = flat(bwd(ws, *args, dpsi, dlap, point_grads=True, **kw))
     again = flat(bwd(ws, *args, dpsi, dlap, point_grads=True, **kw))
     off = flat(bwd(ws, *args, dpsi, dlap, **kw))
     with torch.no_grad():
-        want = flat(vjp(ws, *args, dpsi, dlap, point_grads=True, **kw))
+        want = flat(vjp(f64(ws), *f64(args), *f64((dpsi, dlap)),
+                        point_grads=True, **kw))
     torch.cuda.synchronize()
     errs = [check_normwise(f"{kind}-bwd PG {nm} {label}", u, v,
                            tol_p if nm in "xyzr" else tol_w)
@@ -3274,6 +3321,288 @@ def mesh_sweep_phase(dev, card: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 22 (slice 12): the remaining entry points. The dispersion study's
+# cut R set (the full 39 R run outside this script), and the bounds of the
+# FMA ceiling: above 105% of the H100's 67 TFLOP/s the kernel is broken
+DISPERSION_R = (0.2, 0.6, 1.0, 2.0, 3.0, 4.0)
+BENCH_N, BENCH_STEPS, BENCH_PROFILE_STEPS = 100_000, 100, 5
+PALLAS_TRAIN_AB_STEPS = 50
+# the sharded quadrature's launches: 192 x-slabs of 192^2 points, whole
+# slabs up to energy.CHUNK_POINTS a launch
+SCALING_STEPS, SCALING_QUAD_N = 20, 192
+AB_CHECK_N = 4096                  # pallas_ab's checked slice (its check_n)
+# The ceiling chains at the bench's own shape against their plain versions,
+# normwise (max |err| / max |plain|). Both maps contract, |dx'/dx| <= a =
+# 0.9999. FMA: each step of the two paths rounds by at most 1.5 ulp of
+# |x| < 2^-6 (the attractor b / (1 - a) = 0.01), so each of the 8 chains
+# is off by at most 1.5 * 2^-30 / (1 - a) = 1.4e-5 against a sum of
+# 0.08: 1.4e-3. tanh: a step rounds by at most ~5 ulp relative (the
+# multiply and tanhf's 2 ulp on each path), summed over 8 192 steps with no
+# damping: 2.5e-3. An element read or written wrong is off by O(1).
+CEILING_FULL_TOL = {"fma": 2e-3, "tanh": 5e-3}
+
+
+def _planted(params: dict) -> dict:
+    """The controls' planted fault: the NN's output weights 0.1% off."""
+    return dict(params, out=dict(params["out"],
+                                 w=params["out"]["w"] * 1.001))
+
+
+def _bench_profile(bench, arch: str) -> dict:
+    """torch.profiler over a short run of the bench's measurement of
+    ``arch``: the device time by kernel."""
+    _, _, by_kernel = profile_device(
+        lambda: bench.measure_ours(BENCH_N, BENCH_PROFILE_STEPS, "float32",
+                                   arch, repeats=1),
+        1, f"bench measurement of {arch} ({2 * BENCH_PROFILE_STEPS} steps "
+           "and its setup)")
+    return by_kernel
+
+
+def entry_points_phase(dev, card: str) -> None:
+    """Phase 22 (slice 12): cli bench, the graft entry and its dry run,
+    and the benchmarks/ scripts, each through its own entry point, the
+    launch counts set to 0 just before each and read just after."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import (
+        bench, graft_entry)
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import (
+        energy, plots)
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.benchmarks import (
+        dispersion, pallas_ab, pallas_train_ab, ref_recipe_score, scaling)
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import ceiling
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_residual as k3
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    mods = (ks, kt, k3, ceiling)
+    cpu = torch.device("cpu")
+
+    def launched(label, counts, want):
+        """Exact launch counts where ``want`` gives a number, at least one
+        where it gives True."""
+        bad = {k: counts[k] for k, v in want.items()
+               if (counts[k] < 1 if v is True else counts[k] != v)}
+        print(f"  {label}: launches {counts}")
+        if bad:
+            raise AssertionError(f"{label}: launches {bad}, want "
+                                 f"{ {k: want[k] for k in bad} }")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    try:
+        phase(f"22a cli bench at its defaults (both families, float32, "
+              f"{BENCH_N} points, {BENCH_STEPS} steps, best of 3; {card})")
+        _reset(*mods)
+        t0 = time.time()
+        line, _ = run_cli(["bench"])
+        wall = time.time() - t0
+        steps = 4 * BENCH_STEPS            # the warm-up and 3 timed chunks
+        launched("cli bench", _all_launches(*mods), {
+            "train_fwd": steps, "train_bwd": steps, "separable_fwd": steps,
+            "separable_bwd": steps, "train_bwd_pg": 0,
+            "separable_bwd_pg": 0, "residual_fwd": 0, "ceiling_fma": 4,
+            "ceiling_tanh": 4})
+        sep = line["separable"]
+        rates = (line["value"], sep["points_per_sec"])
+        if not (all(np.isfinite(rates)) and min(rates) > 0):
+            raise AssertionError(f"cli bench: points/s {rates}")
+        if not (0 < line["peak_fraction"] and 0 < sep["peak_fraction"]):
+            raise AssertionError(f"cli bench: peak_fraction "
+                                 f"{line['peak_fraction']}, "
+                                 f"{sep['peak_fraction']}")
+        if not line["ceiling_fma_gflops"] <= 1.05 * bench.H100_FP32_PEAK / 1e9:
+            raise AssertionError(f"FMA ceiling {line['ceiling_fma_gflops']} "
+                                 "GFLOP/s above 105% of 67 TFLOP/s")
+        print(f"cli bench: {wall:.1f} s; symmetric (K2) {line['value']:.1f} "
+              f"points/s, separable (K1) {sep['points_per_sec']:.1f} "
+              f"points/s; peak_fraction {line['peak_fraction']} / "
+              f"{sep['peak_fraction']} of the measured FMA ceiling "
+              f"{line['ceiling_fma_gflops']} GFLOP/s ({card})")
+        for arch, want in (("symmetric", "train_"),
+                           ("separable", "separable_")):
+            rows = [k for k in _bench_profile(bench, arch)
+                    if want in k and "GateSource" not in k]
+            print(f"  profiler kernel rows of {arch}: {rows}")
+            if len(rows) < 2:
+                raise AssertionError(f"the profile of the {arch} bench "
+                                     f"shows no forward and backward "
+                                     f"{want} kernels: {rows}")
+        # the ceiling chains against their plain versions (a small size)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x0 = torch.rand(4096, generator=gen, device=dev)
+        errs = {}
+        for which in ("fma", "tanh"):
+            got = ceiling.chain_cuda(x0, 4, 0.9999, 1e-6, which)
+            want = ceiling.chain_plain(x0, 4, 0.9999, 1e-6, which)
+            errs[which] = check_close(f"ceiling {which}", got, want, 1e-5,
+                                      1e-6)[0]
+        # ... and at the shape the bench line measures them
+        sizes = bench.CEILING_SIZES["cuda"]
+        x0 = torch.rand(sizes["n"], generator=gen, device=dev)
+        errs_full = {}
+        for which in ("fma", "tanh"):
+            iters = sizes[f"iters_{which}"]
+            got = ceiling.chain_cuda(x0, iters, 0.9999, 1e-6, which)
+            want = ceiling.chain_plain(x0, iters, 0.9999, 1e-6, which)
+            errs_full[which] = check_normwise(
+                f"ceiling {which} at n {sizes['n']}, {iters} iterations",
+                got, want, CEILING_FULL_TOL[which])[1]
+        del x0, got, want
+        ceil = bench.measure_ceilings("cuda")
+        print("ceiling: " + json.dumps({
+            "source": f"{PKG}/csrc/ceiling.cu", "card": card,
+            "fma_tflops": ceil["fma_flops_per_sec"] / 1e12,
+            "tanh_tops": ceil["tanh_ops_per_sec"] / 1e12,
+            "of_the_fp32_peak": ceil["fma_flops_per_sec"]
+            / bench.H100_FP32_PEAK,
+            "max_abs_err_vs_plain": errs,
+            "normwise_err_vs_plain_at_the_bench_shape": errs_full,
+            "sizes": {k: ceil[k] for k in ("n", "iters_fma", "iters_tanh",
+                                           "chains", "unroll_fma",
+                                           "unroll_tanh")}}), flush=True)
+
+        phase("22b graft_entry.entry() on the card against the host CPU "
+              "(separable, float32, 8 192 points)")
+        fn, (params, batch) = graft_entry.entry()
+        _reset(*mods)
+        got = [float(v) for v in fn(params, batch)]
+        launched("entry()", _all_launches(*mods), {
+            "separable_fwd": 1, "separable_bwd": 0, "train_fwd": 0})
+        want = [float(v) for v in fn(
+            ansatz.as_params(params, torch.float32, cpu),
+            type(batch)(*(a.cpu() for a in batch)))]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        print(f"entry(): (l, l_pde, l_bc) {got} on the card, {want} on the "
+              f"host; relative {rel}")
+        if not max(rel) <= 1e-4:
+            raise AssertionError(f"entry(): card against host {rel}")
+
+        phase("22c dryrun_multichip(1) (NCCL at world size 1)")
+        _reset(*mods)
+        d = graft_entry.dryrun_multichip(1)
+        print(f"dryrun_multichip(1): {d}")
+        launched("dryrun_multichip(1)", _all_launches(*mods), {
+            "train_fwd": True, "train_bwd": True, "separable_fwd": True,
+            "separable_bwd": True})
+
+        phase("22d benchmarks pallas_ab and pallas_train_ab (both models) "
+              "at their defaults")
+        _reset(*mods)
+        rep = pallas_ab.main()
+        launched("pallas_ab", _all_launches(*mods), {
+            "residual_fwd": 20 * 21 + 1, "train_fwd": 0})
+        if not rep["max_abs_diff"] <= pallas_ab.DIFF_BOUND:
+            raise AssertionError(f"pallas_ab: {rep['max_abs_diff']}")
+        # the control: the same slice through the fwdlap pass with the
+        # planted fault, against K3; it must read above the bound
+        cfg_ab, p_ab, *pts = pallas_ab.inputs(rep["n"], dev)
+        pts = [a[:AB_CHECK_N] for a in pts]
+        with torch.no_grad():
+            want = k3.psi_lap_pallas(p_ab, cfg_ab.model, *pts)
+            s, _ = ansatz.psi_fwdlap(_planted(p_ab), cfg_ab.model, *pts)
+        control = max(float((want[0] - s.v[..., 0]).abs().max()),
+                      float((want[1] - s.l[..., 0]).abs().max()))
+        print(f"pallas_ab: max_abs_diff {rep['max_abs_diff']:.3e}, bound "
+              f"{pallas_ab.DIFF_BOUND}, planted fault {control:.3e} ({card})")
+        if not control > pallas_ab.DIFF_BOUND:
+            raise AssertionError(f"pallas_ab: the planted fault reads "
+                                 f"{control:.3e}, within the bound")
+        for model in ("flagship", "parity"):
+            _reset(*mods)
+            out = pallas_train_ab.main(model=model)
+            launched(f"pallas_train_ab --model {model}", _all_launches(*mods),
+                     {"train_fwd": 2 * PALLAS_TRAIN_AB_STEPS,
+                      "train_bwd": 2 * PALLAS_TRAIN_AB_STEPS,
+                      "separable_fwd": 0, "residual_fwd": 0})
+            if not out["loss_rel_dev"] <= pallas_train_ab.LOSS_REL_BOUND:
+                raise AssertionError(f"pallas_train_ab: {out}")
+
+        def planted_loss(params, *args, **kw):
+            return pallas_train_ab.fwdlap_loss(_planted(params), *args, **kw)
+
+        class Planted(pallas_train_ab.FwdlapTrainer):
+            loss = staticmethod(planted_loss)
+
+        sound = pallas_train_ab.FwdlapTrainer
+        pallas_train_ab.FwdlapTrainer = Planted
+        try:
+            control = pallas_train_ab.main(model="flagship")["loss_rel_dev"]
+        finally:
+            pallas_train_ab.FwdlapTrainer = sound
+        print(f"pallas_train_ab --model flagship: bound "
+              f"{pallas_train_ab.LOSS_REL_BOUND}, planted fault in the "
+              f"fwdlap side {control:.3e} ({card})")
+        if not control > pallas_train_ab.LOSS_REL_BOUND:
+            raise AssertionError(f"pallas_train_ab: the planted fault reads "
+                                 f"{control:.3e}, within the bound")
+
+        phase(f"22e benchmarks scaling at its defaults on one card ({card})")
+        _reset(*mods)
+        out = scaling.main()
+        launched("scaling", _all_launches(*mods), {
+            "train_fwd": 4 * SCALING_STEPS, "train_bwd": 4 * SCALING_STEPS,
+            "residual_fwd": True})
+        if [r["devices"] for r in out["rows"]] != [1] or not np.isfinite(
+                out["quadrature"]["E_int"]):
+            raise AssertionError(f"scaling: {out}")
+
+        phase(f"22f benchmarks dispersion at full width (n_xi 40, n_eta 24, "
+              f"300 steps, float64) at R = {DISPERSION_R}")
+        _reset(*mods)
+        t0 = time.time()
+        try:
+            dispersion.main(r_values=DISPERSION_R, out_dir=work)
+        except plots.MatplotlibMissing:
+            if plots.have_matplotlib():
+                raise
+            print("  (no matplotlib on this host: the figure is not drawn; "
+                  "the pickle was written before it)")
+        wall = time.time() - t0
+        launched("dispersion", _all_launches(*mods), {
+            "separable_fwd": True, "separable_bwd": True, "train_fwd": True,
+            "train_bwd": True})
+        with open(os.path.join(work, "dispersion.pkl"), "rb") as f:
+            sweeps = pickle.load(f)
+        for label, out in sweeps.items():
+            err = 1e3 * (out["E_net"] - energy.exact_energy_ode(out["R"]))
+            print(f"  {label}: E - exact (mHa) "
+                  + ", ".join(f"R={r:g} {e:+.6f}"
+                              for r, e in zip(out["R"], err)))
+            hi = EINT_BAND[1] if label.startswith("separable") else np.inf
+            if not np.all((err >= EINT_BAND[0]) & (err <= hi)):
+                raise AssertionError(f"dispersion {label}: {err}")
+        print(f"dispersion: {wall:.1f} s for {2 * len(DISPERSION_R)} "
+              f"polished R ({wall / (2 * len(DISPERSION_R)):.2f} s an R; "
+              f"{card})")
+
+        phase("22g benchmarks ref_recipe_score on phase 15's cut make "
+              "ref-recipe checkpoint, on the card and on the host CPU")
+        root = os.path.join(KEEP_DIR, "ref_recipe")
+        _reset(*mods)
+        rows = ref_recipe_score.main(root=root)
+        launched("ref_recipe_score", _all_launches(*mods),
+                 {"residual_fwd": 39, "train_fwd": 0, "separable_fwd": 0})
+        host = ref_recipe_score.main(root=root, device="cpu")
+        if len(rows) != 1 or len(host) != 1:
+            raise AssertionError(f"ref_recipe_score: {rows}, {host}")
+        diff = {k: abs(rows[0][k] - host[0][k]) for k in rows[0]
+                if k != "run"}
+        print(f"ref_recipe_score, card against host: max |diff| "
+              f"{max(diff.values()):.3e} mHa ({diff})")
+        if not max(diff.values()) <= 1e-9:
+            raise AssertionError(f"ref_recipe_score: {diff}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(KEEP_DIR, ignore_errors=True)
+
+
 # python3 chip_smoke.py --mesh N: the --mesh paths across N cards (NCCL)
 # against one card, at make train's batch and the flagship grid (n_r 40
 # splits over 2 and 4 ranks)
@@ -3408,6 +3737,20 @@ def multi_device_phase(n: int, card: str, device: str = "cuda") -> None:
             "--epochs", str(MULTI_SWEEP_EPOCHS), "--r-values", *SWEEP_R],
             lambda out: family(out))
         errors["sweep best losses and E heads"] = _rel_err(many, one)
+
+        phase(f"M5 dryrun_multichip({n}) (the sharded step and polish "
+              "against one device, the JAX dry run's tolerances)")
+        from pinn_for_quantum_wavefunction_surfaces_tpu_torch import \
+            graft_entry
+        print(f"  {graft_entry.dryrun_multichip(n, device=device)}")
+
+        phase(f"M6 benchmarks scaling at its defaults on 1 to {n} devices "
+              f"({card})")
+        from pinn_for_quantum_wavefunction_surfaces_tpu_torch.benchmarks \
+            import scaling
+        out = scaling.main(device=device)
+        if max(r["devices"] for r in out["rows"]) != n:
+            raise AssertionError(f"scaling rows: {out['rows']}")
         for k, v in errors.items():
             print(f"  {k}: max relative difference {v:.3e}")
         bad = {k: v for k, v in errors.items() if not v <= 1e-8}
@@ -3497,12 +3840,17 @@ def main() -> int:
     phase("2 build")
     t0 = time.time()
     _build.build()
-    print(f"built {', '.join(_build.KERNELS)} in {time.time() - t0:.1f} s; "
+    print(f"built {', '.join(_build.SOURCES)} in {time.time() - t0:.1f} s; "
           "each done after " + ", ".join(
               f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()))
     for name in _build.KERNELS:
         for line in ptxas_summary(_build.log_path(name).read_text()):
             print(f"  {name} {line}")
+    # the bench line's ceiling chains (csrc/ceiling.cu), no TPU kernel's
+    for line in _build.log_path("ceiling").read_text().splitlines():
+        if "Compiling entry" in line or "registers" in line or \
+                "spill" in line:
+            print(f"  ceiling {line.strip()}")
     # K3: no instantiation at H <= 16 may spill
     k3_ptxas = ptxas_entries(_build.log_path("residual_fwd").read_text())
     if len(k3_ptxas) != 2 * len(k3.SUPPORTED_HIDDEN):
@@ -3738,6 +4086,7 @@ def main() -> int:
     family_phase(dev, card)
     analysis_phase(dev, card)
     mesh_sweep_phase(dev, card)
+    entry_points_phase(dev, card)
     phase()
 
     t64 = times["float64"]

@@ -25,6 +25,7 @@
         --r-values 0.5 1 2 4 --polish 300 --arch separable --dtype float64
     python -m pinn_for_quantum_wavefunction_surfaces_tpu_torch.cli train \\
         --mesh 2 --device cpu --epochs 100 --n-train 2048
+    python -m pinn_for_quantum_wavefunction_surfaces_tpu_torch.cli bench
 
 ``train`` and ``finetune`` run the residual PINN trainer of every family
 (``--arch symmetric|minimal|separable``, ``--r-input``; stage 1, then the
@@ -48,8 +49,10 @@ residual family together, or ``--polish`` the per-R spheroidal polish).
 ``train``, ``finetune``, ``variational --spheroidal`` and ``sweep`` take
 ``--mesh N``: N ranks, one a device (NCCL on CUDA, gloo on the CPU),
 spawned from this one command line (or the ranks of a torchrun job of that
-size). Drawing needs matplotlib. Of the JAX package's subcommands only
-``bench`` is not ported.
+size). ``bench`` prints the bench line: the training step's points/s of
+both families on the card, against its measured float32 ceiling (the
+module ``bench``). Drawing needs matplotlib. Every subcommand of the JAX
+package's CLI is ported.
 """
 
 from __future__ import annotations
@@ -701,6 +704,12 @@ def cmd_sweep(args) -> None:
                       "E_net": [round(float(e), 6) for e in out["E_net"]]}))
 
 
+def cmd_bench(args) -> None:
+    """The bench line (one JSON line; module ``bench``)."""
+    from . import bench
+    bench.run(args)
+
+
 def _add_common(p):
     p.add_argument("--device", default="cuda",
                    help="cuda (the Hopper kernels; raises without CUDA) or "
@@ -1027,6 +1036,13 @@ def main(argv=None) -> None:
                    help="oracle-table R domain upper edge (excited wells "
                         "sit near D ~ 8-18: extend past 4 for them)")
     p.set_defaults(fn=cmd_vibrations)
+
+    from . import bench
+    p = sub.add_parser("bench", help="throughput microbenchmark: the "
+                                     "training step's points/s (one JSON "
+                                     "line)")
+    bench.add_arguments(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     check = getattr(args, "check", None)

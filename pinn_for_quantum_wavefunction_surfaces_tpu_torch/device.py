@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+DEVICE_HELP = ("cuda (the Hopper kernels; raises without CUDA) or cpu (the "
+               "plain PyTorch path)")
 
 
 def resolve_device(device="cuda") -> torch.device:

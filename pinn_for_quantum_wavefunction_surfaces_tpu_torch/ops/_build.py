@@ -6,8 +6,11 @@ with ``ctypes``. The library's file name carries a hash of the sources it
 was built from, so an edited source is rebuilt and a stale library is never
 loaded. Libraries go to ``build/kernels/`` at the root of the checkout.
 
-    build(KERNELS)                 # one nvcc per source, all in parallel
+    build()                        # one nvcc per source, all in parallel
     lib = load("separable_fwd")    # builds if needed
+
+``KERNELS`` are the ports of the TPU kernels; ``MEASUREMENT`` the bench
+line's ceiling chains (``csrc/ceiling.cu``), which replace no TPU kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("separable_fwd", "separable_bwd", "train_fwd", "train_bwd",
            "residual_fwd")
+MEASUREMENT = ("ceiling",)
+SOURCES = KERNELS + MEASUREMENT
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds from the start of the last build() to the end of each of its nvcc
@@ -64,7 +69,7 @@ def log_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.log"
 
 
-def build(names=KERNELS) -> list[Path]:
+def build(names=SOURCES) -> list[Path]:
     """Build every named kernel whose library is missing: one nvcc process
     per source, all started together. Raises with nvcc's output if one
     fails."""

@@ -181,7 +181,12 @@ class Trainer:
     (``Mesh.sum``, differentiable), each rank differentiates its 1/N share
     of the global loss, and the gradients are summed: every rank then
     applies the same update to the same params, and tracks the best on the
-    same global loss."""
+    same global loss.
+
+    The loss is ``loss`` (``losses.loss_fn``: the kernel route on CUDA);
+    a subclass may put another function of the same signature there."""
+
+    loss = staticmethod(loss_fn)
 
     def __init__(self, cfg: Config, params: Optional[dict] = None,
                  opt_state=None, start_step: int = 0,
@@ -227,8 +232,8 @@ class Trainer:
                 self.step < int(t.resample_frac * t.epochs):
             self.batch = sample(self.generator)
         self.opt.zero_grad(set_to_none=True)
-        l_tot, aux = loss_fn(self.layout.tree(self.flat), cfg, self.batch,
-                             allreduce=None if m is None else m.sum)
+        l_tot, aux = self.loss(self.layout.tree(self.flat), cfg, self.batch,
+                               allreduce=None if m is None else m.sum)
         e_last = aux.e_last
         if m is None:
             l_tot.backward()

@@ -42,9 +42,17 @@ def loss_fn(params: dict, cfg: Config, batch: Batch, lam_pde: float = 1.0,
             lam_bc: float = 1.0, allreduce=None):
     """(total loss, LossAux) for one collocation batch. ``allreduce`` is
     applied to every batch sum and count (identity by default)."""
-    ar = (lambda v: v) if allreduce is None else allreduce
     psi_v, lap_v, e = psi_lap(params, cfg.model, batch.x, batch.y, batch.z,
                               batch.r)
+    return _assemble(params, cfg, batch, psi_v, lap_v, e, lam_pde, lam_bc,
+                     allreduce)
+
+
+def _assemble(params: dict, cfg: Config, batch: Batch, psi_v, lap_v, e,
+              lam_pde: float = 1.0, lam_bc: float = 1.0, allreduce=None):
+    """``loss_fn``'s (total loss, LossAux) from psi, lap psi and E of the
+    batch's points, however they were computed."""
+    ar = (lambda v: v) if allreduce is None else allreduce
     res = operators.RESIDUALS[cfg.convention](
         cfg.model, batch.x, batch.y, batch.z, batch.r, psi_v, lap_v, e)
     # global point count, a tensor so that it can be all-reduced

@@ -210,3 +210,15 @@ def sweep_job(mesh, inp: dict) -> dict:
     except ValueError as exc:
         out["uneven"] = str(exc)
     return out
+
+
+def entry_points_job(mesh, inp: dict) -> dict:
+    """tests/test_torch_entry_points.py's multi-rank cases on this rank:
+    the dry run (its own checks raise on a mismatch) and a row of the
+    scaling benchmark with its sharded quadrature."""
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import graft_entry
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.benchmarks import \
+        scaling
+    torch.set_num_threads(1)
+    return {"dryrun": graft_entry.dryrun_multichip(mesh.size, device="cpu"),
+            "scaling": scaling._row(mesh, **inp["scaling"])}
