@@ -7,13 +7,13 @@ Phases (any failure exits non-zero; none is caught and passed over):
  1. header: the card's name and power limit, torch and CUDA versions,
     whether matplotlib is installed;
  2. build: the five CUDA kernels from csrc/ (K1 and K2, forward and
-    backward, and K3) and the bench line's ceiling chains
-    (csrc/ceiling.cu), one nvcc per source, all in parallel; ptxas
-    registers and spills of every instantiation (the backward kernels'
-    point-gradient ones marked PG), and no K3 instantiation at H <= 16 may
-    spill; the shared memory per block and resident blocks per SM of K1
-    and K2 at every width in both types, PG too, and of K3 at every width
-    and gate width 1, 10 and 256;
+    backward, and K3, each in float64, float32 and bfloat16) and the bench
+    line's ceiling chains (csrc/ceiling.cu), one nvcc per source, all in
+    parallel; ptxas registers and spills of every instantiation (the
+    backward kernels' point-gradient ones marked PG), and no K3
+    instantiation at H <= 16 may spill; the shared memory per block and
+    resident blocks per SM of K1 and K2 at every width in the three types,
+    PG too, and of K3 at every width and gate width 1, 10 and 256;
  K1, the separable-spheroidal variational trainer (make flagship):
  3. kernel check at the flagship training batch (164 502 points of the
     dual spheroidal grid, artifacts/flagship_separable.npz weights), in
@@ -220,6 +220,31 @@ Phases (any failure exits non-zero; none is caught and passed over):
     imports; g: benchmarks ref_recipe_score on phase 15's cut make
     ref-recipe checkpoint (39 K3 launches), its numbers equal to the same
     script's on the host CPU to 1e-9 mHa.
+ bfloat16 (slice 13), each entry point with the launch counts set to 0
+ just before it and read just after:
+ 23. a: the bfloat16 builds (storage bfloat16, float32 arithmetic, each
+    output rounded once) of K1 at the flagship batch
+    (flagship_separable.npz), K2 at make train's batch (flagship.npz and
+    ungerade_2psu.npz) and K3 at 1 048 576 and 1 100 points with R per
+    point (phase 13's weights), backward with and without point gradients:
+    psi and lap psi within 4e-3 normwise of the plain version run in
+    float32 on the same bfloat16-rounded inputs, within 3e-2 of the plain
+    path in bfloat16 and 1.5e-2 of float64 on those inputs; every
+    cotangent within 8e-3 of the float32 reference; two backward launches
+    bit for bit; b: CUDA-event times of each bfloat16 build beside the
+    float32 build and the plain version in bfloat16, with the bound (the
+    float32 operation count at 67 TFLOP/s, half float32's bytes); c: cli
+    train --dtype bfloat16 at make train's configuration (300 steps, one
+    bfloat16 K2-fwd and K2-bwd a step, the loss finite and lower; steps/s
+    beside the same float32 run), cli finetune of flagship.npz (no K2-bwd),
+    --mesh 1 bit for bit against one device, cli train --arch separable
+    (K1), the Monte-Carlo trainer from both flagship artifacts at 1 048 576
+    points a step, a cut --spheroidal polish, the point gradients through
+    both entry points, cli energy --dtype bfloat16 equal to --dtype float32
+    bit for bit, and cli evaluate --dtype bfloat16 of
+    flagship_separable.npz (K1-fwd) and of phase 15's checkpoint (K3), in
+    processes of their own (the E-head fit runs on the host CPU), one
+    launch a quotient.
 
 ``python3 chip_smoke.py --mesh N`` (a host with N >= 2 cards) runs phases
 1 and 2, then the --mesh N paths across the N cards (NCCL) against the same
@@ -227,7 +252,8 @@ runs on one card: cli train (make train's model in float64, 20 steps), the
 polish's Adam warmup at the flagship grid and then its sharded L-BFGS,
 rayleigh_quotient_sharded, and cli sweep's family of 4 models; each
 within 1e-8 (relative) of one card; then dryrun_multichip(N) and the
-scaling benchmark on 1 to N cards.
+scaling benchmark on 1 to N cards; then cli train --dtype bfloat16 --mesh
+N (its first step's loss within 2e-2 of one card's, finite and falling).
 
 Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
 the card line, and last
@@ -256,12 +282,14 @@ PKG = "pinn_for_quantum_wavefunction_surfaces_tpu_torch"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): 67
 # TFLOP/s FP64 on the tensor cores, which only the H x H products can use,
-# and 34 TFLOP/s FP64 outside them; 67 TFLOP/s FP32 outside the tensor
-# cores; 3.35 TB/s of HBM3. The tensor cores and the FP64 units are separate
-# pipes that can run side by side, so a float64 call takes at least the
-# longer of its two shares; with the larger rate for each share, the bound
-# below is a true lower bound.
+# and 34 TFLOP/s FP64 outside them; 989 TFLOP/s BF16 on the tensor cores
+# (again only for the products); 67 TFLOP/s FP32 outside the tensor cores;
+# 3.35 TB/s of HBM3. The tensor cores and the other units are separate
+# pipes that can run side by side, so a float64 or bfloat16 call takes at
+# least the longer of its two shares; with the larger rate for each share,
+# the bound below is a true lower bound.
 PEAK_FP64_PRODUCTS, PEAK_FP64_OTHER, PEAK_FP32 = 67e12, 34e12, 67e12
+PEAK_BF16_PRODUCTS = 989e12
 PEAK_BYTES = 3.35e12
 # the H^2 coefficient of each kernel's operation count a point: its H x H
 # products (multiply-adds counted as 2 operations), all else is O(H)
@@ -512,13 +540,13 @@ def bound_ms(n: int, h: int, dtype: str, which: str, kernel: str = "K1",
              hg: int = 10):
     """(least time in ms, "bytes" or "operations") of one call: each input
     read once and each output written once at the memory rate, against the
-    operations at the peak rates of their type. In float64 the H x H
-    products (PRODUCT_H2 H^2 a point) run at the tensor-core rate and the
-    rest at the rate outside the tensor cores, the two side by side (the
-    longer share bounds the call); float32 counts every operation at its
-    one rate. which: "fwd", "bwd", or
-    "bwd_pg" (the backward with point gradients: dx, dy, dz, dr out)."""
-    size = 8 if dtype == "float64" else 4
+    operations at the peak rates of their type. In float64 and bfloat16
+    the H x H products (PRODUCT_H2 H^2 a point) run at the type's
+    tensor-core rate and the rest at the rate outside the tensor cores
+    (FP32's for bfloat16), the two side by side (the longer share bounds
+    the call); float32 counts every operation at its one rate. which:
+    "fwd", "bwd", or "bwd_pg" (the backward with point gradients: dx, dy, dz, dr out)."""
+    size = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
     if kernel == "K3":
         wsize = h * h + 5 * h + 1 + 3 * hg + 1
         nbytes = size * (6 * n + wsize)            # x y z r -> psi lap
@@ -546,12 +574,13 @@ def bound_ms(n: int, h: int, dtype: str, which: str, kernel: str = "K1",
             nbytes = size * (16 * n + 2 * wsize)   # + dx dy dz dr
             ops = n * train_bwd_pg_ops(h)
     t_bytes = nbytes / PEAK_BYTES
-    if dtype == "float64":
-        products = n * PRODUCT_H2[(kernel, which)] * h * h
-        t_ops = max(products / PEAK_FP64_PRODUCTS,
-                    (ops - products) / PEAK_FP64_OTHER)
-    else:
+    if dtype == "float32":
         t_ops = ops / PEAK_FP32
+    else:
+        products = n * PRODUCT_H2[(kernel, which)] * h * h
+        on_tc, off_tc = {"float64": (PEAK_FP64_PRODUCTS, PEAK_FP64_OTHER),
+                         "bfloat16": (PEAK_BF16_PRODUCTS, PEAK_FP32)}[dtype]
+        t_ops = max(products / on_tc, (ops - products) / off_tc)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -599,10 +628,12 @@ def ptxas_entries(log: str) -> list[dict]:
     out, inst, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'.*_kernelI([df])Li(\d+)E(?:Lb([01])E)?", line)
+                      r"'.*_kernelI(d|f|13__nv_bfloat16)Li(\d+)E"
+                      r"(?:Lb([01])E)?", line)
         if m:
-            inst = dict(dtype="float64" if m.group(1) == "d" else "float32",
-                        h=int(m.group(2)), pg=m.group(3) == "1")
+            inst = dict(dtype={"d": "float64", "f": "float32"}.get(
+                m.group(1), "bfloat16"), h=int(m.group(2)),
+                pg=m.group(3) == "1")
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -1398,9 +1429,8 @@ def k3_phases(dev, card: str) -> dict:
             "int_max_err_mHa <= 0.01": res["int_max_err_mHa"] <= 0.01,
             "tab_mean_err_mHa <= 0.001": res["tab_mean_err_mHa"] <= 0.001,
             "fit_rms_mHa <= 0.01": res["fit_rms_mHa"] <= 0.01,
-            "one K1-fwd launch a quotient": ev_counts == {
-                "separable_fwd": n_quot, "separable_bwd": 0,
-                "separable_bwd_pg": 0},
+            "one K1-fwd launch a quotient": _nonzero(ev_counts) == {
+                "separable_fwd": n_quot},
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
@@ -1569,9 +1599,9 @@ def pg_phase(dev, card: str) -> list[dict]:
     print(f"the path (autograd in x, y, z, r through the entry points, "
           f"{len(cases)} cases) in {wall:.3f} s; launches {counts}")
     n_k1 = sum(c[0] == "K1" for c in cases)
-    if counts != {"separable_fwd": n_k1, "separable_bwd": 0,
-                  "separable_bwd_pg": n_k1, "train_fwd": len(cases) - n_k1,
-                  "train_bwd": 0, "train_bwd_pg": len(cases) - n_k1}:
+    if _nonzero(counts) != {"separable_fwd": n_k1, "separable_bwd_pg": n_k1,
+                            "train_fwd": len(cases) - n_k1,
+                            "train_bwd_pg": len(cases) - n_k1}:
         raise AssertionError(f"the point-gradient path's launches: {counts}")
     for label, gs in grads.items():
         if not all(bool(torch.isfinite(g).all()) for g in gs):
@@ -1919,8 +1949,7 @@ def excited_phase(dev, card: str) -> None:
               f"{run['meta']}")
         if not (np.isfinite(loss1) and loss1 < loss0):
             raise AssertionError(f"2ssg loss: {loss0} -> {loss1}")
-        if run["counts"] != {"separable_fwd": 2, "separable_bwd": 0,
-                             "separable_bwd_pg": 0}:
+        if _nonzero(run["counts"]) != {"separable_fwd": 2}:
             raise AssertionError(f"2ssg K1 launches: {run['counts']}")
         if run["meta"].get("target_state") != "2ssg" or \
                 not run["res"]["deflated"]:
@@ -1975,8 +2004,7 @@ def excited_phase(dev, card: str) -> None:
             raise AssertionError(f"3ssg loss: {loss0} -> {loss1}")
         if cross > 1e-10:
             raise AssertionError(f"3ssg references: cross {cross}")
-        if run["counts"] != {"separable_fwd": 2, "separable_bwd": 0,
-                             "separable_bwd_pg": 0}:
+        if _nonzero(run["counts"]) != {"separable_fwd": 2}:
             raise AssertionError(f"3ssg K1 launches: {run['counts']}")
         if run["meta"].get("target_state") != "3ssg":
             raise AssertionError(f"3ssg meta: {run['meta']}")
@@ -2032,9 +2060,7 @@ def excited_phase(dev, card: str) -> None:
             "contam_max_frac < 1e-4": res["contam_max_frac"] < 1e-4,
             "fit_rms_mHa <= 0.01": res["fit_rms_mHa"] <= 0.01,
             # the flagship reference on the contamination grid, once
-            "one K1-fwd launch": counts == {"separable_fwd": 1,
-                                            "separable_bwd": 0,
-                                            "separable_bwd_pg": 0},
+            "one K1-fwd launch": _nonzero(counts) == {"separable_fwd": 1},
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
@@ -2089,6 +2115,12 @@ def family_models():
     return {"minimal": (k3_weights(), dict(arch="minimal")),
             "r_input": (seeded_weights(K3_SEED + 1, 3),
                         dict(inversion_symmetry=-1))}
+
+
+def _nonzero(counts: dict) -> dict:
+    """The launch counts that are not 0 (so that a check names exactly the
+    builds a run launches, whatever other builds a module counts)."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def _all_launches(*mods) -> dict:
@@ -3600,7 +3632,492 @@ def entry_points_phase(dev, card: str) -> None:
             raise AssertionError(f"ref_recipe_score: {diff}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        shutil.rmtree(KEEP_DIR, ignore_errors=True)
+
+
+# phase 23: bfloat16. A bfloat16 build stores in bfloat16 and computes in
+# float32, rounding each output once, so it is held against its plain
+# version run in float32 on the same bfloat16-rounded inputs, normwise:
+# psi and lap psi within one bfloat16 unit roundoff (2^-8 = 3.9e-3: one
+# rounding of the float32 result, float32's own error far below), the
+# cotangents within two (the float32 sums of the partials in their own
+# order, then one rounding). Beside it, psi and lap psi against the plain
+# path computing in bfloat16 itself (every op rounded: about eight units)
+# (the larger of that and the plain path's own error plus one unit) and
+# against the plain version in float64 on the same rounded inputs (about
+# four units). The distance to float64 on the unrounded inputs is
+# printed, not held: rounding a point near a nucleus to bfloat16 moves
+# lap psi there by 7% of its largest value (K1 at the flagship batch on an
+# H100; PERF.md), which no build can undo. The cotangents' distance
+# to float64 is printed too.
+BF16_OUT_TOL, BF16_COT_TOL = 4e-3, 8e-3
+BF16_PLAIN_TOL, BF16_F64_TOL = 3e-2, 1.5e-2
+# 23c's cut runs: make train's and the separable trainer's steps, the
+# fine-tune's, the Monte-Carlo trainer's (1 048 576 points a step), the
+# polish's Adam and L-BFGS steps at the flagship grid, and --mesh 1's
+BF16_TRAIN_STEPS, BF16_FT_STEPS, BF16_SEP_STEPS = 300, 100, 100
+BF16_MC_STEPS, BF16_ADAM_STEPS, BF16_LBFGS_STEPS = 20, 20, 5
+BF16_MESH_STEPS = 20
+# the quotients of `cli evaluate --table-knots 0` at the default R domain:
+# 77 distillation targets (R 0.2..4 by 0.05) and the 39-R surface
+BF16_EVAL_QUOTIENTS = 77 + 39
+# cli evaluate in a process of its own, printing its launch counts last
+# (the E-head fit holds a host core over a minute in bfloat16: it starts
+# after 23b's times and 23c's rates, and runs beside the last checks)
+BF16_EVAL_DRIVER = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from pinn_for_quantum_wavefunction_surfaces_tpu_torch import cli\n"
+    "from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import "
+    "pallas_residual, pallas_separable, pallas_train\n"
+    "cli.main(sys.argv[2:])\n"
+    "print(json.dumps({k: v for m in (pallas_separable, pallas_train, "
+    "pallas_residual) for k, v in m.launches.items()}))\n")
+
+
+def bf16_kernel_check(label, fwd, bwd, plain, vjp, ws64, args64, kw, gen,
+                      names, pg=True):
+    """One bfloat16 build (fwd; and bwd, with and without point gradients,
+    unless None) against its plain versions: see BF16_OUT_TOL. Returns
+    (worst abs error against the float32 reference, per output kind)."""
+    import torch
+    bf = torch.bfloat16
+    wsb = [w.to(bf) for w in ws64]
+    argsb = [a.to(bf) for a in args64]
+    ws32, args32 = [w.float() for w in wsb], [a.float() for a in argsb]
+    psi, lap = fwd(wsb, *argsb, **kw)
+    ws_r64 = [w.double() for w in wsb]
+    args_r64 = [a.double() for a in argsb]
+    with torch.no_grad():
+        ref = plain(ws32, *args32, **kw)
+        in_bf16 = plain(wsb, *argsb, **kw)
+        f64 = plain(ws_r64, *args_r64, **kw)
+        unrounded = plain(ws64, *args64, **kw)
+    torch.cuda.synchronize()
+    if psi.dtype != bf:
+        raise AssertionError(f"{label}: the build returned {psi.dtype}")
+    err = {"fwd": 0.0}
+    line = []
+    for nm, got, r, b, t, u in zip(("psi", "lap"), (psi, lap), ref, in_bf16,
+                                   f64, unrounded):
+        e = check_normwise(f"{label} {nm} (float32 reference)", got, r,
+                           BF16_OUT_TOL)
+        # the plain path in bfloat16 is itself up to 4.5e-2 off the float32
+        # reference (K3's ragged batch on an H100; PERF.md): the build must
+        # then be no farther from it than that error and one rounding
+        own = float((b.double() - r.double()).abs().max()
+                    / r.double().abs().max())
+        e_b = check_normwise(f"{label} {nm} (plain path in bfloat16)", got,
+                             b, max(BF16_PLAIN_TOL, own + BF16_OUT_TOL))
+        e_t = check_normwise(f"{label} {nm} (float64)", got, t,
+                             BF16_F64_TOL)
+        far = float((got.double() - u).abs().max() / u.abs().max())
+        err["fwd"] = max(err["fwd"], e[0])
+        line.append(f"{nm} {e[1]:.3e} (bf16 path {e_b[1]:.3e}, its own "
+                    f"{own:.3e}; float64 {e_t[1]:.3e}, unrounded inputs "
+                    f"{far:.3e})")
+    print(f"{label} fwd: " + "; ".join(line))
+    if bwd is None:
+        return err
+    n = args64[-1].numel()
+    dpsi, dlap = (torch.randn(n, generator=gen, device=args64[0].device,
+                              dtype=torch.float64).to(bf) for _ in range(2))
+    for point_grads in ((False, True) if pg else (False,)):
+        tag = "bwd_pg" if point_grads else "bwd"
+        nms = names + (["x", "y", "z", "r"] if point_grads else [])
+
+        def flat(out):
+            return list(out[0]) + list(out[1:])
+
+        got = flat(bwd(wsb, *argsb, dpsi, dlap, point_grads=point_grads,
+                       **kw))
+        again = flat(bwd(wsb, *argsb, dpsi, dlap, point_grads=point_grads,
+                         **kw))
+        with torch.no_grad():
+            ref = flat(vjp(ws32, *args32, dpsi.float(), dlap.float(),
+                           point_grads=point_grads, **kw))
+            f64 = flat(vjp(ws_r64, *args_r64, dpsi.double(),
+                           dlap.double(), point_grads=point_grads, **kw))
+        torch.cuda.synchronize()
+        if any(u.dtype != bf for u in got):
+            raise AssertionError(f"{label} {tag}: not bfloat16 outputs")
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"{label} {tag}: two launches differ")
+        errs = [check_normwise(f"{label} {tag} {nm}", u, v, BF16_COT_TOL)
+                for nm, u, v in zip(nms, got, ref)]
+        far = max(float((u.double() - v).abs().max() / v.abs().max())
+                  for u, v in zip(got, f64))
+        err[tag] = max(e[0] for e in errs)
+        print(f"{label} {tag}: worst normwise {max(e[1] for e in errs):.3e} "
+              f"(float64: {far:.3e}, printed); two launches bitwise equal")
+    return err
+
+
+def bf16_phase(dev, card: str) -> list[dict]:
+    """Phase 23: the bfloat16 builds of K1, K2 and K3 against their plain
+    versions, their times beside the float32 builds', and every entry
+    point under --dtype bfloat16 through cli.main with its launches
+    counted. Returns the bfloat16 entries of the kernels line."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_residual as k3
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        variational
+    bf = torch.bfloat16
+    mods = (ks, kt, k3)
+    work = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    ref_ckpt = os.path.join(KEEP_DIR, "ref_recipe", f"s{REF_SEED}", "stage2",
+                            "finetune.npz")
+    sep_art = os.path.join(HERE, "artifacts", "flagship_separable.npz")
+
+    def artifact(name):
+        return _load_npz_params(os.path.join(HERE, "artifacts", name))
+
+    evals = {}
+    try:
+        phase("23a bfloat16 builds against their plain versions (K1 at the "
+              f"flagship batch, K2 at {N_TRAIN} make train points, K3 at "
+              f"{K3_N_UNIFORM} and {K3_N_RAGGED} points)")
+        gen = torch.Generator(device=dev).manual_seed(23)
+        timing = {}
+        err = {}
+        cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                            dtype="float64")
+        vb = variational.dual_grid_vbatch(cfg, N_R, N_XI, N_ETA, device=dev)
+        params = ansatz.from_jax_params(artifact("flagship_separable.npz"),
+                                        dtype="float64", device=dev)
+        rr = vb.r[:, None].expand_as(vb.x).reshape(-1)
+        with torch.no_grad():
+            a = ansatz.orbital_exponent(params, rr)
+            b = ansatz.gz_exponent(params, rr, 1, a)
+        args = (a, b, vb.x.reshape(-1), vb.y.reshape(-1), vb.z.reshape(-1),
+                rr)
+        ws = ks.kernel_weights(params, torch.float64)
+        err["K1"] = bf16_kernel_check(
+            f"K1 bfloat16 n={rr.numel()}", ks.separable_fwd_cuda,
+            ks.separable_bwd_cuda, ks.psi_lap_separable_plain,
+            ks.psi_lap_separable_vjp_plain, ws, args, {}, gen, K1_GRADS)
+        timing["K1"] = (ws, args, {}, rr.numel())
+        for label, name, p_sym in (("flagship", "flagship.npz", 1),
+                                   ("ungerade_2psu", "ungerade_2psu.npz",
+                                    -1)):
+            mcfg = config.ModelConfig(inversion_symmetry=p_sym, gz=True,
+                                      trainable_exponent=True)
+            params = ansatz.from_jax_params(artifact(name), dtype="float64",
+                                            device=dev)
+            batch = sample_batch(gen, config.Config(model=mcfg), n=N_TRAIN,
+                                 dtype=torch.float64, device=dev)
+            with torch.no_grad():
+                a = ansatz.orbital_exponent(params, batch.r)
+                b = ansatz.gz_exponent(params, batch.r, p_sym, a)
+                g = ansatz.gate(params, batch.r)
+            ws = kt.kernel_weights(params, mcfg, torch.float64)
+            args = (a, b, g, batch.x, batch.y, batch.z, batch.r)
+            e = bf16_kernel_check(
+                f"K2 bfloat16 {label} n={N_TRAIN}", kt.train_fwd_cuda,
+                kt.train_bwd_cuda, kt.psi_lap_train_plain,
+                kt.psi_lap_train_vjp_plain, ws, args, dict(p_sym=p_sym), gen,
+                K2_GRADS)
+            if label == "flagship":
+                err["K2"], timing["K2"] = e, (ws, args, dict(p_sym=1),
+                                              N_TRAIN)
+        rng = np.random.default_rng(K3_SEED + 23)
+        params = ansatz.from_jax_params(k3_weights(), dtype="float64",
+                                        device=dev)
+        for n in (K3_N_UNIFORM, K3_N_RAGGED):
+            pts = [torch.as_tensor(rng.uniform(-18.0, 18.0, n), device=dev)
+                   for _ in range(3)]
+            r = torch.as_tensor(rng.uniform(0.2, 4.0, n), device=dev)
+            ws = k3.kernel_weights(params, config.ModelConfig(),
+                                   torch.float64)
+            e = bf16_kernel_check(
+                f"K3 bfloat16 n={n} R per point", k3.residual_fwd_cuda, None,
+                k3.psi_lap_residual_plain, None, ws, (*pts, r), {}, gen, [])
+            if n == K3_N_UNIFORM:
+                err["K3"], timing["K3"] = e, (ws, (*pts, r), {}, n)
+        sys.stdout.flush()
+
+        phase(f"23b bfloat16 times (CUDA events, {card})")
+        times = {}
+        cases = (("K1", "separable", ks.separable_fwd_cuda,
+                  ks.separable_bwd_cuda, ks.psi_lap_separable_plain,
+                  ks.psi_lap_separable_vjp_plain),
+                 ("K2", "train", kt.train_fwd_cuda, kt.train_bwd_cuda,
+                  kt.psi_lap_train_plain, kt.psi_lap_train_vjp_plain),
+                 ("K3", "residual", k3.residual_fwd_cuda, None,
+                  k3.psi_lap_residual_plain, None))
+        for kern, stem, fwd, bwd, plain, vjp in cases:
+            ws, args, kw, n = timing[kern]
+            h = ws[0].shape[1]
+            by_type = {dt: ([w.to(dt) for w in ws], [t.to(dt) for t in args])
+                       for dt in (bf, torch.float32)}
+            dcot = torch.randn(n, generator=gen, device=dev,
+                               dtype=torch.float64)
+            whiches = ("fwd",) if bwd is None else ("fwd", "bwd", "bwd_pg")
+            for which in whiches:
+                t = {}
+                for dt in (bf, torch.float32):
+                    w_, a_ = by_type[dt]
+                    c = dcot.to(dt)
+                    if which == "fwd":
+                        t[dt] = cuda_ms(lambda: fwd(w_, *a_, **kw),
+                                        label=f"{kern} {which}")
+                    else:
+                        t[dt] = cuda_ms(lambda: bwd(
+                            w_, *a_, c, c, point_grads=which == "bwd_pg",
+                            **kw), label=f"{kern} {which}")
+                w_, a_ = by_type[bf]
+                c = dcot.to(bf)
+                with torch.no_grad():
+                    plain_ms = (cuda_ms(lambda: plain(w_, *a_, **kw), reps=2,
+                                        label=f"{kern} {which} plain")
+                                if which == "fwd" else cuda_ms(
+                        lambda: vjp(w_, *a_, c, c,
+                                    point_grads=which == "bwd_pg", **kw),
+                        reps=2, label=f"{kern} {which} plain"))
+                b_ms, b_by = bound_ms(n, h, "bfloat16", which, kern)
+                times[(kern, which)] = dict(ms=t[bf], plain_ms=plain_ms,
+                                            bound_ms=b_ms, bound_by=b_by)
+                print(f"{kern}-{which} n={n} H={h}: bfloat16 {t[bf]:.4f} ms, "
+                      f"float32 {t[torch.float32]:.4f} ms (ratio "
+                      f"{t[bf] / t[torch.float32]:.3f}), plain in bfloat16 "
+                      f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                      flush=True)
+
+        phase("23c the entry points under --dtype bfloat16 (cli.main; "
+              "launches counted)")
+        counts = {}
+
+        def launched(label, want):
+            got = _all_launches(*mods)
+            bad = {k: got[k] for k, v in want.items()
+                   if (got[k] < 1 if v is True else got[k] != v)}
+            others = {k: v for k, v in got.items() if v and k not in want}
+            print(f"  {label}: launches {dict((k, v) for k, v in got.items() if v)}")
+            if bad or others:
+                raise AssertionError(f"{label}: launches {bad or others}, "
+                                     f"want {want}")
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+
+        def hist(path, key="Ltot"):
+            with open(path, "rb") as f:
+                return np.asarray(pickle.load(f)[key], np.float64)
+
+        make_train = ["--gz", "--trainable-exponent", "--lr-schedule",
+                      "step", "--n-train", str(N_TRAIN)]
+        # warm-up: the first steps pay one-time host costs
+        run_cli(["train", *make_train, "--epochs", "5", "--dtype",
+                 "bfloat16", "--out", os.path.join(work, "warm")])
+        rates = {}
+        for dtype in ("float32", "bfloat16"):
+            out = os.path.join(work, f"train_{dtype}")
+            _reset(*mods)
+            res, _ = run_cli(["train", *make_train, "--epochs",
+                              str(BF16_TRAIN_STEPS), "--dtype", dtype,
+                              "--out", out])
+            rates[dtype] = BF16_TRAIN_STEPS / res["runtime_s"]
+            if dtype == "bfloat16":
+                launched("cli train --dtype bfloat16 (make train)", {
+                    "train_fwd_bf16": BF16_TRAIN_STEPS,
+                    "train_bwd_bf16": BF16_TRAIN_STEPS})
+                ltot = hist(os.path.join(out, "history.pkl"))
+                if not (np.isfinite(ltot).all()
+                        and res["best_loss"] < ltot[0]):
+                    raise AssertionError(f"bfloat16 training: best "
+                                         f"{res['best_loss']}, first "
+                                         f"{ltot[0]}")
+                print(f"  loss {ltot[0]:.6e} -> best {res['best_loss']:.6e}")
+        print(f"cli train at make train's configuration: bfloat16 "
+              f"{rates['bfloat16']:.2f} steps/s, float32 "
+              f"{rates['float32']:.2f} steps/s ({card})")
+        out = os.path.join(work, "finetune")
+        _reset(*mods)
+        res, _ = run_cli(["finetune",
+                          os.path.join(HERE, "artifacts", "flagship.npz"),
+                          "--epochs", str(BF16_FT_STEPS), "--n-train",
+                          str(N_TRAIN), "--dtype", "bfloat16", "--out", out])
+        launched("cli finetune --dtype bfloat16", {
+            "train_fwd_bf16": BF16_FT_STEPS, "train_bwd_bf16": 0})
+        ltot = hist(os.path.join(out, "history_finetune.pkl"))
+        if not (np.isfinite(ltot).all() and res["best_loss"] < ltot[0]):
+            raise AssertionError(f"bfloat16 fine-tune: {res}, {ltot[0]}")
+        # --mesh 1 (NCCL at world size 1) against no mesh, bit for bit
+        finals = {}
+        for mesh in ("0", "1"):
+            out = os.path.join(work, f"mesh{mesh}")
+            run_cli(["train", *make_train, "--epochs", str(BF16_MESH_STEPS),
+                     "--dtype", "bfloat16", "--mesh", mesh, "--out", out])
+            with np.load(os.path.join(out, "final.npz")) as z:
+                finals[mesh] = {k: z[k].tobytes() for k in z.files
+                                if k != "__meta__"}
+        if finals["0"] != finals["1"]:
+            raise AssertionError("bfloat16 cli train --mesh 1 differs from "
+                                 "one device")
+        print(f"  cli train --mesh 1 --dtype bfloat16: {len(finals['1'])} "
+              "leaves equal to one device's bit for bit")
+        out = os.path.join(work, "separable")
+        _reset(*mods)
+        res, _ = run_cli(["train", "--arch", "separable", "--n-train",
+                          str(N_TRAIN), "--epochs", str(BF16_SEP_STEPS),
+                          "--dtype", "bfloat16", "--out", out])
+        launched("cli train --arch separable --dtype bfloat16", {
+            "separable_fwd_bf16": BF16_SEP_STEPS,
+            "separable_bwd_bf16": BF16_SEP_STEPS})
+        print(f"  {BF16_SEP_STEPS / res['runtime_s']:.2f} steps/s")
+        for kern, name, fw, bw in (
+                ("K2", "flagship.npz", "train_fwd_bf16", "train_bwd_bf16"),
+                ("K1", "flagship_separable.npz", "separable_fwd_bf16",
+                 "separable_bwd_bf16")):
+            _reset(*mods)
+            res, _ = run_cli(["variational",
+                              os.path.join(HERE, "artifacts", name),
+                              "--dtype", "bfloat16", "--epochs",
+                              str(BF16_MC_STEPS), "--antithetic",
+                              "--stratified-r", "--lr", str(MC_LR), "--out",
+                              os.path.join(work, f"mc_{kern}")])
+            launched(f"cli variational {name} --dtype bfloat16 (Monte "
+                     f"Carlo, {MC_N_R * MC_N_PTS} points a step)",
+                     {fw: BF16_MC_STEPS, bw: BF16_MC_STEPS})
+            if not np.isfinite(res["E_mean_final"]):
+                raise AssertionError(f"bfloat16 MC: {res}")
+            print(f"  {res['points_per_sec']:.4e} points/s")
+        _reset(*mods)
+        t0 = time.time()
+        run_cli(["variational", "--arch", "separable", "--spheroidal",
+                 "--dtype", "bfloat16", "--n-r", str(N_R), "--n-xi",
+                 str(N_XI), "--n-eta", str(N_ETA), "--adam-warmup",
+                 str(BF16_ADAM_STEPS), "--lbfgs", str(BF16_LBFGS_STEPS),
+                 "--out", os.path.join(work, "polish")])
+        launched("cli variational --spheroidal --dtype bfloat16 (cut "
+                 "polish)", {"separable_fwd_bf16": True,
+                             "separable_bwd_bf16": True})
+        print(f"  {time.time() - t0:.1f} s")
+        # cli evaluate of both checkpoints in processes of their own, once
+        # every time and rate above is taken: their E-head fits hold two
+        # host cores while the checks below run
+        for label, src in (("K1", sep_art), ("K3", ref_ckpt)):
+            out = os.path.join(work, f"evaluate_{label}")
+            evals[label] = (time.time(), subprocess.Popen(
+                [sys.executable, "-c", BF16_EVAL_DRIVER, HERE, "evaluate",
+                 src, "--dtype", "bfloat16", "--steps", "20",
+                 "--table-knots", "0", "--out", out],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        # point gradients: autograd in x, y, z, R through both entry points
+        for kern, params, mcfg, batch_of in (
+                ("K1", artifact("flagship_separable.npz"),
+                 config.ModelConfig(arch="separable"), "flagship"),
+                ("K2", artifact("flagship.npz"),
+                 config.ModelConfig(gz=True, trainable_exponent=True),
+                 "make train")):
+            p = ansatz.from_jax_params(params, dtype="bfloat16", device=dev)
+            if kern == "K1":
+                v = variational.dual_grid_vbatch(
+                    config.Config(model=mcfg, dtype="bfloat16"), N_R, N_XI,
+                    N_ETA, device=dev)
+                pts = [v.x.reshape(-1), v.y.reshape(-1), v.z.reshape(-1),
+                       v.r[:, None].expand_as(v.x).reshape(-1)]
+                entry = ks.psi_lap_train_separable
+            else:
+                bt = sample_batch(gen, config.Config(model=mcfg), n=N_TRAIN,
+                                  dtype=bf, device=dev)
+                pts = [bt.x, bt.y, bt.z, bt.r]
+                entry = kt.psi_lap_train
+            pts = [t.detach().clone().requires_grad_(True) for t in pts]
+            _reset(*mods)
+            psi, lap, _ = entry(p, mcfg, *pts, point_grads=True)
+            grads = torch.autograd.grad(
+                (psi.float() ** 2).sum() + lap.float().sum(), pts)
+            torch.cuda.synchronize()
+            stem = "separable" if kern == "K1" else "train"
+            launched(f"{kern} point gradients ({batch_of} batch, "
+                     f"bfloat16)", {f"{stem}_fwd_bf16": 1,
+                                    f"{stem}_bwd_pg_bf16": 1})
+            if not all(bool(torch.isfinite(g).all()) for g in grads):
+                raise AssertionError(f"{kern} bfloat16 point gradients")
+        # cli energy: bfloat16 scores as float32, bit for bit
+        pkl = {}
+        for dtype in ("float32", "bfloat16"):
+            pkl[dtype] = os.path.join(work, f"energy_{dtype}.pkl")
+            _reset(*mods)
+            run_cli(["energy", ref_ckpt, "--dtype", dtype, "--out",
+                     pkl[dtype]])
+            launched(f"cli energy --dtype {dtype}", {"residual_fwd": 39})
+        with open(pkl["float32"], "rb") as f32, \
+                open(pkl["bfloat16"], "rb") as f16:
+            if f32.read() != f16.read():
+                raise AssertionError("cli energy --dtype bfloat16 differs "
+                                     "from --dtype float32")
+        print("  cli energy: --dtype bfloat16 equals --dtype float32 bit "
+              "for bit (39 float32 K3 launches each)")
+        for label, (t0, proc) in evals.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli evaluate ({label}) exited "
+                                     f"{proc.returncode}:\n{stderr[-3000:]}")
+            lines = stdout.strip().splitlines()
+            res, got = json.loads(lines[-2]), json.loads(lines[-1])
+            fw = "separable_fwd_bf16" if label == "K1" else \
+                "residual_fwd_bf16"
+            bad = {k: v for k, v in got.items()
+                   if v != (BF16_EVAL_QUOTIENTS if k == fw else 0)}
+            walls = [ln for ln in stderr.splitlines() if "wall" in ln]
+            print(f"  cli evaluate --dtype bfloat16 ({label}): "
+                  f"{time.time() - t0:.1f} s; {walls[-1] if walls else ''};"
+                  f" fit_rms {res['fit_rms_mHa']} mHa, mean_err "
+                  f"{res['mean_err_mHa']}, max_err {res['max_err_mHa']}; "
+                  f"launches {dict((k, v) for k, v in got.items() if v)}")
+            if bad or not np.isfinite(res["mean_err_mHa"]):
+                raise AssertionError(f"cli evaluate ({label}): {bad}, {res}")
+            counts[fw] = counts.get(fw, 0) + got[fw]
+        print(f"bfloat16 launches over phase 23c: {counts}")
+        sys.stdout.flush()
+    finally:
+        for _, proc in evals.values():
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+    entries = []
+    for kern, which, name, line, src in (
+            ("K1", "fwd", "separable_fwd", "pallas_separable.py:293",
+             "separable_fwd.cu"),
+            ("K1", "bwd", "separable_bwd", "pallas_separable.py:325",
+             "separable_bwd.cu"),
+            ("K1", "bwd_pg", "separable_bwd_pg", "pallas_separable.py:325",
+             "separable_bwd.cu"),
+            ("K2", "fwd", "train_fwd", "pallas_train.py:233", "train_fwd.cu"),
+            ("K2", "bwd", "train_bwd", "pallas_train.py:264", "train_bwd.cu"),
+            ("K2", "bwd_pg", "train_bwd_pg", "pallas_train.py:264",
+             "train_bwd.cu"),
+            ("K3", "fwd", "residual_fwd", "pallas_residual.py:200",
+             "residual_fwd.cu")):
+        entries.append({
+            "name": f"{name}_bf16",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/{src}",
+            "replaces": ("pinn_for_quantum_wavefunction_surfaces_tpu/ops/"
+                         + line),
+            "launches": counts.get(f"{name}_bf16", 0),
+            "dtype": "bfloat16",
+            "max_abs_err": err[kern][which],
+            **times[(kern, which)],
+            "library_ms": None,
+        })
+    return entries
 
 
 # python3 chip_smoke.py --mesh N: the --mesh paths across N cards (NCCL)
@@ -3756,8 +4273,46 @@ def multi_device_phase(n: int, card: str, device: str = "cuda") -> None:
         bad = {k: v for k, v in errors.items() if not v <= 1e-8}
         if bad:
             raise AssertionError(f"--mesh {n} differs from one device: {bad}")
+
+        bf16_mesh_phase(n, card, device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def bf16_mesh_phase(n: int, card: str, device: str, work: str) -> None:
+    """M7: cli train --dtype bfloat16 --mesh n against one device (make
+    train's model): the first step's loss (the same params and batch, the
+    batch sums all-reduced in bfloat16 in another order) within 2e-2 of
+    one device's, and the run finite and falling (later steps follow their
+    own roundings)."""
+    import pickle
+
+    import numpy as np
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import cli
+    phase(f"M7 cli train --mesh {n} --dtype bfloat16 against one device "
+          f"(make train's model, {MULTI_N_TRAIN} points, "
+          f"{MULTI_TRAIN_STEPS} steps)")
+    hist = {}
+    for mesh in ("0", str(n)):
+        out = os.path.join(work, f"train_bf16_{mesh}")
+        t0 = time.time()
+        cli.main(["train", "--gz", "--trainable-exponent", "--lr-schedule",
+                  "step", "--dtype", "bfloat16", "--n-train",
+                  str(MULTI_N_TRAIN), "--epochs", str(MULTI_TRAIN_STEPS),
+                  "--mesh", mesh, "--out", out, "--device", device])
+        sys.stdout.flush()
+        print(f"  --mesh {mesh}: {time.time() - t0:.1f} s ({card})",
+              flush=True)
+        with open(os.path.join(out, "history.pkl"), "rb") as f:
+            hist[mesh] = np.asarray(pickle.load(f)["Ltot"], np.float64)
+    one, many = hist["0"], hist[str(n)]
+    first = abs(many[0] - one[0]) / abs(one[0])
+    print(f"  first-step loss {many[0]:.6e} against {one[0]:.6e} "
+          f"({first:.3e} relative); last {many[-1]:.6e} against "
+          f"{one[-1]:.6e}")
+    if not (np.isfinite(many).all() and first <= 2e-2
+            and many[-1] < many[0]):
+        raise AssertionError(f"M7: bfloat16 --mesh {n}: {many}")
 
 
 def _same_arrays(label: str, got: dict, want: dict) -> None:
@@ -3851,9 +4406,10 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or \
                 "spill" in line:
             print(f"  ceiling {line.strip()}")
-    # K3: no instantiation at H <= 16 may spill
+    # K3: no instantiation at H <= 16 may spill (float64, float32 and
+    # bfloat16 at every width)
     k3_ptxas = ptxas_entries(_build.log_path("residual_fwd").read_text())
-    if len(k3_ptxas) != 2 * len(k3.SUPPORTED_HIDDEN):
+    if len(k3_ptxas) != 3 * len(k3.SUPPORTED_HIDDEN):
         raise AssertionError(f"residual_fwd: {len(k3_ptxas)} instantiations "
                              "in the ptxas log")
     spilled = [e for e in k3_ptxas if e["h"] <= 16
@@ -3865,7 +4421,7 @@ def main() -> int:
                           (ks, "separable_bwd", True),
                           (kt, "train_fwd", False), (kt, "train_bwd", False),
                           (kt, "train_bwd", True)):
-        for dt in (torch.float64, torch.float32):
+        for dt in (torch.float64, torch.float32, torch.bfloat16):
             threads = ks.THREADS if mod is ks else kt.threads(dt)
             for h in mod.SUPPORTED_HIDDEN:
                 blocks, smem = mod.occupancy(name, h, dt, pg)
@@ -3873,7 +4429,7 @@ def main() -> int:
                       f"{smem} B shared memory a block of {threads} "
                       f"threads, {blocks} resident blocks per SM "
                       f"({blocks * threads // 32} warps)")
-    for dt in (torch.float64, torch.float32):
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
         for h in k3.SUPPORTED_HIDDEN:
             for hg in K3_GATE_WIDTHS:
                 blocks, smem = k3.occupancy(h, hg, dt)
@@ -4079,14 +4635,18 @@ def main() -> int:
         train_eval()
     profile_device(train_eval, 10, "evaluation")
 
-    k2 = k2_phases(dev, card)
-    k3_entry = k3_phases(dev, card)
-    pg = pg_phase(dev, card)
-    excited_phase(dev, card)
-    family_phase(dev, card)
-    analysis_phase(dev, card)
-    mesh_sweep_phase(dev, card)
-    entry_points_phase(dev, card)
+    try:
+        k2 = k2_phases(dev, card)
+        k3_entry = k3_phases(dev, card)
+        pg = pg_phase(dev, card)
+        excited_phase(dev, card)
+        family_phase(dev, card)
+        analysis_phase(dev, card)
+        mesh_sweep_phase(dev, card)
+        entry_points_phase(dev, card)
+        bf16 = bf16_phase(dev, card)
+    finally:
+        shutil.rmtree(KEEP_DIR, ignore_errors=True)
     phase()
 
     t64 = times["float64"]
@@ -4107,7 +4667,7 @@ def main() -> int:
             "bound_by": t64[f"{which}_bound_by"],
             "library_ms": None,
         })
-    kernels += k2 + [k3_entry] + pg
+    kernels += k2 + [k3_entry] + pg + bf16
     print(f"smoke run {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

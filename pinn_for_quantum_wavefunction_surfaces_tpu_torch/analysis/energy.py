@@ -236,10 +236,15 @@ def rayleigh_quotient_spheroidal(params, cfg: Config, ri: float,
 
 
 def energy_net(params, ri) -> float:
-    """E_net: the eigenvalue head at R = ri."""
+    """E_net: the eigenvalue head at R = ri, in float32 at least: the JAX
+    package's float32 R promotes a bfloat16 head to float32 (its weights
+    widen exactly)."""
+    kw = like(params)
+    kw["dtype"] = torch.promote_types(kw["dtype"], torch.float32)
+    head = {k: {f: t.to(kw["dtype"]) for f, t in params[k].items()}
+            for k in ("e1", "e2", "eout")}
     with torch.no_grad():
-        return float(ansatz.energy(params, torch.tensor([float(ri)],
-                                                        **like(params)))[0])
+        return float(ansatz.energy(head, torch.tensor([float(ri)], **kw))[0])
 
 
 def surface(params, cfg: Config, r_values=None, n: int = 80,

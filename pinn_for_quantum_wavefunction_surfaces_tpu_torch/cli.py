@@ -143,9 +143,20 @@ SECTOR_STATES = {(0, 1): ["1ssg", "2ssg", "3dsg", "3ssg"],
 
 
 def _load_as(path: str, dtype: str) -> dict:
-    """A checkpoint's params as numpy arrays of ``dtype``."""
-    return {k: {kk: np.asarray(vv, dtype) for kk, vv in v.items()}
-            for k, v in _load_params(path).items()}
+    """A checkpoint's params as host (CPU) tensors of ``dtype``, each leaf
+    converted once from its stored type: to bfloat16 as the JAX CLI's
+    ``np.asarray(a, ml_dtypes.bfloat16)`` (through float32, so the same
+    bits)."""
+    from .models import ansatz
+    return ansatz.from_jax_params(_load_params(path), dtype=dtype,
+                                  device="cpu")
+
+
+def _scoring_dtype(cfg):
+    """The type ``energy`` and ``analyze`` score in, the JAX CLI's: the
+    checkpoint's own under ``--dtype float64`` (JAX with x64), float32 under
+    any other (JAX without x64, which casts nothing)."""
+    return None if cfg.dtype == "float64" else "float32"
 
 
 def _check_variational(args) -> None:
@@ -284,16 +295,15 @@ def _scoring_params(args, dtype=None) -> dict:
 
 def cmd_energy(args) -> None:
     """E(R) surface of a checkpoint in the reference's pickle schema, with
-    E_net's error against the exact energies. Scored in the JAX CLI's type:
-    float32 at the default ``--dtype float32`` (JAX without x64), the
-    checkpoint's own type under ``--dtype float64``."""
+    E_net's error against the exact energies. Scored in the JAX CLI's type
+    (``_scoring_dtype``): the checkpoint's own under ``--dtype float64``,
+    float32 under ``float32`` and ``bfloat16``."""
     from .analysis import energy as aen
     if args.figure:
         from .analysis import plots
         plots.require_matplotlib()
     cfg = _build_cfg(args)
-    params = _scoring_params(
-        args, "float32" if cfg.dtype == "float32" else None)
+    params = _scoring_params(args, _scoring_dtype(cfg))
     surf = aen.surface(params, cfg, n=args.n_test, lcao=not args.no_lcao,
                        grid=args.grid,
                        progress=lambda i, n, ri: print(
@@ -313,13 +323,12 @@ def cmd_analyze(args) -> None:
     """Figures of a checkpoint: the E head, gate (or GZ b(R)), exponents,
     psi cuts, and with ``--forces`` the force panel, ``--history`` the loss
     figure; ``--paper-set`` the reference's named figure set instead.
-    Scored in the JAX CLI's type, as ``energy`` is."""
+    Scored in the JAX CLI's type, as ``energy`` is (``_scoring_dtype``)."""
     from .analysis import plots
     from .utils.metrics import load_history
     plots.require_matplotlib()
     cfg = _build_cfg(args)
-    params = _scoring_params(
-        args, "float32" if cfg.dtype == "float32" else None)
+    params = _scoring_params(args, _scoring_dtype(cfg))
     outdir = args.out
     if args.paper_set:
         hist = load_history(args.history) if args.history else None
@@ -714,8 +723,7 @@ def _add_common(p):
     p.add_argument("--device", default="cuda",
                    help="cuda (the Hopper kernels; raises without CUDA) or "
                         "cpu (the plain PyTorch path)")
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+    _add_dtype(p)
     p.add_argument("--arch", choices=["symmetric", "minimal", "separable"],
                    help="model family (default: the checkpoint's meta, "
                         "else symmetric)")
@@ -735,8 +743,7 @@ def _add_scoring(p):
     p.add_argument("--device", default="cuda",
                    help="cuda (the Hopper kernels; raises without CUDA) or "
                         "cpu (the plain PyTorch path)")
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+    _add_dtype(p)
     p.add_argument("--state", default="gerade",
                    choices=["gerade", "ungerade"],
                    help="envelope inversion parity")
@@ -754,24 +761,50 @@ def _add_scoring(p):
     p.add_argument("--r-hi", type=float, dest="dom_r_hi")
     p.add_argument("--xi-span", type=float, dest="xi_span",
                    help="prolate-spheroidal quadrature extent (default 20)")
+    _add_r_cluster(p)
     p.add_argument("--n-test", type=int, default=80, dest="n_test",
                    help="Cartesian quadrature nodes per axis")
+
+
+def _add_dtype(p):
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64", "bfloat16"],
+                   help="compute type (bfloat16: the kernels' bfloat16 "
+                        "builds on the card)")
+
+
+def _add_r_cluster(p):
+    p.add_argument("--r-cluster", dest="r_cluster",
+                   choices=["uniform", "log"],
+                   help="R-row layout of the variational objective: 'log' "
+                        "clusters the rows toward the united-atom end")
 
 
 def _add_residual(p):
     """The flags of the residual trainer (train, finetune)."""
     _add_common(p)
-    p.add_argument("--n-train", type=int, dest="n_train")
     p.add_argument("--epochs", type=int,
                    help="TOTAL schedule length; a resumed run trains the "
                         "remaining epochs - start_step steps")
     p.add_argument("--lr", type=float)
+    _add_schedule(p)
+    _add_residual_data(p)
+    _add_symmetric_model(p)
+    _add_sector(p)
+    _add_mesh(p, "shard the collocation batch over N devices")
+
+
+def _add_residual_data(p):
+    """The residual trainer's batch, sampler and loss flags. ``variational``
+    takes them too, as the JAX CLI's does: they set the same Config fields,
+    of which its objectives read only the Monte-Carlo draws' focus_frac and
+    focus_scale."""
+    p.add_argument("--n-train", type=int, dest="n_train")
     p.add_argument("--sampler", choices=["uniform", "mixed"],
                    help="mixed = nucleus-focused importance sampling")
     p.add_argument("--focus-frac", type=float, dest="focus_frac")
     p.add_argument("--focus-scale", type=float, dest="focus_scale")
     p.add_argument("--focus-floor", type=float, dest="focus_floor")
-    _add_schedule(p)
     p.add_argument("--ema-decay", type=float, dest="ema_decay",
                    help="Polyak averaging decay (e.g. 0.999; 0 = off)")
     p.add_argument("--residual-weight", choices=["none", "lcao"],
@@ -783,10 +816,7 @@ def _add_residual(p):
     p.add_argument("--correction-reg", type=float, dest="correction_reg",
                    help="penalty keeping the neural correction small "
                         "relative to LCAO (e.g. 1e-3)")
-    _add_symmetric_model(p)
-    _add_sector(p)
     p.add_argument("--resample-frac", type=float, dest="resample_frac")
-    _add_mesh(p, "shard the collocation batch over N devices")
 
 
 def _add_sector(p):
@@ -802,10 +832,7 @@ def _add_sector(p):
     p.add_argument("--xi-span", type=float, dest="xi_span",
                    help="prolate-spheroidal quadrature extent in bohr "
                         "(default 20)")
-    p.add_argument("--r-cluster", dest="r_cluster",
-                   choices=["uniform", "log"],
-                   help="R-row layout of the variational objective: 'log' "
-                        "clusters the rows toward the united-atom end")
+    _add_r_cluster(p)
 
 
 def _add_mesh(p, what: str):
@@ -881,6 +908,7 @@ def main(argv=None) -> None:
     _add_common(p)
     _add_symmetric_model(p)
     _add_schedule(p)
+    _add_residual_data(p)
     p.add_argument("--n-pts", type=int, default=32768, dest="n_pts",
                    help="importance samples per R row (Monte-Carlo trainer "
                         "and --lbfgs without --spheroidal)")

@@ -137,9 +137,7 @@ class Config:
     # residual convention: "poc" res = (H - E) psi; "minimal" res = lap psi
     # + (e + 1/r1 + 1/r2) psi (ops.operators.RESIDUALS)
     convention: str = "poc"
-    # compute dtype; the polish runs in float64 (f32 L-BFGS diverges).
-    # bfloat16 passes validation as in the JAX package, but the kernels
-    # take float32 and float64 only.
+    # compute dtype; the polish runs in float64 (f32 L-BFGS diverges)
     dtype: str = "float32"
 
     def __post_init__(self):

@@ -1,10 +1,49 @@
-// Helpers shared by the port's kernels: type-generic math and the packed
-// weight layout of one width-H MLP 2 -> H -> H -> 1.
+// Helpers shared by the port's kernels: storage and compute types,
+// type-generic math and the packed weight layout of one width-H MLP
+// 2 -> H -> H -> 1.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace kern {
+
+// A kernel is instantiated for a storage type S, the type of its tensors
+// in device memory, and computes in compute_t<S>: S itself for float and
+// double; float for __nv_bfloat16, whose builds load each value once into
+// float, run the float32 build's arithmetic, and round each output once
+// (ld, st). For S = T both are the identity, so the float32 and float64
+// builds compile to the same code as without them.
+template <typename S>
+struct Compute {
+  using type = S;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+template <typename S>
+using compute_t = typename Compute<S>::type;
+
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ double ld(double v) { return v; }
+__device__ __forceinline__ float ld(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename S>
+__device__ __forceinline__ S st(compute_t<S> v) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
+// The type codes of the C entry points' queries (occupancy, points a
+// tile): 0 float32, 1 float64, 2 bfloat16 (ops/_cuda.py type_code).
+enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2 };
 
 __device__ __forceinline__ float m_tanh(float v) { return tanhf(v); }
 __device__ __forceinline__ double m_tanh(double v) { return tanh(v); }

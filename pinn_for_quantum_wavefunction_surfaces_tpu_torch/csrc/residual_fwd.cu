@@ -36,6 +36,8 @@
 //   points' R and the pairs' gate sums add 3 Hg + 1 + 3 P values to K2-fwd's
 //   shared memory (gate_tile_smem_elems). One block a tile, as K2-fwd
 //   launches.
+// - bfloat16 (residual_fwd_bf16): the float32 kernel on bfloat16 tensors,
+//   loaded into float and rounded once at the store (train_fwd.cuh).
 // One thread a point with both branches fully unrolled in registers spilled
 // 2.3 KB in float64 at H = 16; the tiles spill nothing at any width.
 
@@ -48,58 +50,60 @@ using namespace trn;
 namespace {
 
 // Shared memory (bytes) of a launch, set as the kernel's limit where it
-// passes the 48 KB a block gets without opting in.
-template <typename T, int H>
+// passes the 48 KB a block gets without opting in. S: the tensors' storage
+// type; the gate's weights are staged in the compute type.
+template <typename S, int H>
 cudaError_t prepare(int hg, size_t* smem) {
-  if constexpr (std::is_same<T, double>::value) {
-    *smem = sizeof(T) * gate_tile_smem_elems<H>(hg);
-    return cudaFuncSetAttribute(train_fwd_tile_kernel<T, H, GateSource>,
+  if constexpr (std::is_same<S, double>::value) {
+    *smem = sizeof(S) * gate_tile_smem_elems<H>(hg);
+    return cudaFuncSetAttribute(train_fwd_tile_kernel<S, H, GateSource>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   } else {
-    *smem = sizeof(T) * (3 * hg + 1);
+    *smem = sizeof(kern::compute_t<S>) * (3 * hg + 1);
     return cudaSuccess;
   }
 }
 
-template <typename T, int H>
+template <typename S, int H>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* w, void* psi, void* lap, int n, int psym,
                    int hg, double ry, double rz, cudaStream_t stream) {
+  using T = kern::compute_t<S>;
   size_t smem;
-  cudaError_t err = prepare<T, H>(hg, &smem);
+  cudaError_t err = prepare<S, H>(hg, &smem);
   if (err != cudaSuccess) return err;
-  const T* px = static_cast<const T*>(x);
-  const T* py = static_cast<const T*>(y);
-  const T* pz = static_cast<const T*>(z);
-  const T* pr = static_cast<const T*>(r);
-  const T* pw = static_cast<const T*>(w);
-  if constexpr (std::is_same<T, double>::value) {
+  const S* px = static_cast<const S*>(x);
+  const S* py = static_cast<const S*>(y);
+  const S* pz = static_cast<const S*>(z);
+  const S* pr = static_cast<const S*>(r);
+  const S* pw = static_cast<const S*>(w);
+  if constexpr (std::is_same<S, double>::value) {
     const int blocks = std::max(1, (n + Tile<H>::P - 1) / Tile<H>::P);
-    train_fwd_tile_kernel<T, H, GateSource>
+    train_fwd_tile_kernel<S, H, GateSource>
         <<<blocks, kTileThreads, smem, stream>>>(
             px, py, pz, pr, nullptr, nullptr, nullptr, pw,
-            static_cast<T*>(psi), static_cast<T*>(lap), n, T(psym), T(ry),
+            static_cast<S*>(psi), static_cast<S*>(lap), n, T(psym), T(ry),
             T(rz), hg);
   } else {
     const int blocks = std::max(1, (n + kPointThreads - 1) / kPointThreads);
-    train_fwd_point_kernel<T, H, GateSource>
+    train_fwd_point_kernel<S, H, GateSource>
         <<<blocks, kPointThreads, smem, stream>>>(
             px, py, pz, pr, nullptr, nullptr, nullptr, pw,
-            static_cast<T*>(psi), static_cast<T*>(lap), n, T(psym), T(ry),
+            static_cast<S*>(psi), static_cast<S*>(lap), n, T(psym), T(ry),
             T(rz), hg);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* w, void* psi, void* lap, int n, int hidden, int psym,
              int hg, double ry, double rz, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RESIDUAL_FWD_CASE(HH) \
   case HH:                    \
-    return launch<T, HH>(x, y, z, r, w, psi, lap, n, psym, hg, ry, rz, s);
+    return launch<S, HH>(x, y, z, r, w, psi, lap, n, psym, hg, ry, rz, s);
   switch (hidden) {
     RESIDUAL_FWD_CASE(4)
     RESIDUAL_FWD_CASE(8)
@@ -112,18 +116,18 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
 }
 
 // Resident blocks per SM at this gate width, and the launch's shared memory.
-template <typename T, int H>
+template <typename S, int H>
 int occupancy(int hg, int* smem_bytes) {
   size_t smem;
-  if (prepare<T, H>(hg, &smem) != cudaSuccess) return -1;
+  if (prepare<S, H>(hg, &smem) != cudaSuccess) return -1;
   int blocks = -1;
   cudaError_t err;
-  if constexpr (std::is_same<T, double>::value)
+  if constexpr (std::is_same<S, double>::value)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_fwd_tile_kernel<T, H, GateSource>, kTileThreads, smem);
+        &blocks, train_fwd_tile_kernel<S, H, GateSource>, kTileThreads, smem);
   else
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_fwd_point_kernel<T, H, GateSource>, kPointThreads,
+        &blocks, train_fwd_point_kernel<S, H, GateSource>, kPointThreads,
         smem);
   if (err != cudaSuccess) return -1;
   *smem_bytes = static_cast<int>(smem);
@@ -150,14 +154,25 @@ extern "C" int residual_fwd_f32(const void* x, const void* y, const void* z,
                          hidden_gate, ry, rz, stream);
 }
 
-// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
-// width and gate width, and its shared memory per block in *smem_bytes; -1
-// on error.
-extern "C" int residual_fwd_occupancy(int hidden, int hidden_gate, int f64,
+extern "C" int residual_fwd_bf16(const void* x, const void* y, const void* z,
+                                 const void* r, const void* w, void* psi,
+                                 void* lap, int n, int hidden, int psym,
+                                 int hidden_gate, double ry, double rz,
+                                 void* stream) {
+  return dispatch<__nv_bfloat16>(x, y, z, r, w, psi, lap, n, hidden, psym,
+                                 hidden_gate, ry, rz, stream);
+}
+
+// Resident blocks per SM of the instantiation of type code `type`
+// (kern::TypeCode) at this width and gate width, and its shared memory per
+// block in *smem_bytes; -1 on error.
+extern "C" int residual_fwd_occupancy(int hidden, int hidden_gate, int type,
                                       int* smem_bytes) {
-#define RESIDUAL_FWD_OCC(HH)                                    \
-  case HH:                                                      \
-    return f64 ? occupancy<double, HH>(hidden_gate, smem_bytes) \
+#define RESIDUAL_FWD_OCC(HH)                                               \
+  case HH:                                                                 \
+    return type == kern::kF64 ? occupancy<double, HH>(hidden_gate, smem_bytes) \
+           : type == kern::kBF16                                           \
+               ? occupancy<__nv_bfloat16, HH>(hidden_gate, smem_bytes)     \
                : occupancy<float, HH>(hidden_gate, smem_bytes);
   switch (hidden) {
     RESIDUAL_FWD_OCC(4)

@@ -261,12 +261,13 @@ __device__ __forceinline__ void mlp_tile_forward(const T* W, T s, T cf, T* X,
   o2 = point_sum<H>(acc2);
 }
 
-// Load both MLPs' packed weights into shared memory at stride WSP.
-template <typename T, int H>
-__device__ __forceinline__ void load_weights(const T* __restrict__ w, T* sw) {
+// Load both MLPs' packed weights (storage type S) into shared memory at
+// stride WSP, in the compute type T.
+template <typename T, int H, typename S>
+__device__ __forceinline__ void load_weights(const S* __restrict__ w, T* sw) {
   constexpr int WS = Layout<H>::SIZE;
   for (int i = threadIdx.x; i < 2 * WS; i += kThreads)
-    sw[(i / WS) * Tile<H>::WSP + i % WS] = w[i];
+    sw[(i / WS) * Tile<H>::WSP + i % WS] = kern::ld(w[i]);
 }
 
 // Bounded correction exp(c tanh((lam + mu) / c)) and the product rule.

@@ -56,6 +56,13 @@
 // Under the same bound of 2 blocks (128 registers) the float64 PG
 // instantiations at H = 4, 8, 16 spill 120-428 B (phase 2 of chip_smoke.py):
 // the point phase's scalars on top of the MLP adjoint's.
+//
+// bfloat16 (separable_bwd_bf16): the float32 build's arithmetic, tiles and
+// order of sums on bfloat16 tensors. Points, heads, weights and cotangents
+// are loaded into float; da, db and the point gradients are rounded once
+// to bfloat16 as they are stored; the rows of partial weight gradients
+// stay float32 (the wrapper sums them in float32 in their fixed order and
+// rounds the sums once), so two launches still agree bit for bit.
 
 #include "separable.cuh"
 
@@ -93,17 +100,20 @@ __host__ __device__ constexpr int scalar_dw2_per_thread() {
   return (H * H + kThreads - 1) / kThreads;
 }
 
-template <typename T, int H, bool PG>
+// S: the tensors' storage type; T = compute_t<S> the arithmetic's and the
+// partials' type
+template <typename S, int H, bool PG, typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
-    separable_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                         const T* __restrict__ z, const T* __restrict__ r,
-                         const T* __restrict__ a, const T* __restrict__ b,
-                         const T* __restrict__ w, const T* __restrict__ dpsi,
-                         const T* __restrict__ dlap, T* __restrict__ da_out,
-                         T* __restrict__ db_out, T* __restrict__ partials,
-                         T* __restrict__ dx_out, T* __restrict__ dy_out,
-                         T* __restrict__ dz_out, T* __restrict__ dr_out,
+    separable_bwd_kernel(const S* __restrict__ x, const S* __restrict__ y,
+                         const S* __restrict__ z, const S* __restrict__ r,
+                         const S* __restrict__ a, const S* __restrict__ b,
+                         const S* __restrict__ w, const S* __restrict__ dpsi,
+                         const S* __restrict__ dlap, S* __restrict__ da_out,
+                         S* __restrict__ db_out, T* __restrict__ partials,
+                         S* __restrict__ dx_out, S* __restrict__ dy_out,
+                         S* __restrict__ dz_out, S* __restrict__ dr_out,
                          int n, T psym, T ry, T rz) {
+  using kern::ld;
   using TL = Tile<H>;
   using L = Layout<H>;
   constexpr int WS = L::SIZE;
@@ -150,13 +160,14 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
     // the scalar lanes: geometry and GZ pair of point threadIdx.x
     const int p = tile * TL::P + threadIdx.x;
     const bool live = scalar && p < n;
-    const T av = live ? a[p] : one;
-    const T bv = live ? b[p] : one;
+    const T av = live ? ld(a[p]) : one;
+    const T bv = live ? ld(b[p]) : one;
     Point<T> pt;
     GZ<T> g;
     if (scalar) {
-      point_gz(live ? x[p] : one, live ? y[p] : one, live ? z[p] : one,
-               live ? r[p] : one, ry, rz, av, bv, psym, pt, g);
+      point_gz(live ? ld(x[p]) : one, live ? ld(y[p]) : one,
+               live ? ld(z[p]) : one, live ? ld(r[p]) : one, ry, rz, av, bv,
+               psym, pt, g);
       sV[kT0 * TL::P + threadIdx.x] = pt.t0;
       sV[kE0 * TL::P + threadIdx.x] = pt.e0;
       sV[kCf * TL::P + threadIdx.x] = pt.cf;
@@ -184,11 +195,11 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
       top_forward(v[kL0 * TL::P], l1, v[kL2 * TL::P], v[kM0 * TL::P], m1,
                   v[kM2 * TL::P], g, pt, top);
       const TopGrad<T> tg =
-          top_adjoint(av, bv, l1, m1, live ? dpsi[p] : T(0),
-                      live ? dlap[p] : T(0), g, pt, top);
+          top_adjoint(av, bv, l1, m1, live ? ld(dpsi[p]) : T(0),
+                      live ? ld(dlap[p]) : T(0), g, pt, top);
       if (live) {
-        da_out[p] = tg.da;
-        db_out[p] = tg.db;
+        da_out[p] = kern::st<S>(tg.da);
+        db_out[p] = kern::st<S>(tg.db);
       }
       v[kDq0 * TL::P] = tg.dq0;
       v[kDl1 * TL::P] = tg.dl1;
@@ -320,15 +331,16 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
       if (live) {
         const T* v = sV + threadIdx.x;
         T gx, gy, gz, gr;
-        point_adjoint(x[p], y[p], z[p], r[p], ry, rz, a[p], b[p], psym,
-                      v[kL0 * TL::P], v[kL1 * TL::P], v[kL2 * TL::P],
-                      v[kM0 * TL::P], v[kM1 * TL::P], v[kM2 * TL::P], dpsi[p],
-                      dlap[p], v[kDsL * TL::P], v[kDsM * TL::P],
+        point_adjoint(ld(x[p]), ld(y[p]), ld(z[p]), ld(r[p]), ry, rz,
+                      ld(a[p]), ld(b[p]), psym, v[kL0 * TL::P],
+                      v[kL1 * TL::P], v[kL2 * TL::P], v[kM0 * TL::P],
+                      v[kM1 * TL::P], v[kM2 * TL::P], ld(dpsi[p]),
+                      ld(dlap[p]), v[kDsL * TL::P], v[kDsM * TL::P],
                       v[kDcfL * TL::P] + v[kDcfM * TL::P], gx, gy, gz, gr);
-        dx_out[p] = gx;
-        dy_out[p] = gy;
-        dz_out[p] = gz;
-        dr_out[p] = gr;
+        dx_out[p] = kern::st<S>(gx);
+        dy_out[p] = kern::st<S>(gy);
+        dz_out[p] = kern::st<S>(gz);
+        dr_out[p] = kern::st<S>(gr);
       }
     }
   }
@@ -378,51 +390,53 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
   }
 }
 
-template <typename T, int H, bool PG>
+template <typename S, int H, bool PG>
 cudaError_t prepare(size_t* smem) {
+  using T = kern::compute_t<S>;
   static_assert(2 * Dw2<H>::KS * H * H <= 2 * Tile<H>::ROWS * H,
                 "the dW2 staging fits the two tiles");
   *smem = sizeof(T) * smem_elems<T, H, PG>();
-  return cudaFuncSetAttribute(separable_bwd_kernel<T, H, PG>,
+  return cudaFuncSetAttribute(separable_bwd_kernel<S, H, PG>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
-template <typename T, int H, bool PG>
+template <typename S, int H, bool PG>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* a, const void* b, const void* w,
                    const void* dpsi, const void* dlap, void* da, void* db,
                    void* partials, void* dx, void* dy, void* dz, void* dr,
                    int n, int psym, int grid, double ry, double rz,
                    cudaStream_t stream) {
+  using T = kern::compute_t<S>;
   size_t smem;
-  cudaError_t err = prepare<T, H, PG>(&smem);
+  cudaError_t err = prepare<S, H, PG>(&smem);
   if (err != cudaSuccess) return err;
-  separable_bwd_kernel<T, H, PG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(z), static_cast<const T*>(r),
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(w), static_cast<const T*>(dpsi),
-      static_cast<const T*>(dlap), static_cast<T*>(da), static_cast<T*>(db),
-      static_cast<T*>(partials), static_cast<T*>(dx), static_cast<T*>(dy),
-      static_cast<T*>(dz), static_cast<T*>(dr), n, T(psym), T(ry), T(rz));
+  separable_bwd_kernel<S, H, PG><<<grid, kThreads, smem, stream>>>(
+      static_cast<const S*>(x), static_cast<const S*>(y),
+      static_cast<const S*>(z), static_cast<const S*>(r),
+      static_cast<const S*>(a), static_cast<const S*>(b),
+      static_cast<const S*>(w), static_cast<const S*>(dpsi),
+      static_cast<const S*>(dlap), static_cast<S*>(da), static_cast<S*>(db),
+      static_cast<T*>(partials), static_cast<S*>(dx), static_cast<S*>(dy),
+      static_cast<S*>(dz), static_cast<S*>(dr), n, T(psym), T(ry), T(rz));
   return cudaGetLastError();
 }
 
-template <typename T, int H, bool PG>
+template <typename S, int H, bool PG>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<T, H, PG>(&smem) != cudaSuccess) return -1;
+  if (prepare<S, H, PG>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, separable_bwd_kernel<T, H, PG>, kThreads, smem) !=
+          &blocks, separable_bwd_kernel<S, H, PG>, kThreads, smem) !=
       cudaSuccess)
     return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
 }
 
-template <typename T>
+template <typename S>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* a, const void* b, const void* w, const void* dpsi,
              const void* dlap, void* da, void* db, void* partials, void* dx,
@@ -433,10 +447,10 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
     return static_cast<int>(cudaErrorInvalidValue);
 #define SEP_BWD_CASE(HH)                                                     \
   case HH:                                                                   \
-    return pg ? launch<T, HH, true>(x, y, z, r, a, b, w, dpsi, dlap, da, db, \
+    return pg ? launch<S, HH, true>(x, y, z, r, a, b, w, dpsi, dlap, da, db, \
                                     partials, dx, dy, dz, dr, n, psym, grid, \
                                     ry, rz, s)                               \
-              : launch<T, HH, false>(x, y, z, r, a, b, w, dpsi, dlap, da,    \
+              : launch<S, HH, false>(x, y, z, r, a, b, w, dpsi, dlap, da,    \
                                      db, partials, dx, dy, dz, dr, n, psym,  \
                                      grid, ry, rz, s);
   switch (hidden) {
@@ -450,14 +464,16 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
 #undef SEP_BWD_CASE
 }
 
-// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
-// width (PG: its point-gradient instantiation), and its shared memory per
-// block in *smem_bytes; -1 on error.
+// Resident blocks per SM of the instantiation of type code `type`
+// (kern::TypeCode) at this width (PG: its point-gradient instantiation), and
+// its shared memory per block in *smem_bytes; -1 on error.
 template <bool PG>
-int occupancy_at(int hidden, int f64, int* smem_bytes) {
-#define SEP_BWD_OCC(HH)                                   \
-  case HH:                                                \
-    return f64 ? occupancy<double, HH, PG>(smem_bytes)    \
+int occupancy_at(int hidden, int type, int* smem_bytes) {
+#define SEP_BWD_OCC(HH)                                                 \
+  case HH:                                                              \
+    return type == kern::kF64 ? occupancy<double, HH, PG>(smem_bytes)   \
+           : type == kern::kBF16                                        \
+               ? occupancy<__nv_bfloat16, HH, PG>(smem_bytes)           \
                : occupancy<float, HH, PG>(smem_bytes);
   switch (hidden) {
     SEP_BWD_OCC(4)
@@ -500,9 +516,23 @@ extern "C" int separable_bwd_f32(const void* x, const void* y, const void* z,
                          stream);
 }
 
-// Points a tile at this width, the same in both types (the wrapper's
+// partials: float32 rows, as in the float32 build
+extern "C" int separable_bwd_bf16(const void* x, const void* y, const void* z,
+                                  const void* r, const void* a, const void* b,
+                                  const void* w, const void* dpsi,
+                                  const void* dlap, void* da, void* db,
+                                  void* partials, void* dx, void* dy,
+                                  void* dz, void* dr, int n, int hidden,
+                                  int psym, int grid, int pg, double ry,
+                                  double rz, void* stream) {
+  return dispatch<__nv_bfloat16>(x, y, z, r, a, b, w, dpsi, dlap, da, db,
+                                 partials, dx, dy, dz, dr, n, hidden, psym,
+                                 grid, pg, ry, rz, stream);
+}
+
+// Points a tile at this width, the same in every type (the wrapper's
 // grid_blocks must agree), or -1.
-extern "C" int separable_bwd_points_per_tile(int hidden, int /*f64*/) {
+extern "C" int separable_bwd_points_per_tile(int hidden, int /*type*/) {
   switch (hidden) {
     case 4: return Tile<4>::P;
     case 8: return Tile<8>::P;
@@ -512,13 +542,14 @@ extern "C" int separable_bwd_points_per_tile(int hidden, int /*f64*/) {
   }
 }
 
-extern "C" int separable_bwd_occupancy(int hidden, int f64, int* smem_bytes) {
-  return occupancy_at<false>(hidden, f64, smem_bytes);
+extern "C" int separable_bwd_occupancy(int hidden, int type,
+                                       int* smem_bytes) {
+  return occupancy_at<false>(hidden, type, smem_bytes);
 }
 
-extern "C" int separable_bwd_pg_occupancy(int hidden, int f64,
+extern "C" int separable_bwd_pg_occupancy(int hidden, int type,
                                           int* smem_bytes) {
-  return occupancy_at<true>(hidden, f64, smem_bytes);
+  return occupancy_at<true>(hidden, type, smem_bytes);
 }
 
 extern "C" const char* separable_error_string(int err) {

@@ -25,6 +25,11 @@
 // scalar multiply-adds, or the per-point work repeated on 8 lanes, did not
 // set its time; the float64 tanh of the 4 H units and the tile's barriers
 // remain. Lanes past n evaluate the finite pad point and store nothing.
+//
+// bfloat16 (separable_fwd_bf16): the float32 build's arithmetic and tiles
+// on bfloat16 tensors. The points, heads and weights are loaded into float
+// and psi and lap psi rounded once to bfloat16 as they are stored
+// (common.cuh ld, st): half the float32 build's bytes, the same operations.
 
 #include "separable.cuh"
 
@@ -37,13 +42,15 @@ __host__ __device__ constexpr int smem_elems() {
   return 2 * Tile<H>::WSP + 2 * Tile<H>::ROWS * H + kFwdSlots * Tile<H>::P;
 }
 
-template <typename T, int H>
+// S: the tensors' storage type; T = compute_t<S> the arithmetic's
+template <typename S, int H, typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
-    separable_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                         const T* __restrict__ z, const T* __restrict__ r,
-                         const T* __restrict__ a, const T* __restrict__ b,
-                         const T* __restrict__ w, T* __restrict__ psi,
-                         T* __restrict__ lap, int n, T psym, T ry, T rz) {
+    separable_fwd_kernel(const S* __restrict__ x, const S* __restrict__ y,
+                         const S* __restrict__ z, const S* __restrict__ r,
+                         const S* __restrict__ a, const S* __restrict__ b,
+                         const S* __restrict__ w, S* __restrict__ psi,
+                         S* __restrict__ lap, int n, T psym, T ry, T rz) {
+  using kern::ld;
   using TL = Tile<H>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sw = reinterpret_cast<T*>(smem_raw);
@@ -65,9 +72,9 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
     Point<T> pt;
     GZ<T> g;
     if (scalar) {
-      point_gz(live ? x[p] : one, live ? y[p] : one, live ? z[p] : one,
-               live ? r[p] : one, ry, rz, live ? a[p] : one,
-               live ? b[p] : one, psym, pt, g);
+      point_gz(live ? ld(x[p]) : one, live ? ld(y[p]) : one,
+               live ? ld(z[p]) : one, live ? ld(r[p]) : one, ry, rz,
+               live ? ld(a[p]) : one, live ? ld(b[p]) : one, psym, pt, g);
       sV[kT0 * TL::P + threadIdx.x] = pt.t0;
       sV[kE0 * TL::P + threadIdx.x] = pt.e0;
       sV[kCf * TL::P + threadIdx.x] = pt.cf;
@@ -91,52 +98,54 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
       top_forward(v[kL0 * TL::P], v[kL1 * TL::P], v[kL2 * TL::P],
                   v[kM0 * TL::P], v[kM1 * TL::P], v[kM2 * TL::P], g, pt, s);
       if (live) {
-        psi[p] = s.psi;
-        lap[p] = s.lap;
+        psi[p] = kern::st<S>(s.psi);
+        lap[p] = kern::st<S>(s.lap);
       }
     }
   }
 }
 
-template <typename T, int H>
+template <typename S, int H>
 cudaError_t prepare(size_t* smem) {
+  using T = kern::compute_t<S>;
   *smem = sizeof(T) * smem_elems<T, H>();
-  return cudaFuncSetAttribute(separable_fwd_kernel<T, H>,
+  return cudaFuncSetAttribute(separable_fwd_kernel<S, H>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
-template <typename T, int H>
+template <typename S, int H>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* a, const void* b, const void* w, void* psi,
                    void* lap, int n, int psym, int grid, double ry, double rz,
                    cudaStream_t stream) {
+  using T = kern::compute_t<S>;
   size_t smem;
-  cudaError_t err = prepare<T, H>(&smem);
+  cudaError_t err = prepare<S, H>(&smem);
   if (err != cudaSuccess) return err;
-  separable_fwd_kernel<T, H><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(z), static_cast<const T*>(r),
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(w), static_cast<T*>(psi), static_cast<T*>(lap), n,
+  separable_fwd_kernel<S, H><<<grid, kThreads, smem, stream>>>(
+      static_cast<const S*>(x), static_cast<const S*>(y),
+      static_cast<const S*>(z), static_cast<const S*>(r),
+      static_cast<const S*>(a), static_cast<const S*>(b),
+      static_cast<const S*>(w), static_cast<S*>(psi), static_cast<S*>(lap), n,
       T(psym), T(ry), T(rz));
   return cudaGetLastError();
 }
 
 // Resident blocks per SM and shared memory per block (bytes).
-template <typename T, int H>
+template <typename S, int H>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<T, H>(&smem) != cudaSuccess) return -1;
+  if (prepare<S, H>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, separable_fwd_kernel<T, H>, kThreads, smem) != cudaSuccess)
+          &blocks, separable_fwd_kernel<S, H>, kThreads, smem) != cudaSuccess)
     return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
 }
 
-template <typename T>
+template <typename S>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* a, const void* b, const void* w, void* psi, void* lap,
              int n, int hidden, int psym, int grid, double ry, double rz,
@@ -144,7 +153,7 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SEP_FWD_CASE(HH)                                                   \
   case HH:                                                                 \
-    return launch<T, HH>(x, y, z, r, a, b, w, psi, lap, n, psym, grid, ry, \
+    return launch<S, HH>(x, y, z, r, a, b, w, psi, lap, n, psym, grid, ry, \
                          rz, s);
   switch (hidden) {
     SEP_FWD_CASE(4)
@@ -177,9 +186,18 @@ extern "C" int separable_fwd_f32(const void* x, const void* y, const void* z,
                          ry, rz, stream);
 }
 
-// Points a tile at this width, the same in both types (the wrapper's
+extern "C" int separable_fwd_bf16(const void* x, const void* y, const void* z,
+                                  const void* r, const void* a, const void* b,
+                                  const void* w, void* psi, void* lap, int n,
+                                  int hidden, int psym, int grid, double ry,
+                                  double rz, void* stream) {
+  return dispatch<__nv_bfloat16>(x, y, z, r, a, b, w, psi, lap, n, hidden,
+                                 psym, grid, ry, rz, stream);
+}
+
+// Points a tile at this width, the same in every type (the wrapper's
 // grid_blocks must agree), or -1.
-extern "C" int separable_fwd_points_per_tile(int hidden, int /*f64*/) {
+extern "C" int separable_fwd_points_per_tile(int hidden, int /*type*/) {
   switch (hidden) {
     case 4: return Tile<4>::P;
     case 8: return Tile<8>::P;
@@ -189,13 +207,15 @@ extern "C" int separable_fwd_points_per_tile(int hidden, int /*f64*/) {
   }
 }
 
-// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
-// width, and its shared memory per block in *smem_bytes; -1 on error.
-extern "C" int separable_fwd_occupancy(int hidden, int f64, int* smem_bytes) {
-#define SEP_FWD_OCC(HH)                                          \
-  case HH:                                                       \
-    return f64 ? occupancy<double, HH>(smem_bytes)               \
-               : occupancy<float, HH>(smem_bytes);
+// Resident blocks per SM of the instantiation of type code `type`
+// (kern::TypeCode) at this width, and its shared memory per block in
+// *smem_bytes; -1 on error.
+extern "C" int separable_fwd_occupancy(int hidden, int type, int* smem_bytes) {
+#define SEP_FWD_OCC(HH)                                                   \
+  case HH:                                                                \
+    return type == kern::kF64    ? occupancy<double, HH>(smem_bytes)      \
+           : type == kern::kBF16 ? occupancy<__nv_bfloat16, HH>(smem_bytes) \
+                                 : occupancy<float, HH>(smem_bytes);
   switch (hidden) {
     SEP_FWD_OCC(4)
     SEP_FWD_OCC(8)

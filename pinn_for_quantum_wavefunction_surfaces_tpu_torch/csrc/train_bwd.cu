@@ -57,6 +57,13 @@
 //   operation bound, the one-thread-a-point products (the rate of FMA and
 //   shared-load instructions) bound it.
 //
+// - bfloat16 (train_bwd_bf16): the float32 kernel on bfloat16 tensors
+//   (storage type S = __nv_bfloat16, compute type float): every value
+//   loaded into float, the float32 arithmetic and order of sums; da, db, dg
+//   and the point gradients rounded once as they are stored; the rows of
+//   partial weight gradients float32 (the wrapper sums them in float32 in
+//   their fixed order and rounds once), so two launches agree bit for bit.
+//
 // Point gradients (PG = true, a compile-time flag of both kernels; PG =
 // false is the training path and compiles to the same code as before the
 // flag). A branch's adjoint already forms, per unit, the cotangents of the
@@ -412,20 +419,23 @@ __device__ __forceinline__ void add_warp_sums(float* v, float* sums,
   if (lane < C) sums[slot] += v[0];
 }
 
-template <typename T, int H, bool PG>
+// S: the tensors' storage type (float or __nv_bfloat16); T = float the
+// arithmetic's and the partials' type
+template <typename S, int H, bool PG, typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
-    train_bwd_point_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                           const T* __restrict__ z, const T* __restrict__ r,
-                           const T* __restrict__ a, const T* __restrict__ b,
-                           const T* __restrict__ g, const T* __restrict__ w,
-                           const T* __restrict__ dpsi,
-                           const T* __restrict__ dlap, T* __restrict__ da_out,
-                           T* __restrict__ db_out, T* __restrict__ dg_out,
-                           T* __restrict__ partials, T* __restrict__ dx_out,
-                           T* __restrict__ dy_out, T* __restrict__ dz_out,
-                           T* __restrict__ dr_out, int n, T psym, T ry,
+    train_bwd_point_kernel(const S* __restrict__ x, const S* __restrict__ y,
+                           const S* __restrict__ z, const S* __restrict__ r,
+                           const S* __restrict__ a, const S* __restrict__ b,
+                           const S* __restrict__ g, const S* __restrict__ w,
+                           const S* __restrict__ dpsi,
+                           const S* __restrict__ dlap, S* __restrict__ da_out,
+                           S* __restrict__ db_out, S* __restrict__ dg_out,
+                           T* __restrict__ partials, S* __restrict__ dx_out,
+                           S* __restrict__ dy_out, S* __restrict__ dz_out,
+                           S* __restrict__ dr_out, int n, T psym, T ry,
                            T rz) {
   static_assert(std::is_same<T, float>::value, "the float32 design");
+  using kern::ld;
   using PT = PointTile<H>;
   using L = Layout<H>;
   constexpr int P = PT::P, PS = PT::PS, NS = PT::NS;
@@ -434,7 +444,7 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
   T* sA = sw + PT::WSP;  // [P][PS] first-layer stacks
   T* sG = sA + P * PS;   // [P][PS] second-layer cotangents
   T* sS = sG + P * PS;   // [warp][NT] per-unit sums: ow, w1, b1, b2, ob
-  for (int i = threadIdx.x; i < L::SIZE; i += P) sw[i] = w[i];
+  for (int i = threadIdx.x; i < L::SIZE; i += P) sw[i] = ld(w[i]);
   for (int i = threadIdx.x; i < PT::WARPS * PT::NT; i += P) sS[i] = T(0);
   __syncthreads();
 
@@ -463,15 +473,15 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
 #pragma unroll 1
     for (int m = 0; m < 2; ++m) {
       const T pb = m == 0 ? one : psym;
-      const T av = live ? a[p] : one;
+      const T av = live ? ld(a[p]) : one;
       Env<T> e;
-      branch_envelopes(live ? x[p] : one, live ? y[p] : one,
-                       live ? z[p] : one, live ? r[p] : one, ry, rz, av,
-                       m == 1, e);
+      branch_envelopes(live ? ld(x[p]) : one, live ? ld(y[p]) : one,
+                       live ? ld(z[p]) : one, live ? ld(r[p]) : one, ry, rz,
+                       av, m == 1, e);
       // cotangents of the gated network's (value, laplacian)
-      const T gv = live ? g[p] : one;
-      const T cv = (live ? dpsi[p] : T(0)) * gv;
-      const T bcv = pb * cv, bcl = pb * ((live ? dlap[p] : T(0)) * gv);
+      const T gv = live ? ld(g[p]) : one;
+      const T cv = (live ? ld(dpsi[p]) : T(0)) * gv;
+      const T bcv = pb * cv, bcl = pb * ((live ? ld(dlap[p]) : T(0)) * gv);
       if (m == 0) {  // ob: the sum of cv
         T c1[1] = {cv};
         warp_unit_sum<1, 1>(c1, lane);
@@ -576,35 +586,39 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
         add_warp_sums<4>(t2, sums + 3 * H + i0, lane);
       }
       if constexpr (PG)
-        branch_point_adjoint(live ? x[p] : one, live ? y[p] : one,
-                             live ? z[p] : one, live ? r[p] : one, ry, rz, av,
-                             m == 1, e, ec, T(0), T(0), T(0), px, py, pz, pr);
+        branch_point_adjoint(live ? ld(x[p]) : one, live ? ld(y[p]) : one,
+                             live ? ld(z[p]) : one, live ? ld(r[p]) : one, ry,
+                             rz, av, m == 1, e, ec, T(0), T(0), T(0), px, py,
+                             pz, pr);
     }
-    const T av = live ? a[p] : one;
-    const T gpsi = live ? dpsi[p] : T(0);
-    const T glap = live ? dlap[p] : T(0);
+    const T av = live ? ld(a[p]) : one;
+    const T gpsi = live ? ld(dpsi[p]) : T(0);
+    const T glap = live ? ld(dlap[p]) : T(0);
     Env<T> e0;
-    branch_envelopes(live ? x[p] : one, live ? y[p] : one, live ? z[p] : one,
-                     live ? r[p] : one, ry, rz, av, false, e0);
+    branch_envelopes(live ? ld(x[p]) : one, live ? ld(y[p]) : one,
+                     live ? ld(z[p]) : one, live ? ld(r[p]) : one, ry, rz, av,
+                     false, e0);
     T db = T(0);
-    gz_adjoint(av, live ? b[p] : one, psym, e0, gpsi, glap, da, db);
+    gz_adjoint(av, live ? ld(b[p]) : one, psym, e0, gpsi, glap, da, db);
     if (live) {
-      da_out[p] = da;
-      db_out[p] = db;
-      dg_out[p] = gpsi * nnv + glap * nnl;
+      da_out[p] = kern::st<S>(da);
+      db_out[p] = kern::st<S>(db);
+      dg_out[p] = kern::st<S>(gpsi * nnv + glap * nnl);
     }
     if constexpr (PG) {
       if (live) {
         // the GZ pair, on the direct geometry
         T dr1 = T(0), dr2 = T(0), dc12 = T(0);
-        gz_geometry_adjoint(av, b[p], psym, e0, gpsi, glap, dr1, dr2, dc12);
+        gz_geometry_adjoint(av, ld(b[p]), psym, e0, gpsi, glap, dr1, dr2,
+                            dc12);
         T tx, ty, tz, tr;
-        kern::geometry_adjoint(x[p], y[p], z[p], r[p], ry, rz, e0.i1, e0.i2,
-                               e0.c12, dr1, dr2, dc12, tx, ty, tz, tr);
-        dx_out[p] = px + tx;
-        dy_out[p] = py + ty;
-        dz_out[p] = pz + tz;
-        dr_out[p] = pr + tr;
+        kern::geometry_adjoint(ld(x[p]), ld(y[p]), ld(z[p]), ld(r[p]), ry, rz,
+                               e0.i1, e0.i2, e0.c12, dr1, dr2, dc12, tx, ty,
+                               tz, tr);
+        dx_out[p] = kern::st<S>(px + tx);
+        dy_out[p] = kern::st<S>(py + ty);
+        dz_out[p] = kern::st<S>(pz + tz);
+        dr_out[p] = kern::st<S>(pr + tr);
       }
     }
   }
@@ -640,16 +654,18 @@ __global__ void __launch_bounds__(PointTile<H>::P, H > 16 ? 1 : 3)
 // ---------------------------------------------------------------------------
 // launch
 
-template <typename T, int H, bool PG>
+// S: the tensors' storage type; the float64 build runs on tiles, the
+// float32 and bfloat16 builds one thread a point (in float).
+template <typename S, int H, bool PG>
 cudaError_t prepare(size_t* smem) {
-  if constexpr (std::is_same<T, double>::value) {
-    *smem = sizeof(T) * bwd_smem_elems<H, PG>();
-    return cudaFuncSetAttribute(train_bwd_tile_kernel<T, H, PG>,
+  if constexpr (std::is_same<S, double>::value) {
+    *smem = sizeof(S) * bwd_smem_elems<H, PG>();
+    return cudaFuncSetAttribute(train_bwd_tile_kernel<S, H, PG>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   } else {
-    *smem = sizeof(T) * point_smem_elems<H>();
-    return cudaFuncSetAttribute(train_bwd_point_kernel<T, H, PG>,
+    *smem = sizeof(float) * point_smem_elems<H>();
+    return cudaFuncSetAttribute(train_bwd_point_kernel<S, H, PG>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   }
@@ -665,61 +681,63 @@ constexpr int threads() {
   return std::is_same<T, double>::value ? kTileThreads : PointTile<H>::P;
 }
 
-template <typename T, int H, bool PG>
+template <typename S, int H, bool PG>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* a, const void* b, const void* g, const void* w,
                    const void* dpsi, const void* dlap, void* da, void* db,
                    void* dg, void* partials, void* dx, void* dy, void* dz,
                    void* dr, int n, int psym, int grid, double ry, double rz,
                    cudaStream_t stream) {
+  using T = kern::compute_t<S>;  // also the partials' type
   size_t smem;
-  cudaError_t err = prepare<T, H, PG>(&smem);
+  cudaError_t err = prepare<S, H, PG>(&smem);
   if (err != cudaSuccess) return err;
-  const T* px = static_cast<const T*>(x);
-  const T* py = static_cast<const T*>(y);
-  const T* pz = static_cast<const T*>(z);
-  const T* pr = static_cast<const T*>(r);
-  const T* pa = static_cast<const T*>(a);
-  const T* pb = static_cast<const T*>(b);
-  const T* pg = static_cast<const T*>(g);
-  const T* pw = static_cast<const T*>(w);
-  const T* pdpsi = static_cast<const T*>(dpsi);
-  const T* pdlap = static_cast<const T*>(dlap);
-  T* outs[8] = {static_cast<T*>(da), static_cast<T*>(db),
-                static_cast<T*>(dg), static_cast<T*>(partials),
-                static_cast<T*>(dx), static_cast<T*>(dy),
-                static_cast<T*>(dz), static_cast<T*>(dr)};
-  if constexpr (std::is_same<T, double>::value)
-    train_bwd_tile_kernel<T, H, PG><<<grid, threads<T, H>(), smem, stream>>>(
+  const S* px = static_cast<const S*>(x);
+  const S* py = static_cast<const S*>(y);
+  const S* pz = static_cast<const S*>(z);
+  const S* pr = static_cast<const S*>(r);
+  const S* pa = static_cast<const S*>(a);
+  const S* pb = static_cast<const S*>(b);
+  const S* pg = static_cast<const S*>(g);
+  const S* pw = static_cast<const S*>(w);
+  const S* pdpsi = static_cast<const S*>(dpsi);
+  const S* pdlap = static_cast<const S*>(dlap);
+  T* ppart = static_cast<T*>(partials);
+  S* outs[7] = {static_cast<S*>(da), static_cast<S*>(db),
+                static_cast<S*>(dg), static_cast<S*>(dx),
+                static_cast<S*>(dy), static_cast<S*>(dz),
+                static_cast<S*>(dr)};
+  if constexpr (std::is_same<S, double>::value)
+    train_bwd_tile_kernel<S, H, PG><<<grid, threads<S, H>(), smem, stream>>>(
         px, py, pz, pr, pa, pb, pg, pw, pdpsi, pdlap, outs[0], outs[1],
-        outs[2], outs[3], outs[4], outs[5], outs[6], outs[7], n, T(psym),
+        outs[2], ppart, outs[3], outs[4], outs[5], outs[6], n, T(psym),
         T(ry), T(rz));
   else
-    train_bwd_point_kernel<T, H, PG><<<grid, threads<T, H>(), smem, stream>>>(
+    train_bwd_point_kernel<S, H, PG><<<grid, threads<S, H>(), smem, stream>>>(
         px, py, pz, pr, pa, pb, pg, pw, pdpsi, pdlap, outs[0], outs[1],
-        outs[2], outs[3], outs[4], outs[5], outs[6], outs[7], n, T(psym),
+        outs[2], ppart, outs[3], outs[4], outs[5], outs[6], n, T(psym),
         T(ry), T(rz));
   return cudaGetLastError();
 }
 
-template <typename T, int H, bool PG>
+template <typename S, int H, bool PG>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<T, H, PG>(&smem) != cudaSuccess) return -1;
+  if (prepare<S, H, PG>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   cudaError_t err;
-  if constexpr (std::is_same<T, double>::value)
+  if constexpr (std::is_same<S, double>::value)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_bwd_tile_kernel<T, H, PG>, threads<T, H>(), smem);
+        &blocks, train_bwd_tile_kernel<S, H, PG>, threads<S, H>(), smem);
   else
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_bwd_point_kernel<T, H, PG>, threads<T, H>(), smem);
+        &blocks, train_bwd_point_kernel<S, H, PG>, threads<S, H>(), smem);
   if (err != cudaSuccess) return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
 }
 
-template <typename T>
+template <typename S>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* a, const void* b, const void* g, const void* w,
              const void* dpsi, const void* dlap, void* da, void* db, void* dg,
@@ -731,10 +749,10 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
     return static_cast<int>(cudaErrorInvalidValue);
 #define TRAIN_BWD_CASE(HH)                                                  \
   case HH:                                                                  \
-    return pg ? launch<T, HH, true>(x, y, z, r, a, b, g, w, dpsi, dlap, da, \
+    return pg ? launch<S, HH, true>(x, y, z, r, a, b, g, w, dpsi, dlap, da, \
                                     db, dg, partials, dx, dy, dz, dr, n,    \
                                     psym, grid, ry, rz, s)                  \
-              : launch<T, HH, false>(x, y, z, r, a, b, g, w, dpsi, dlap,    \
+              : launch<S, HH, false>(x, y, z, r, a, b, g, w, dpsi, dlap,    \
                                      da, db, dg, partials, dx, dy, dz, dr,  \
                                      n, psym, grid, ry, rz, s);
   switch (hidden) {
@@ -748,14 +766,16 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
 #undef TRAIN_BWD_CASE
 }
 
-// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
-// width (PG: its point-gradient instantiation), and its shared memory per
-// block in *smem_bytes; -1 on error.
+// Resident blocks per SM of the instantiation of type code `type`
+// (kern::TypeCode) at this width (PG: its point-gradient instantiation), and
+// its shared memory per block in *smem_bytes; -1 on error.
 template <bool PG>
-int occupancy_at(int hidden, int f64, int* smem_bytes) {
-#define TRAIN_BWD_OCC(HH)                              \
-  case HH:                                             \
-    return f64 ? occupancy<double, HH, PG>(smem_bytes) \
+int occupancy_at(int hidden, int type, int* smem_bytes) {
+#define TRAIN_BWD_OCC(HH)                                             \
+  case HH:                                                            \
+    return type == kern::kF64 ? occupancy<double, HH, PG>(smem_bytes) \
+           : type == kern::kBF16                                      \
+               ? occupancy<__nv_bfloat16, HH, PG>(smem_bytes)         \
                : occupancy<float, HH, PG>(smem_bytes);
   switch (hidden) {
     TRAIN_BWD_OCC(4)
@@ -796,12 +816,27 @@ extern "C" int train_bwd_f32(const void* x, const void* y, const void* z,
                          ry, rz, stream);
 }
 
-// Points a block takes at a time in the f64 (f64 != 0) or f32 kernel (the
-// wrapper's grid_blocks must agree), or -1.
-extern "C" int train_bwd_points_per_tile(int hidden, int f64) {
-#define TRAIN_BWD_TILE(HH) \
-  case HH:                 \
-    return f64 ? points_per_tile<double, HH>() : points_per_tile<float, HH>();
+// partials: float32 rows, as in the float32 build
+extern "C" int train_bwd_bf16(const void* x, const void* y, const void* z,
+                              const void* r, const void* a, const void* b,
+                              const void* g, const void* w, const void* dpsi,
+                              const void* dlap, void* da, void* db, void* dg,
+                              void* partials, void* dx, void* dy, void* dz,
+                              void* dr, int n, int hidden, int psym, int grid,
+                              int pg, double ry, double rz, void* stream) {
+  return dispatch<__nv_bfloat16>(x, y, z, r, a, b, g, w, dpsi, dlap, da, db,
+                                 dg, partials, dx, dy, dz, dr, n, hidden,
+                                 psym, grid, pg, ry, rz, stream);
+}
+
+// Points a block takes at a time in the build of type code `type`
+// (kern::TypeCode; bfloat16 as float32) (the wrapper's grid_blocks must
+// agree), or -1.
+extern "C" int train_bwd_points_per_tile(int hidden, int type) {
+#define TRAIN_BWD_TILE(HH)                                    \
+  case HH:                                                    \
+    return type == kern::kF64 ? points_per_tile<double, HH>() \
+                              : points_per_tile<float, HH>();
   switch (hidden) {
     TRAIN_BWD_TILE(4)
     TRAIN_BWD_TILE(8)
@@ -813,12 +848,12 @@ extern "C" int train_bwd_points_per_tile(int hidden, int f64) {
 #undef TRAIN_BWD_TILE
 }
 
-extern "C" int train_bwd_occupancy(int hidden, int f64, int* smem_bytes) {
-  return occupancy_at<false>(hidden, f64, smem_bytes);
+extern "C" int train_bwd_occupancy(int hidden, int type, int* smem_bytes) {
+  return occupancy_at<false>(hidden, type, smem_bytes);
 }
 
-extern "C" int train_bwd_pg_occupancy(int hidden, int f64, int* smem_bytes) {
-  return occupancy_at<true>(hidden, f64, smem_bytes);
+extern "C" int train_bwd_pg_occupancy(int hidden, int type, int* smem_bytes) {
+  return occupancy_at<true>(hidden, type, smem_bytes);
 }
 
 extern "C" const char* train_error_string(int err) {

@@ -32,6 +32,9 @@
 //   registers and 55 KB of shared memory at H = 16, 4 blocks of 8 warps an
 //   SM, no spills; ~8x its operation bound on an H100 SXM at 700 W (the
 //   float64 sigmoids and the 4 barriers a tile; not measured).
+// - bfloat16 (train_fwd_bf16): the float32 kernel on bfloat16 tensors,
+//   loaded into float and rounded once at the store (train_fwd.cuh): the
+//   same operations on half the bytes.
 
 #include "train_fwd.cuh"
 
@@ -39,12 +42,14 @@ using namespace trn;
 
 namespace {
 
-// Shared memory (bytes) of a launch, set as the kernel's limit.
-template <typename T, int H>
+// Shared memory (bytes) of a launch, set as the kernel's limit. S: the
+// tensors' storage type; the float64 build runs on tiles, the float32 and
+// bfloat16 builds one thread a point.
+template <typename S, int H>
 cudaError_t prepare(size_t* smem) {
-  if constexpr (std::is_same<T, double>::value) {
-    *smem = sizeof(T) * tile_smem_elems<H>(1);
-    return cudaFuncSetAttribute(train_fwd_tile_kernel<T, H, ReadSource>,
+  if constexpr (std::is_same<S, double>::value) {
+    *smem = sizeof(S) * tile_smem_elems<H>(1);
+    return cudaFuncSetAttribute(train_fwd_tile_kernel<S, H, ReadSource>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   } else {
@@ -58,58 +63,59 @@ constexpr int points_per_tile() {
   return std::is_same<T, double>::value ? Tile<H>::P : kPointThreads;
 }
 
-template <typename T, int H>
+template <typename S, int H>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    const void* a, const void* b, const void* g, const void* w,
                    void* psi, void* lap, int n, int psym, double ry, double rz,
                    cudaStream_t stream) {
+  using T = kern::compute_t<S>;
   size_t smem;
-  cudaError_t err = prepare<T, H>(&smem);
+  cudaError_t err = prepare<S, H>(&smem);
   if (err != cudaSuccess) return err;
-  constexpr int per = points_per_tile<T, H>();
+  constexpr int per = points_per_tile<S, H>();
   const int blocks = n > 0 ? (n + per - 1) / per : 1;
-  const T* px = static_cast<const T*>(x);
-  const T* py = static_cast<const T*>(y);
-  const T* pz = static_cast<const T*>(z);
-  const T* pr = static_cast<const T*>(r);
-  const T* pa = static_cast<const T*>(a);
-  const T* pb = static_cast<const T*>(b);
-  const T* pg = static_cast<const T*>(g);
-  const T* pw = static_cast<const T*>(w);
-  if constexpr (std::is_same<T, double>::value)
-    train_fwd_tile_kernel<T, H, ReadSource>
+  const S* px = static_cast<const S*>(x);
+  const S* py = static_cast<const S*>(y);
+  const S* pz = static_cast<const S*>(z);
+  const S* pr = static_cast<const S*>(r);
+  const S* pa = static_cast<const S*>(a);
+  const S* pb = static_cast<const S*>(b);
+  const S* pg = static_cast<const S*>(g);
+  const S* pw = static_cast<const S*>(w);
+  if constexpr (std::is_same<S, double>::value)
+    train_fwd_tile_kernel<S, H, ReadSource>
         <<<blocks, kTileThreads, smem, stream>>>(
-            px, py, pz, pr, pa, pb, pg, pw, static_cast<T*>(psi),
-            static_cast<T*>(lap), n, T(psym), T(ry), T(rz), 0);
+            px, py, pz, pr, pa, pb, pg, pw, static_cast<S*>(psi),
+            static_cast<S*>(lap), n, T(psym), T(ry), T(rz), 0);
   else
-    train_fwd_point_kernel<T, H, ReadSource>
+    train_fwd_point_kernel<S, H, ReadSource>
         <<<blocks, kPointThreads, 0, stream>>>(
-            px, py, pz, pr, pa, pb, pg, pw, static_cast<T*>(psi),
-            static_cast<T*>(lap), n, T(psym), T(ry), T(rz), 0);
+            px, py, pz, pr, pa, pb, pg, pw, static_cast<S*>(psi),
+            static_cast<S*>(lap), n, T(psym), T(ry), T(rz), 0);
   return cudaGetLastError();
 }
 
 // Resident blocks per SM and shared memory per block (bytes).
-template <typename T, int H>
+template <typename S, int H>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<T, H>(&smem) != cudaSuccess) return -1;
+  if (prepare<S, H>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   cudaError_t err;
-  if constexpr (std::is_same<T, double>::value)
+  if constexpr (std::is_same<S, double>::value)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_fwd_tile_kernel<T, H, ReadSource>, kTileThreads,
+        &blocks, train_fwd_tile_kernel<S, H, ReadSource>, kTileThreads,
         smem);
   else
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, train_fwd_point_kernel<T, H, ReadSource>, kPointThreads,
+        &blocks, train_fwd_point_kernel<S, H, ReadSource>, kPointThreads,
         smem);
   if (err != cudaSuccess) return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
 }
 
-template <typename T>
+template <typename S>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
              const void* a, const void* b, const void* g, const void* w,
              void* psi, void* lap, int n, int hidden, int psym, double ry,
@@ -117,7 +123,7 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TRAIN_FWD_CASE(HH) \
   case HH:                 \
-    return launch<T, HH>(x, y, z, r, a, b, g, w, psi, lap, n, psym, ry, rz, s);
+    return launch<S, HH>(x, y, z, r, a, b, g, w, psi, lap, n, psym, ry, rz, s);
   switch (hidden) {
     TRAIN_FWD_CASE(4)
     TRAIN_FWD_CASE(8)
@@ -149,12 +155,23 @@ extern "C" int train_fwd_f32(const void* x, const void* y, const void* z,
                          ry, rz, stream);
 }
 
-// Points a block takes at a time in the f64 (f64 != 0) or f32 kernel (the
-// wrapper's n_tiles must agree), or -1.
-extern "C" int train_fwd_points_per_tile(int hidden, int f64) {
-#define TRAIN_FWD_TILE(HH) \
-  case HH:                 \
-    return f64 ? points_per_tile<double, HH>() : points_per_tile<float, HH>();
+extern "C" int train_fwd_bf16(const void* x, const void* y, const void* z,
+                              const void* r, const void* a, const void* b,
+                              const void* g, const void* w, void* psi,
+                              void* lap, int n, int hidden, int psym,
+                              double ry, double rz, void* stream) {
+  return dispatch<__nv_bfloat16>(x, y, z, r, a, b, g, w, psi, lap, n, hidden,
+                                 psym, ry, rz, stream);
+}
+
+// Points a block takes at a time in the build of type code `type`
+// (kern::TypeCode; bfloat16 as float32) (the wrapper's n_tiles must
+// agree), or -1.
+extern "C" int train_fwd_points_per_tile(int hidden, int type) {
+#define TRAIN_FWD_TILE(HH)                            \
+  case HH:                                            \
+    return type == kern::kF64 ? points_per_tile<double, HH>() \
+                              : points_per_tile<float, HH>();
   switch (hidden) {
     TRAIN_FWD_TILE(4)
     TRAIN_FWD_TILE(8)
@@ -166,13 +183,15 @@ extern "C" int train_fwd_points_per_tile(int hidden, int f64) {
 #undef TRAIN_FWD_TILE
 }
 
-// Resident blocks per SM of the f64 (f64 != 0) or f32 instantiation at this
-// width, and its shared memory per block in *smem_bytes; -1 on error.
-extern "C" int train_fwd_occupancy(int hidden, int f64, int* smem_bytes) {
-#define TRAIN_FWD_OCC(HH)                          \
-  case HH:                                         \
-    return f64 ? occupancy<double, HH>(smem_bytes) \
-               : occupancy<float, HH>(smem_bytes);
+// Resident blocks per SM of the instantiation of type code `type`
+// (kern::TypeCode) at this width, and its shared memory per block in
+// *smem_bytes; -1 on error.
+extern "C" int train_fwd_occupancy(int hidden, int type, int* smem_bytes) {
+#define TRAIN_FWD_OCC(HH)                                               \
+  case HH:                                                              \
+    return type == kern::kF64    ? occupancy<double, HH>(smem_bytes)    \
+           : type == kern::kBF16 ? occupancy<__nv_bfloat16, HH>(smem_bytes) \
+                                 : occupancy<float, HH>(smem_bytes);
   switch (hidden) {
     TRAIN_FWD_OCC(4)
     TRAIN_FWD_OCC(8)

@@ -37,6 +37,9 @@
 //   pair lanes (8 or 16), summed per pair by a butterfly, the two pairs'
 //   sums added by the point's thread. Per-point R varies within a tile; the
 //   gate is never hoisted to one value a tile.
+// - bfloat16: the float32 kernel on bfloat16 tensors (storage type S =
+//   __nv_bfloat16, compute type float): every value loaded into float, the
+//   float32 arithmetic, psi and lap psi rounded once as they are stored.
 // Lanes past n evaluate the finite pad point (1, 1, 1; R = 1, and a = b =
 // g = 1 for K2) and store nothing.
 #pragma once
@@ -74,33 +77,36 @@ __host__ __device__ constexpr int gate_tile_smem_elems(int hg) {
   return tile_smem_elems<H>(1) + 3 * Tile<H>::P + 3 * hg + 1;
 }
 
-template <typename T, int H, typename Src>
+// S: the tensors' storage type (float or __nv_bfloat16); T = compute_t<S>
+template <typename S, int H, typename Src, typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(kPointThreads)
-    train_fwd_point_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                           const T* __restrict__ z, const T* __restrict__ r,
-                           const T* __restrict__ a, const T* __restrict__ b,
-                           const T* __restrict__ g, const T* __restrict__ w,
-                           T* __restrict__ psi, T* __restrict__ lap, int n,
+    train_fwd_point_kernel(const S* __restrict__ x, const S* __restrict__ y,
+                           const S* __restrict__ z, const S* __restrict__ r,
+                           const S* __restrict__ a, const S* __restrict__ b,
+                           const S* __restrict__ g, const S* __restrict__ w,
+                           S* __restrict__ psi, S* __restrict__ lap, int n,
                            T psym, T ry, T rz, int hg) {
+  using kern::ld;
   using L = Layout<H>;
   __shared__ T sw[L::SIZE];
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sgw = reinterpret_cast<T*>(smem_raw);  // the gate's weights (K3)
-  for (int i = threadIdx.x; i < L::SIZE; i += kPointThreads) sw[i] = w[i];
+  for (int i = threadIdx.x; i < L::SIZE; i += kPointThreads)
+    sw[i] = ld(w[i]);
   if constexpr (Src::kGate)
     for (int i = threadIdx.x; i < 3 * hg + 1; i += kPointThreads)
-      sgw[i] = w[L::SIZE + i];
+      sgw[i] = ld(w[L::SIZE + i]);
   __syncthreads();
 
   const int p = blockIdx.x * kPointThreads + threadIdx.x;
   const bool live = p < n;
   const T one = T(1);
-  const T xv = live ? x[p] : one, yv = live ? y[p] : one;
-  const T zv = live ? z[p] : one, rv = live ? r[p] : one;
+  const T xv = live ? ld(x[p]) : one, yv = live ? ld(y[p]) : one;
+  const T zv = live ? ld(z[p]) : one, rv = live ? ld(r[p]) : one;
   T av = one, bv = T(0);
   if constexpr (!Src::kGate) {
-    av = live ? a[p] : one;
-    bv = live ? b[p] : one;
+    av = live ? ld(a[p]) : one;
+    bv = live ? ld(b[p]) : one;
   }
 
   // the GZ pair first, then one branch after the other: evaluated together
@@ -140,14 +146,14 @@ __global__ void __launch_bounds__(kPointThreads)
   if constexpr (Src::kGate) {
     const T gv = gate_units(sgw, hg, rv, 0, 1) + sgw[3 * hg];
     if (live) {
-      psi[p] = nnv * gv + gzv;
-      lap[p] = nnl * gv + gzl;
+      psi[p] = kern::st<S>(nnv * gv + gzv);
+      lap[p] = kern::st<S>(nnl * gv + gzl);
     }
   } else {
     if (live) {
-      const T gv = g[p];
-      psi[p] = nnv * gv + gzv;
-      lap[p] = nnl * gv + gzl;
+      const T gv = ld(g[p]);
+      psi[p] = kern::st<S>(nnv * gv + gzv);
+      lap[p] = kern::st<S>(nnl * gv + gzl);
     }
   }
 }

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
+DTYPES = {"float32": torch.float32, "float64": torch.float64,
+          "bfloat16": torch.bfloat16}
 DEVICE_HELP = ("cuda (the Hopper kernels; raises without CUDA) or cpu (the "
                "plain PyTorch path)")
 
@@ -25,10 +26,11 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def resolve_dtype(dtype) -> torch.dtype:
-    """torch dtype from a name ("float32"/"float64") or a torch dtype."""
+    """torch dtype from a name ("float32", "float64", "bfloat16") or a
+    torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
     if dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {dtype!r}: the port computes in "
-                         "float32 or float64")
+                         "float32, float64 or bfloat16")
     return DTYPES[dtype]

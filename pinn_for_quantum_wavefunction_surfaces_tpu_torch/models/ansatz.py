@@ -49,6 +49,7 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device, resolve_dtype
+from ..io.checkpoint import as_numpy, as_tensor
 from ..ops import fwdlap
 
 # ---------------------------------------------------------------------------
@@ -57,13 +58,17 @@ from ..ops import fwdlap
 
 def from_jax_params(tree: dict, dtype=None, device="cuda") -> dict:
     """Port params from the JAX layout ``{name: {"w", "b"}}`` of numpy
-    arrays (or anything ``np.asarray`` takes). ``dtype`` None keeps each
-    array's own float type."""
+    arrays (or anything ``np.asarray`` takes; the 2-byte bits of a bfloat16
+    leaf of ``to_numpy_params`` too). ``dtype`` None keeps each array's own
+    float type. Each leaf is converted once from its own type: to bfloat16
+    by torch's rounding, which takes a float64 value through float32 as
+    ml_dtypes does (the JAX CLI's ``np.asarray(a, jnp.bfloat16)``), so the
+    two packages' bfloat16 params agree bit for bit."""
     dev = resolve_device(device)
     dt = None if dtype is None else resolve_dtype(dtype)
 
     def leaf(a):
-        t = torch.as_tensor(np.array(a))
+        t = as_tensor(a)
         return t.to(device=dev, dtype=dt or t.dtype)
 
     return {k: {f: leaf(a) for f, a in v.items()} for k, v in tree.items()}
@@ -80,8 +85,10 @@ def as_params(params: dict, dtype, device) -> dict:
 
 
 def to_numpy_params(params: dict) -> dict:
-    """The JAX layout of numpy arrays from port params."""
-    return {k: {f: t.detach().cpu().numpy() for f, t in v.items()}
+    """The JAX layout of numpy arrays from port params; a bfloat16 leaf as
+    the 2-byte void array of its bits (``io.checkpoint.as_numpy``), which a
+    checkpoint writes as the JAX package does."""
+    return {k: {f: as_numpy(t) for f, t in v.items()}
             for k, v in params.items()}
 
 

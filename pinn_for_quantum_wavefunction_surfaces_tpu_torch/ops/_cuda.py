@@ -1,10 +1,13 @@
 """What the CUDA kernel wrappers share: input checks, pointers, weight
 packing and the typed ctypes entry points of a built library.
 
-Each kernel library (``ops/_build.py``) exports ``<name>_f32`` and
-``<name>_f64`` with a plain C interface (device pointers, then ints, then
-doubles, then the stream) returning ``cudaGetLastError()`` of the launch,
-and an ``<prefix>_error_string`` that names such an error.
+Each kernel library (``ops/_build.py``) exports ``<name>_f32``,
+``<name>_f64`` and ``<name>_bf16`` with a plain C interface (device
+pointers, then ints, then doubles, then the stream) returning
+``cudaGetLastError()`` of the launch, and an ``<prefix>_error_string`` that
+names such an error. A bfloat16 build stores its tensors in bfloat16 and
+computes in float32 (``csrc/common.cuh``); its backward's rows of partial
+weight gradients are float32 (``partials_dtype``).
 """
 
 from __future__ import annotations
@@ -18,24 +21,30 @@ from . import _build
 # the widths every kernel is instantiated for (template parameter H)
 SUPPORTED_HIDDEN = (4, 8, 16, 32)
 MAX_POINTS = 2 ** 31 - 1024   # point index blockIdx.x * blockDim.x + tid
+# the storage types a kernel is built for: entry point suffix and the type
+# code of the libraries' queries (csrc/common.cuh kern::TypeCode)
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+TYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def check_inputs(hidden, ws, shapes, pts):
     """Raise unless the kernel takes these inputs: a supported width, CUDA
-    tensors of one float32/float64 dtype on one device, (n,) point arrays
-    with 32-bit indices, weights of the given shapes."""
+    tensors of one float32/float64/bfloat16 dtype on one device, (n,) point
+    arrays with 32-bit indices, weights of the given shapes."""
     if hidden not in SUPPORTED_HIDDEN:
         raise ValueError(f"hidden={hidden}: the CUDA kernels are built for "
                          f"H in {SUPPORTED_HIDDEN}")
     ref = pts[0]
-    if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"CUDA kernels take float32/float64, got {ref.dtype}")
+    if ref.dtype not in SUFFIX:
+        raise TypeError(f"CUDA kernels take float32/float64/bfloat16, got "
+                        f"{ref.dtype}")
+    for t in tuple(pts) + tuple(ws):
+        if t.dtype != ref.dtype:
+            raise TypeError("kernel inputs must share one dtype")
     for t in tuple(pts) + tuple(ws):
         if not t.is_cuda or t.device != ref.device:
             raise ValueError("all kernel inputs must be CUDA tensors on one "
                              "device")
-        if t.dtype != ref.dtype:
-            raise TypeError("kernel inputs must share one dtype")
     for t in pts:
         if t.shape != ref.shape or t.ndim != 1:
             raise ValueError("point arrays must all be (n,)")
@@ -48,7 +57,48 @@ def check_inputs(hidden, ws, shapes, pts):
 
 
 def suffix(dtype) -> str:
-    return "f64" if dtype == torch.float64 else "f32"
+    """The entry point suffix of a storage type."""
+    return SUFFIX[dtype]
+
+
+def partials_dtype(dtype) -> torch.dtype:
+    """The type of a backward kernel's rows of partial weight gradients:
+    the compute type (float32 for a bfloat16 build)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _map_tensors(fn, obj):
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(fn, o) for o in obj)
+    return obj
+
+
+def plain_as_built(plain, *args, **kw):
+    """``plain(*args, **kw)`` in the type semantics of the kernel build
+    that takes these tensors, the CPU route of a kernel wrapper: on
+    bfloat16 tensors (the points, after the weights) the plain version's
+    float32 arithmetic on their values, each output rounded once to
+    bfloat16 (as the bfloat16 builds do, csrc/common.cuh); on float32 and
+    float64 tensors the plain version itself."""
+    if args[1].dtype != torch.bfloat16:
+        return plain(*args, **kw)
+    out = plain(*_map_tensors(lambda t: t.float(), args), **kw)
+    return _map_tensors(lambda t: t.to(torch.bfloat16), out)
+
+
+def launch_key(name: str, dtype) -> str:
+    """The launch count a wrapper adds to: ``name``, or ``<name>_bf16`` for
+    the bfloat16 build."""
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
+
+
+def sum_partials(partials, dtype) -> torch.Tensor:
+    """The weight gradients of a backward launch: its rows of partials
+    summed in their fixed order, in the partials' type, then rounded once
+    to ``dtype``."""
+    return partials.sum(0).to(dtype)
 
 
 def ptr(t):
@@ -65,14 +115,14 @@ def pack(ws):
 
 def typed_lib(name: str, n_ptr: int, error_prefix: str,
               extra: tuple = (), n_extra_int: int = 0) -> ctypes.CDLL:
-    """The library of kernel ``name`` with the argument types of its two
+    """The library of kernel ``name`` with the argument types of its three
     entry points set: ``n_ptr`` pointers, (n, hidden, psym) ints and
     ``n_extra_int`` more, (ry, rz) doubles and the stream. ``extra`` names
     int-returning functions of no arguments."""
     lib = _build.load(name)
     if not getattr(lib, "_port_typed", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for sfx in ("f32", "f64"):
+        for sfx in SUFFIX.values():
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes = ([vp] * n_ptr + [ci] * (3 + n_extra_int)
                            + [cd, cd, vp])
@@ -91,10 +141,10 @@ def typed_lib(name: str, n_ptr: int, error_prefix: str,
 def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
               n_extra_int: int = 0) -> ctypes.CDLL:
     """``typed_lib`` of a kernel that works in tiles, its
-    ``<name>_points_per_tile(hidden, f64)`` checked once against the
+    ``<name>_points_per_tile(hidden, type code)`` checked once against the
     wrapper's ``points_per_tile(hidden, dtype)`` at every width and type
     (the wrapper sizes grids and partials from it), and the argument types
-    of ``<name>_occupancy(hidden, f64, int* smem_bytes)`` set, and of
+    of ``<name>_occupancy(hidden, type code, int* smem_bytes)`` set, and of
     ``<name>_pg_occupancy`` (the point-gradient instantiations of a
     backward kernel) where the library has it."""
     lib = typed_lib(name, n_ptr, error_prefix, n_extra_int=n_extra_int)
@@ -107,8 +157,8 @@ def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
                 occ = getattr(lib, fname)
                 occ.argtypes, occ.restype = [ci, ci, ctypes.POINTER(ci)], ci
         for h in SUPPORTED_HIDDEN:
-            for dt in (torch.float64, torch.float32):
-                got = tile(h, int(dt == torch.float64))
+            for dt in TYPE_CODE:
+                got = tile(h, TYPE_CODE[dt])
                 if got != points_per_tile(h, dt):
                     raise RuntimeError(
                         f"{name}: {got} points a tile at H={h} {dt}, the "
@@ -126,7 +176,7 @@ def occupancy(lib, hidden: int, dtype,
     name = lib._port_name + ("_pg" if point_grads else "")
     smem = ctypes.c_int(0)
     blocks = getattr(lib, f"{name}_occupancy")(
-        hidden, int(dtype == torch.float64), ctypes.byref(smem))
+        hidden, TYPE_CODE[dtype], ctypes.byref(smem))
     if blocks < 0:
         raise RuntimeError(f"{name}: occupancy query failed at H={hidden}")
     return blocks, smem.value
@@ -134,8 +184,9 @@ def occupancy(lib, hidden: int, dtype,
 
 def launch(lib, dtype, device, ptrs, n, hidden, p_sym, ry, rz,
            extra_ints: tuple = ()) -> None:
-    """Call the ``_f32`` or ``_f64`` entry point of a ``typed_lib`` on the
-    current stream of ``device``; raise if the launch was refused."""
+    """Call the entry point of ``dtype`` (``_f32``, ``_f64`` or ``_bf16``)
+    of a ``typed_lib`` on the current stream of ``device``; raise if the
+    launch was refused."""
     name = lib._port_name
     fn = getattr(lib, f"{name}_{suffix(dtype)}")
     with torch.cuda.device(device):

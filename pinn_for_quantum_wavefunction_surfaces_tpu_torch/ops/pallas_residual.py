@@ -20,7 +20,8 @@ Two implementations of one arithmetic live here:
   ``ops/_build.py``): K2-fwd's kernel templates (``csrc/train_fwd.cuh``)
   with a = 1, b = 0 and the gate evaluated per point in the kernel; float64
   on tiles of 32 points (16 at H = 32) with the second layer on the tensor
-  cores, float32 one thread a point.
+  cores, float32 one thread a point, bfloat16 the float32 kernel on
+  bfloat16 tensors.
 
 ``psi_lap_pallas`` dispatches on the device of its points: CUDA tensors
 launch the kernel (or the call raises), CPU tensors take the plain version.
@@ -36,9 +37,10 @@ import torch
 
 from . import _cuda, pallas_train
 
-# launch count of the CUDA kernel (a plain integer: a run can show that its
-# path went through the kernel). Only the CUDA wrapper adds to it.
-launches = {"residual_fwd": 0}
+# launch counts of the CUDA kernel, its bfloat16 build apart (plain
+# integers: a run can show that its path went through the kernel). Only the
+# CUDA wrapper adds to them.
+launches = {"residual_fwd": 0, "residual_fwd_bf16": 0}
 
 SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 # the gate's 3 Hg + 1 weights join the kernel's shared memory (6.2 KB in
@@ -83,7 +85,8 @@ def psi_lap_residual_plain(weights, x, y, z, r, *, p_sym: int = 1,
 
 def residual_fwd_cuda(weights, x, y, z, r, *, p_sym: int = 1,
                       ry: float = 0.0, rz: float = 0.0):
-    """K3 on the card: (psi, lap) for CUDA tensors."""
+    """K3 on the card: (psi, lap) for CUDA tensors (float32, float64, or
+    bfloat16 through the bfloat16 build)."""
     hidden, hidden_gate = weights[0].shape[1], weights[6].shape[1]
     if not 0 < hidden_gate <= MAX_HIDDEN_GATE:
         raise ValueError(f"hidden_gate={hidden_gate}: the CUDA kernel takes "
@@ -97,13 +100,14 @@ def residual_fwd_cuda(weights, x, y, z, r, *, p_sym: int = 1,
     _cuda.launch(_lib(), pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), pts[0].shape[0],
                  hidden, p_sym, ry, rz, extra_ints=(hidden_gate,))
-    launches["residual_fwd"] += 1
+    launches[_cuda.launch_key("residual_fwd", pts[0].dtype)] += 1
     return psi, lap
 
 
 def _lib():
     """The typed library of K3, with the argument types of
-    ``residual_fwd_occupancy(hidden, hidden_gate, f64, int* smem)`` set."""
+    ``residual_fwd_occupancy(hidden, hidden_gate, type code, int* smem)``
+    set."""
     lib = _cuda.typed_lib("residual_fwd", 7, "train", n_extra_int=1)
     occ = lib.residual_fwd_occupancy
     if occ.argtypes is None:
@@ -113,7 +117,8 @@ def _lib():
 
 
 def threads(dtype) -> int:
-    """Threads a block of K3: 256 on float64 tiles, 128 in float32."""
+    """Threads a block of K3: 256 on float64 tiles, 128 in float32 and
+    bfloat16."""
     return 256 if dtype == torch.float64 else 128
 
 
@@ -122,7 +127,7 @@ def occupancy(hidden: int, hidden_gate: int, dtype) -> tuple[int, int]:
     these widths and dtype on the current card."""
     smem = ctypes.c_int(0)
     blocks = _lib().residual_fwd_occupancy(
-        hidden, hidden_gate, int(dtype == torch.float64), ctypes.byref(smem))
+        hidden, hidden_gate, _cuda.TYPE_CODE[dtype], ctypes.byref(smem))
     if blocks < 0:
         raise RuntimeError(f"residual_fwd: occupancy query failed at "
                            f"H={hidden}, Hg={hidden_gate}")
@@ -161,4 +166,4 @@ def psi_lap_pallas(params: dict, mcfg, x, y, z, r):
               rz=float(mcfg.rz))
     if x.is_cuda:
         return residual_fwd_cuda(ws, x, y, z, r, **kw)
-    return psi_lap_residual_plain(ws, x, y, z, r, **kw)
+    return _cuda.plain_as_built(psi_lap_residual_plain, ws, x, y, z, r, **kw)

@@ -42,9 +42,11 @@ from ..models.ansatz import LOG_CORR_CAP
 from . import _cuda
 
 # launch counts of the CUDA kernels, K1-bwd's point-gradient instantiation
-# apart (plain integers: a run can show that its path went through the
-# kernels). Only the CUDA wrappers add to them.
-launches = {"separable_fwd": 0, "separable_bwd": 0, "separable_bwd_pg": 0}
+# and each bfloat16 build (``_bf16``) apart (plain integers: a run can show
+# that its path went through the kernels). Only the CUDA wrappers add to
+# them.
+launches = {k + sfx: 0 for sfx in ("", "_bf16")
+            for k in ("separable_fwd", "separable_bwd", "separable_bwd_pg")}
 
 SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 
@@ -409,7 +411,8 @@ def occupancy(name: str, hidden: int, dtype,
 
 def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
                        ry: float = 0.0, rz: float = 0.0):
-    """K1 forward on the card: (psi, lap) for CUDA tensors."""
+    """K1 forward on the card: (psi, lap) for CUDA tensors (float32,
+    float64, or bfloat16 through the bfloat16 build)."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
     _cuda.check_inputs(hidden, weights, weight_shapes(hidden), pts)
@@ -421,7 +424,7 @@ def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
                  ry, rz, extra_ints=(max(1, n_tiles(n, hidden)),))
-    launches["separable_fwd"] += 1
+    launches[_cuda.launch_key("separable_fwd", pts[0].dtype)] += 1
     return psi, lap
 
 
@@ -432,7 +435,8 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
     ``point_grads`` also (dx, dy, dz, dr) from the kernel's point-gradient
     instantiation. Each block writes one row of partial weight gradients,
     summed in a fixed order (no atomics); the rows are summed here —
-    repeatable bit for bit."""
+    repeatable bit for bit. For bfloat16 tensors the rows are float32 and
+    their sums are rounded once to bfloat16."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
     shapes = weight_shapes(hidden)
@@ -443,7 +447,9 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
     lib = _lib("separable_bwd")
     grid = grid_blocks(n, hidden)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
-    partials = torch.empty((grid, sum(sizes)), dtype=pts[0].dtype,
+    dtype = pts[0].dtype
+    partials = torch.empty((grid, sum(sizes)),
+                           dtype=_cuda.partials_dtype(dtype),
                            device=pts[0].device)
     da = torch.empty_like(pts[0])
     db = torch.empty_like(pts[0])
@@ -453,9 +459,10 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
                  (*pts, _cuda.pack(weights), dpsi, dlap, da, db, partials,
                   *dpts), n, hidden, p_sym, ry, rz,
                  extra_ints=(grid, int(point_grads)))
-    launches["separable_bwd_pg" if point_grads else "separable_bwd"] += 1
-    dws = tuple(g.reshape(s) for g, s in
-                zip(torch.split(partials.sum(0), sizes), shapes))
+    launches[_cuda.launch_key(
+        "separable_bwd_pg" if point_grads else "separable_bwd", dtype)] += 1
+    dws = tuple(g.reshape(s) for g, s in zip(
+        torch.split(_cuda.sum_partials(partials, dtype), sizes), shapes))
     return (dws, da, db) + (dpts if point_grads else ())
 
 
@@ -477,15 +484,21 @@ class SeparableKernel(torch.autograd.Function):
         kw = dict(p_sym=p_sym, ry=ry, rz=rz)
         if a.is_cuda:
             return separable_fwd_cuda(weights, a, b, x, y, z, r, **kw)
-        return psi_lap_separable_plain(weights, a, b, x, y, z, r, **kw)
+        return _cuda.plain_as_built(psi_lap_separable_plain, weights, a, b,
+                                    x, y, z, r, **kw)
 
     @staticmethod
     def backward(ctx, dpsi, dlap):
         a, b, x, y, z, r, *weights = ctx.saved_tensors
         p_sym, ry, rz, point_grads = ctx.cfg
         kw = dict(p_sym=p_sym, ry=ry, rz=rz, point_grads=point_grads)
-        vjp = separable_bwd_cuda if a.is_cuda else psi_lap_separable_vjp_plain
-        dws, da, db, *dpts = vjp(weights, a, b, x, y, z, r, dpsi, dlap, **kw)
+        if a.is_cuda:
+            out = separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap,
+                                     **kw)
+        else:
+            out = _cuda.plain_as_built(psi_lap_separable_vjp_plain, weights,
+                                       a, b, x, y, z, r, dpsi, dlap, **kw)
+        dws, da, db, *dpts = out
         return (None, da, db, *(dpts or (None,) * 4)) + tuple(dws)
 
 

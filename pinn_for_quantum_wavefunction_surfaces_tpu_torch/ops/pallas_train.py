@@ -40,9 +40,11 @@ from . import _cuda
 from .pallas_separable import geometry_vjp
 
 # launch counts of the CUDA kernels, K2-bwd's point-gradient instantiation
-# apart (plain integers: a run can show that its path went through the
-# kernels). Only the CUDA wrappers add to them.
-launches = {"train_fwd": 0, "train_bwd": 0, "train_bwd_pg": 0}
+# and each bfloat16 build (``_bf16``) apart (plain integers: a run can show
+# that its path went through the kernels). Only the CUDA wrappers add to
+# them.
+launches = {k + sfx: 0 for sfx in ("", "_bf16")
+            for k in ("train_fwd", "train_bwd", "train_bwd_pg")}
 
 SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 
@@ -290,10 +292,11 @@ def psi_lap_train_vjp_plain(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
 
 # The kernels' work layout. Float64 (csrc/train_tile.cuh): blocks of 256
 # threads walk tiles of 32 points (16 at H = 32). Float32: one thread a
-# point, 128 points a block. K2-fwd takes one block a tile; K2-bwd's grid
-# is capped at the resident blocks per SM its __launch_bounds__ asks for
-# times the H100's 132 SMs, so one wave.
-GRID_BLOCKS_PER_SM = {torch.float64: 2, torch.float32: 3}
+# point, 128 points a block; bfloat16 as float32 (the float32 kernels on
+# bfloat16 tensors). K2-fwd takes one block a tile; K2-bwd's grid is capped
+# at the resident blocks per SM its __launch_bounds__ asks for times the
+# H100's 132 SMs, so one wave.
+GRID_BLOCKS_PER_SM = {torch.float64: 2, torch.float32: 3, torch.bfloat16: 3}
 N_SM = 132
 
 
@@ -344,7 +347,8 @@ def threads(dtype) -> int:
 
 def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
                    ry: float = 0.0, rz: float = 0.0):
-    """K2 forward on the card: (psi, lap) for CUDA tensors."""
+    """K2 forward on the card: (psi, lap) for CUDA tensors (float32,
+    float64, or bfloat16 through the bfloat16 build)."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b, g)
     _cuda.check_inputs(hidden, weights, weight_shapes(hidden), pts)
@@ -356,7 +360,7 @@ def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
                  ry, rz)
-    launches["train_fwd"] += 1
+    launches[_cuda.launch_key("train_fwd", pts[0].dtype)] += 1
     return psi, lap
 
 
@@ -367,7 +371,8 @@ def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
     ``point_grads`` also (dx, dy, dz, dr) from the kernels' point-gradient
     instantiations. Each block writes one row of partial weight gradients,
     summed in a fixed order (no atomics); the rows are summed here —
-    repeatable bit for bit."""
+    repeatable bit for bit. For bfloat16 tensors the rows are float32 and
+    their sums are rounded once to bfloat16."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b, g)
     shapes = weight_shapes(hidden)
@@ -379,7 +384,8 @@ def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
     lib = _lib("train_bwd")
     grid = grid_blocks(n, hidden, dtype)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
-    partials = torch.empty((grid, sum(sizes)), dtype=dtype,
+    partials = torch.empty((grid, sum(sizes)),
+                           dtype=_cuda.partials_dtype(dtype),
                            device=pts[0].device)
     da, db, dg = (torch.empty_like(pts[0]) for _ in range(3))
     dpts = tuple(torch.empty_like(pts[0]) if point_grads else None
@@ -388,9 +394,10 @@ def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
                  (*pts, _cuda.pack(weights), dpsi, dlap, da, db, dg,
                   partials, *dpts), n, hidden, p_sym, ry, rz,
                  extra_ints=(grid, int(point_grads)))
-    launches["train_bwd_pg" if point_grads else "train_bwd"] += 1
-    dws = tuple(t.reshape(s) for t, s in
-                zip(torch.split(partials.sum(0), sizes), shapes))
+    launches[_cuda.launch_key(
+        "train_bwd_pg" if point_grads else "train_bwd", dtype)] += 1
+    dws = tuple(t.reshape(s) for t, s in zip(
+        torch.split(_cuda.sum_partials(partials, dtype), sizes), shapes))
     return (dws, da, db, dg) + (dpts if point_grads else ())
 
 
@@ -412,16 +419,21 @@ class TrainKernel(torch.autograd.Function):
         kw = dict(p_sym=p_sym, ry=ry, rz=rz)
         if a.is_cuda:
             return train_fwd_cuda(weights, a, b, g, x, y, z, r, **kw)
-        return psi_lap_train_plain(weights, a, b, g, x, y, z, r, **kw)
+        return _cuda.plain_as_built(psi_lap_train_plain, weights, a, b, g, x,
+                                    y, z, r, **kw)
 
     @staticmethod
     def backward(ctx, dpsi, dlap):
         a, b, g, x, y, z, r, *weights = ctx.saved_tensors
         p_sym, ry, rz, point_grads = ctx.cfg
         kw = dict(p_sym=p_sym, ry=ry, rz=rz, point_grads=point_grads)
-        vjp = train_bwd_cuda if a.is_cuda else psi_lap_train_vjp_plain
-        dws, da, db, dg, *dpts = vjp(weights, a, b, g, x, y, z, r, dpsi,
-                                     dlap, **kw)
+        if a.is_cuda:
+            out = train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap,
+                                 **kw)
+        else:
+            out = _cuda.plain_as_built(psi_lap_train_vjp_plain, weights, a,
+                                       b, g, x, y, z, r, dpsi, dlap, **kw)
+        dws, da, db, dg, *dpts = out
         return (None, da, db, dg, *(dpts or (None,) * 4)) + tuple(dws)
 
 

@@ -173,8 +173,10 @@ def distill(params: dict, cfg: Config, n: Optional[int] = None,
     new_params = fit_energy_head(params, r, t, lr=lr, steps=steps)
     ref = new_params["e1"]["w"]
     with torch.no_grad():
+        # widened to float32 for numpy where the head is bfloat16 (exact)
         e_fit = ansatz.energy(new_params, torch.as_tensor(
-            r, dtype=ref.dtype, device=ref.device)).cpu().numpy()
+            r, dtype=ref.dtype, device=ref.device)).cpu().to(
+                torch.promote_types(ref.dtype, torch.float32)).numpy()
     info = {"R": r, "targets": t, "fit": e_fit,
             "fit_rms": float(np.sqrt(np.mean((e_fit - t) ** 2))),
             "seconds": {"targets": t1 - t0,

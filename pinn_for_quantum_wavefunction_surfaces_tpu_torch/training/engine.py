@@ -38,6 +38,7 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device, resolve_dtype
+from ..io.checkpoint import as_tensor
 from ..models import ansatz
 from ..ops.sampling import Batch, sample_batch
 from ..parallel.mesh import shard_batch
@@ -88,8 +89,7 @@ class _Layout:
         """The trainable leaves of ``tree`` (tensors or numpy arrays) as one
         fresh vector."""
         def leaf(v):
-            v = v if isinstance(v, torch.Tensor) else \
-                torch.as_tensor(np.asarray(v))
+            v = v if isinstance(v, torch.Tensor) else as_tensor(v)
             return v.detach().reshape(-1).to(device=device, dtype=dtype)
         return torch.cat([leaf(tree[k][f]) for k, f in self.train])
 
@@ -323,7 +323,9 @@ def train(cfg: Config,
     t0 = time.perf_counter()
     while n_done < t.epochs:
         n = min(t.scan_chunk, t.epochs - n_done)
-        hist = torch.empty((n, 4), dtype=tr.dtype, device=dev)
+        # the history in the loss type (numpy has no bfloat16: a bfloat16
+        # run's rows widen exactly to float32)
+        hist = torch.empty((n, 4), dtype=tr.loss_dtype, device=dev)
         for j in range(n):
             hist[j] = torch.stack(tuple(tr.advance(sample)))
         n_done += n

@@ -123,7 +123,10 @@ def train_per_r_vmapped(cfg: Config, r_values: Sequence[float], mesh=None,
                                        generator=gen, device=dev))
         samplers.append(lambda g, ri=ri: sample_batch_at_r(
             g, cfg, ri, n=t.n_train, device=dev))
-    losses = torch.empty((t.epochs, len(trainers)), dtype=dtype, device=dev)
+    # the loss history in the loss type (float32 for bfloat16 models)
+    losses = torch.empty((t.epochs, len(trainers)),
+                         dtype=torch.promote_types(dtype, torch.float32),
+                         device=dev)
     for e in range(t.epochs):
         for j, (tr, sample) in enumerate(zip(trainers, samplers)):
             losses[e, j] = tr.advance(sample).l_tot

@@ -68,17 +68,34 @@ class VBatch(NamedTuple):
     r: torch.Tensor   # (n_r,)
 
 
+def _work(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type of the quotients' pointwise products and sums: a
+    bfloat16 value widened to float32 (exactly), float32 and float64 as
+    they are. XLA keeps float32 between the ops of the JAX package's
+    bfloat16 fusions; rounding H psi and each weighted product to bfloat16
+    in turn put a quotient five bfloat16 units off."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _psi_hpsi_rows(params: dict, cfg: Config, vb: VBatch):
     """psi and H psi on the batch's (n_r, n_pts) rows, through the kernel
     of the params' family or the forward-Laplacian pass
-    (``routing.psi_lap``)."""
+    (``routing.psi_lap``), in the ``_work`` type."""
     n_r, n_pts = vb.x.shape
     rr = vb.r[:, None].expand(n_r, n_pts).reshape(-1)
     psi_f, lap_f, _ = routing.psi_lap(params, cfg.model, vb.x.reshape(-1),
                                       vb.y.reshape(-1), vb.z.reshape(-1), rr)
-    psi = psi_f.reshape(n_r, n_pts)
-    lap = lap_f.reshape(n_r, n_pts)
-    v = operators.potential(cfg.model, vb.x, vb.y, vb.z, vb.r[:, None])
+    return _hpsi(cfg, vb, psi_f, lap_f)
+
+
+def _hpsi(cfg: Config, vb: VBatch, psi_f, lap_f):
+    """(psi, H psi) on the batch's rows from flat psi and lap psi, in the
+    ``_work`` type."""
+    n_r, n_pts = vb.x.shape
+    psi = _work(psi_f).reshape(n_r, n_pts)
+    lap = _work(lap_f).reshape(n_r, n_pts)
+    v = operators.potential(cfg.model, _work(vb.x), _work(vb.y),
+                            _work(vb.z), _work(vb.r)[:, None])
     return psi, -0.5 * lap + v * psi
 
 
@@ -101,9 +118,10 @@ def quotient_loss(params: dict, cfg: Config, vb: VBatch,
     aux's ``e_r`` is this batch's rows."""
     mean = _row_mean(mesh)
     psi, hpsi = _psi_hpsi_rows(params, cfg, vb)
-    num = torch.sum(vb.w * psi * hpsi, dim=1)
-    den = torch.sum(vb.w * psi * psi, dim=1)
-    e_r = num / den
+    w = _work(vb.w)
+    num = torch.sum(w * psi * hpsi, dim=1)
+    den = torch.sum(w * psi * psi, dim=1)
+    e_r = (num / den).to(vb.w.dtype)
     e_head = ansatz.energy(params, vb.r)
     l_head = mean((e_head - e_r.detach()) ** 2)
     e_mean = mean(e_r)
@@ -147,13 +165,14 @@ def quotient_loss_deflated(params: dict, cfg: Config, vb: VBatch,
     psi, hpsi = _psi_hpsi_rows(params, cfg, vb)
     if psi0.ndim == 2:
         psi0 = psi0[None]                          # (k=1, rows, pts)
-    w = vb.w
+    psi0, w = _work(psi0), _work(vb.w)
     n_ = torch.sum(w * psi * psi, dim=1)
     s_ = torch.sum(w * psi * hpsi, dim=1)
     o = torch.sum(w * psi * psi0, dim=2)           # (k, rows) <psi, phi_i>
     n0 = torch.sum(w * psi0 * psi0, dim=2)         # (k, rows)
-    q_r = s_ / n_
-    contam = torch.sum(o * o / n0, dim=0) / n_     # (rows,) in [0, 1]
+    q_r = (s_ / n_).to(vb.w.dtype)
+    # (rows,) in [0, 1]
+    contam = (torch.sum(o * o / n0, dim=0) / n_).to(vb.w.dtype)
     e_head = ansatz.energy(params, vb.r)
     l_head = mean((e_head - q_r.detach()) ** 2)
     e_mean = mean(q_r)
@@ -175,9 +194,7 @@ def reference_state_on_batch(params0: dict, cfg: Config, vb: VBatch):
     psi_f, lap_f = energy.psi_lap_forward(
         params0, cfg.model, vb.x.reshape(-1), vb.y.reshape(-1),
         vb.z.reshape(-1), rr)
-    psi0 = psi_f.reshape(n_r, n_pts)
-    v = operators.potential(cfg.model, vb.x, vb.y, vb.z, vb.r[:, None])
-    hpsi0 = -0.5 * lap_f.reshape(n_r, n_pts) + v * psi0
+    psi0, hpsi0 = _hpsi(cfg, vb, psi_f, lap_f)
     return psi0.detach(), hpsi0.detach()
 
 
@@ -189,10 +206,11 @@ def reference_states_on_batch(params_list, cfg: Config, vb: VBatch):
     ps, hs = zip(*(reference_state_on_batch(p, cfg, vb)
                    for p in params_list))
     ps, hs = list(ps), list(hs)
+    w = _work(vb.w)
     for i in range(1, len(ps)):
         for j in range(i):
-            coef = (torch.sum(vb.w * ps[i] * ps[j], dim=1)
-                    / torch.sum(vb.w * ps[j] * ps[j], dim=1))[:, None]
+            coef = (torch.sum(w * ps[i] * ps[j], dim=1)
+                    / torch.sum(w * ps[j] * ps[j], dim=1))[:, None]
             ps[i] = ps[i] - coef * ps[j]
             hs[i] = hs[i] - coef * hs[j]
     return torch.stack(ps), torch.stack(hs)
@@ -215,10 +233,10 @@ def contamination_curve(params: dict, refs, cfg: Config, r_values,
     with torch.no_grad():
         psi, _ = ansatz.psi(params, cfg.model, vb.x.reshape(-1),
                             vb.y.reshape(-1), vb.z.reshape(-1), rr)
-        psi = psi.reshape(n_r, n_pts)
-        n_ = torch.sum(vb.w * psi * psi, dim=1)
-        o = torch.sum(vb.w * psi * ps, dim=2)
-        n0 = torch.sum(vb.w * ps * ps, dim=2)
+        psi, w = _work(psi.reshape(n_r, n_pts)), _work(vb.w)
+        n_ = torch.sum(w * psi * psi, dim=1)
+        o = torch.sum(w * psi * ps, dim=2)
+        n0 = torch.sum(w * ps * ps, dim=2)
         return (torch.sum(o * o / n0, dim=0) / n_).cpu().numpy()
 
 
@@ -666,7 +684,11 @@ def train_variational(cfg: Config, params: Optional[dict] = None,
     t0 = time.perf_counter()
     while n_done < epochs:
         n = min(t.scan_chunk, epochs - n_done)
-        hist = torch.empty((n, 3), dtype=dtype, device=dev)
+        # in the loss type (float32 for bfloat16 params: numpy has no
+        # bfloat16)
+        hist = torch.empty((n, 3),
+                           dtype=torch.promote_types(dtype, torch.float32),
+                           device=dev)
         for j in range(n):
             vb = sample_vbatch(gen, cfg, n_r, n_pts, antithetic=antithetic,
                                stratified=stratified, device=dev)

@@ -29,7 +29,10 @@ from test_torch_separable import (ARTIFACTS, jax_model,  # noqa: F401
 
 PORT_DIR = os.path.dirname(port.__file__)
 REPO = os.path.dirname(PORT_DIR)
-FORBIDDEN = ("jax", "jaxlib", "optax", "pinn_for_quantum_wavefunction_surfaces_tpu")
+# the JAX stack, the JAX package, and ml_dtypes (JAX's bfloat16 for numpy:
+# the card's host has none, so the port's bfloat16 is torch's alone)
+FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes",
+             "pinn_for_quantum_wavefunction_surfaces_tpu")
 
 
 def assert_same_psi(np_params, p_sym=1):

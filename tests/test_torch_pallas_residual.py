@@ -74,7 +74,7 @@ def test_plain_matches_pallas_interpret_and_fwdlap(p_sym, dtype, ry, rz):
                                        atol=2e-6)
             np.testing.assert_allclose(lap_t.numpy(), np.asarray(want_lap),
                                        atol=2e-6)
-    assert tpr.launches == {"residual_fwd": 0}
+    assert tpr.launches == {"residual_fwd": 0, "residual_fwd_bf16": 0}
 
 
 @pytest.mark.parametrize("hidden,hidden_gate,p_sym", [
@@ -160,7 +160,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                              torch.float64)
     with pytest.raises(ValueError, match="hidden=5"):
         tpr.residual_fwd_cuda(ws5, *pts)
-    assert tpr.launches == {"residual_fwd": 0}
+    assert tpr.launches == {"residual_fwd": 0, "residual_fwd_bf16": 0}
 
 
 @pytest.mark.parametrize("p_sym", [1, -1])

@@ -184,14 +184,42 @@ def _help_flags(main, sub, capsys) -> set:
     return set(re.findall(r"(?<![\w-])(--[a-z][a-z0-9-]*)", text))
 
 
-@pytest.mark.parametrize("sub", ["sweep", "train", "finetune"])
+# the flags of a port subcommand that its JAX counterpart lacks, and why:
+# every device-running subcommand takes --device; the scoring subcommands
+# take --arch (a model.bin or .npz of the minimal family scores as that
+# family); bench takes the root bench.py's flags (the JAX CLI's bench
+# takes --n only)
+PORT_ONLY_FLAGS = {
+    "energy": {"--device", "--arch"}, "analyze": {"--device", "--arch"},
+    "distill": {"--device", "--arch"}, "evaluate": {"--device", "--arch"},
+    "export": set(), "vibrations": set(),
+    "bench": {"--device", "--arch", "--dtype", "--steps", "--repeats",
+              "--no-baseline"},
+}
+
+
+def _dtype_choices(main, sub, capsys) -> list:
+    with pytest.raises(SystemExit):
+        main([sub, "--help"])
+    return re.findall(r"--dtype \{([^}]*)\}", capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("sub", ["sweep", "train", "finetune", "variational",
+                                 "energy", "analyze", "distill", "evaluate",
+                                 "export", "vibrations", "bench"])
 def test_cli_parsers_list_the_jax_flags(sub, capsys):
-    """The port's residual parsers (sweep, train, finetune) list the JAX
-    CLI's flags but for its XLA switches (--kernel, --remat), with the
-    port's --device and (train) --profile, --resume in both."""
+    """Every port subcommand lists its JAX counterpart's flags but for the
+    XLA switches (--kernel, --remat), with the port's own flags of
+    PORT_ONLY_FLAGS, and the same --dtype choices in the same order
+    (float32, float64, bfloat16) wherever the JAX subcommand takes
+    --dtype."""
     want = _help_flags(jcli.main, sub, capsys) - {"--kernel", "--remat"}
-    got = _help_flags(cli.main, sub, capsys) - {"--device"}
+    got = _help_flags(cli.main, sub, capsys) - PORT_ONLY_FLAGS.get(
+        sub, {"--device"})
     assert got == want, (sorted(got - want), sorted(want - got))
+    want_dtypes = _dtype_choices(jcli.main, sub, capsys)
+    if want_dtypes:
+        assert _dtype_choices(cli.main, sub, capsys) == want_dtypes
 
 
 def _train_both(tmp_path, capsys, sub, flags):

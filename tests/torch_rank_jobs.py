@@ -222,3 +222,29 @@ def entry_points_job(mesh, inp: dict) -> dict:
     torch.set_num_threads(1)
     return {"dryrun": graft_entry.dryrun_multichip(mesh.size, device="cpu"),
             "scaling": scaling._row(mesh, **inp["scaling"])}
+
+
+def bfloat16_job(mesh) -> dict:
+    """engine.train and the spheroidal polish in bfloat16 on this rank of
+    the mesh (seeded inits and batches, smoke sizes): rank 0's loss
+    history, and whether every rank holds the same params bit for bit."""
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    torch.set_num_threads(1)
+    cfg = config.Config(
+        model=config.ModelConfig(gz=True, trainable_exponent=True),
+        train=config.TrainConfig(n_train=256, epochs=4), dtype="bfloat16")
+    res = engine.train(cfg, mesh=mesh, device="cpu")
+    scfg = config.Config(model=config.ModelConfig(arch="separable"),
+                         dtype="bfloat16")
+    polished = variational.polish_spheroidal(
+        None, scfg, n_r=4, n_xi=8, n_eta=6, steps=2, adam_steps=2,
+        mesh=mesh, device="cpu")
+    return {
+        "train_Ltot": res.history["Ltot"],
+        "train_same_on_ranks": _same_on_ranks(mesh, [
+            a.view(np.int16) for v in res.params.values()
+            for a in v.values()]),
+        "polish_dtype": str(polished["lam1"]["w"].dtype),
+        "polish_same_on_ranks": _same_on_ranks(mesh, [
+            t.view(torch.int16).numpy() for t in _leaves(polished)]),
+    }
