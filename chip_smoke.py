@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
     line's ceiling chains (csrc/ceiling.cu), one nvcc per source, all in
     parallel; ptxas registers and spills of every instantiation (the
     backward kernels' point-gradient ones marked PG), and no K3
-    instantiation at H <= 16 may spill; the shared memory per block and
+    instantiation, and no float32 or bfloat16 training instantiation of
+    K1, at H <= 16 may spill; the shared memory per block and
     resident blocks per SM of K1 and K2 at every width in the three types,
     PG too, and of K3 at every width and gate width 1, 10 and 256;
  K1, the separable-spheroidal variational trainer (make flagship):
@@ -21,7 +22,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
     autograd of the plain forward under seeded random cotangents, and two
     K1-bwd launches equal bit for bit; the same at 9 216 points (one
     spheroidal quotient of make evaluate), and at that quotient at the
-    other widths (H = 4, 8, 32; seeded weights) in float64;
+    other widths (H = 4, 8, 32; seeded weights) in both types;
  4. scoring: the flagship's E_int through K1-fwd at R = 0.2, 1, 2, 4 within
     [-1e-4, 0.01] mHa of the exact oracle;
  5. training: the port's polish_spheroidal at the flagship recipe's sizes
@@ -89,9 +90,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
     launches counted; its point gradients against the CPU on a slice; the
     PG kernels against the plain point_grads VJPs (dx..dr, the weights, a,
     b, g) at those sizes and at H = 4, 8, 32 on 1 100 points in both
-    sectors, with bitwise repeats; central differences of psi and lap psi
-    in x and R at 64 float64 points; CUDA-event times of the PG and the
-    training launches side by side, beside the bound.
+    sectors (K1 in float32 too), with bitwise repeats; central
+    differences of psi and lap psi in x and R at 64 float64 points;
+    CUDA-event times of the PG and the training launches side by side,
+    beside the bound.
  The excited-state families (node factors, the |m| transverse factor,
  deflation), which no kernel carries: their psi and lap psi take the plain
  forward-Laplacian pass on CUDA tensors, and K1-fwd runs only for
@@ -139,7 +141,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
     the EMA's quotient over four fresh batches no higher than the start's
     by 3 standard errors; 10 steps of the minimal and of an R-input model
     at that batch (the plain fwdlap path: steps/s, peak memory, no launch);
-    float32 K1's times at that batch beside the bound; --lbfgs 20
+    float32 K1's times at that batch (K1-bwd-pg too) beside the bound and
+    the plain versions; --lbfgs 20
     (polish_lbfgs, separable, float64): evaluations a step, the objective
     on its batch not higher; d: cli train --arch
     minimal at minimal_config (10 000 points, 1 000 epochs, float32, not
@@ -202,9 +205,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
     families' points/s finite, 0 < peak_fraction, the FMA ceiling at most
     105% of 67 TFLOP/s, exactly 400 launches of K2-fwd, K2-bwd, K1-fwd and
     K1-bwd, K2's and K1's kernels in the profiler's rows of a short run of
-    each; the ceiling chains (csrc/ceiling.cu, built in phase 2) against
-    their plain versions at 4 iterations and at the bench's own shape
-    (normwise, CEILING_FULL_TOL), and their rates on a line of their own;
+    each; float32 K1 at the bench line's batch against its plain versions
+    and its times (K1-bwd-pg too) beside the bound; the ceiling chains
+    (csrc/ceiling.cu, built in phase 2) against their plain versions at 4
+    iterations and at the bench's own shape (normwise, CEILING_FULL_TOL),
+    and their rates on a line of their own;
     b: graft_entry.entry() on the card (one K1-fwd launch) against the same
     fn on the host CPU, 1e-4 relative; c: dryrun_multichip(1) (NCCL at
     world size 1; K1 and K2 launched); d: benchmarks pallas_ab (421 K3
@@ -254,6 +259,11 @@ rayleigh_quotient_sharded, and cli sweep's family of 4 models; each
 within 1e-8 (relative) of one card; then dryrun_multichip(N) and the
 scaling benchmark on 1 to N cards; then cli train --dtype bfloat16 --mesh
 N (its first step's loss within 2e-2 of one card's, finite and falling).
+
+``python3 chip_smoke.py --k1-times [ROOT]`` times K1 built from the package
+under ROOT (default: this checkout; a parent commit's package unpacked by
+``git archive`` into a git-ignored directory of it compares two builds in
+one call), as ``k1_times`` says, and prints one JSON line.
 
 Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
 the card line, and last
@@ -1682,6 +1692,12 @@ def pg_phase(dev, card: str) -> list[dict]:
                         args = (a, b, ansatz.gate(p, pts[3]), *pts)
                 pg_check(kind, f"H={h} P={p_sym} n={n} float64", ws, args,
                          dict(p_sym=p_sym), gen, 1e-8, 1e-8)
+                if kind == "K1":
+                    # float32's one-thread-a-point kernels are instantiated
+                    # per width: the same points and weights rounded once
+                    f32 = [t.float() for t in ws], [t.float() for t in args]
+                    pg_check(kind, f"H={h} P={p_sym} n={n} float32", *f32,
+                             dict(p_sym=p_sym), gen, 1e-4, 1e-4)
     sys.stdout.flush()
 
     # central differences of the forward kernels, independent of the plain
@@ -2218,18 +2234,22 @@ def against_plain_f32(label, loss_fn, params32):
           f"{ep:.3e}; {worst:.3f} of the bound)")
 
 
-def mc_kernel_check(mod, params, mcfg, vb, card: str) -> None:
+def mc_kernel_check(mod, params, mcfg, vb, card: str,
+                    where: str = "MC") -> dict:
     """A float32 kernel pair (K1 of ``ops.pallas_separable`` or K2 of
-    ``ops.pallas_train``) at a Monte-Carlo batch: the forward elementwise
-    and the backward normwise (on random cotangents) against the plain
-    versions at the kernel's float32 bounds, two backward launches bit for
-    bit, and the times of both beside the plain versions and the bound."""
+    ``ops.pallas_train``) at a Monte-Carlo batch (``vb``: r per row of x),
+    or at a residual batch (r per point): the forward elementwise and the
+    backward normwise (on random cotangents) against the plain versions at
+    the kernel's float32 bounds, two backward launches bit for bit, and the
+    times of both (K1's point-gradient launch too) beside the plain
+    versions and the bound. Returns the times, bounds and errors."""
     import torch
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
         ansatz
     k1 = hasattr(mod, "separable_fwd_cuda")
     dt = torch.float32
-    rr = vb.r[:, None].expand_as(vb.x).reshape(-1)
+    rr = vb.r if vb.r.shape == vb.x.shape else \
+        vb.r[:, None].expand_as(vb.x).reshape(-1)
     pts = tuple(t.reshape(-1) for t in (vb.x, vb.y, vb.z))
     n = rr.numel()
     p_sym = mcfg.inversion_symmetry
@@ -2265,11 +2285,11 @@ def mc_kernel_check(mod, params, mcfg, vb, card: str) -> None:
         want = bwd_plain(ws, *args, dpsi, dlap, **kw)
     torch.cuda.synchronize()
     tol_psi, tol_lap, tol_bwd = bounds(psi_p, lap_p)
-    label = f"{name} float32 at the MC batch ({n} points)"
-    e_psi = check_close(f"{name}-fwd psi MC", psi_k, psi_p, *tol_psi)
-    e_lap = check_close(f"{name}-fwd lap MC", lap_k, lap_p, *tol_lap)
+    label = f"{name} float32 at the {where} batch ({n} points)"
+    e_psi = check_close(f"{name}-fwd psi {where}", psi_k, psi_p, *tol_psi)
+    e_lap = check_close(f"{name}-fwd lap {where}", lap_k, lap_p, *tol_lap)
     got, again, want = ([*out[0], *out[1:]] for out in (got, again, want))
-    worst = max((check_normwise(f"{name}-bwd {nm} MC", u, v, tol_bwd)
+    worst = max((check_normwise(f"{name}-bwd {nm} {where}", u, v, tol_bwd)
                  for nm, u, v in zip(names, got, want)), key=lambda e: e[1])
     if not all(torch.equal(u, v) for u, v in zip(got, again)):
         raise AssertionError(f"{label}: two backward launches differ")
@@ -2279,29 +2299,44 @@ def mc_kernel_check(mod, params, mcfg, vb, card: str) -> None:
           f"equal")
     with torch.no_grad():
         t = {"fwd": cuda_ms(lambda: fwd(ws, *args, **kw),
-                            label=f"{name}-fwd f32 MC"),
+                            label=f"{name}-fwd f32 {where}"),
              "fwd_plain": cuda_ms(lambda: fwd_plain(ws, *args, **kw), reps=2,
                                   label=f"{name}-fwd plain"),
              "bwd": cuda_ms(lambda: bwd(ws, *args, dpsi, dlap, **kw),
-                            label=f"{name}-bwd f32 MC"),
+                            label=f"{name}-bwd f32 {where}"),
              "bwd_plain": cuda_ms(lambda: bwd_plain(ws, *args, dpsi, dlap,
                                                     **kw), reps=2,
                                   label=f"{name}-bwd plain")}
-    for which in ("fwd", "bwd"):
+        if k1:
+            t["bwd_pg"] = cuda_ms(lambda: bwd(ws, *args, dpsi, dlap,
+                                              point_grads=True, **kw),
+                                  label=f"K1-bwd PG f32 {where}")
+            t["bwd_pg_plain"] = cuda_ms(lambda: bwd_plain(
+                ws, *args, dpsi, dlap, point_grads=True, **kw), reps=1,
+                label="K1-bwd PG plain")
+    for which in ("fwd", "bwd") + (("bwd_pg",) if k1 else ()):
         t[which + "_bound"], t[which + "_bound_by"] = bound_ms(
             n, ws[0].shape[1], "float32", which, kernel=kernel)
-    print(f"float32 {name} at the MC batch ({n} points, H = "
+    print(f"float32 {name} at the {where} batch ({n} points, H = "
           f"{ws[0].shape[1]}): {name}-fwd {t['fwd']:.4f} ms (plain "
           f"{t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} "
           f"{t['fwd_bound_by']}) | {name}-bwd {t['bwd']:.4f} ms (plain "
           f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} "
-          f"{t['bwd_bound_by']}) ({card})", flush=True)
+          f"{t['bwd_bound_by']})" + (
+              f" | K1-bwd PG {t['bwd_pg']:.4f} ms (plain "
+              f"{t['bwd_pg_plain']:.4f}, bound {t['bwd_pg_bound']:.4f} "
+              f"{t['bwd_pg_bound_by']})" if k1 else "") + f" ({card})",
+          flush=True)
+    t["fwd_err"] = max(e_psi[0], e_lap[0])
+    t["bwd_err"] = worst[0]
+    return t
 
 
-def family_phase(dev, card: str) -> None:
+def family_phase(dev, card: str) -> dict:
     """Phase 19: the paths across families (separable params on the
     residual trainer, symmetric params on the spheroidal polish, the
-    Monte-Carlo trainer, the minimal family and R-input models)."""
+    Monte-Carlo trainer, the minimal family and R-input models). Returns
+    19c's times of each family's float32 kernels at the MC batch."""
     import numpy as np
     import torch
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
@@ -2327,6 +2362,7 @@ def family_phase(dev, card: str) -> None:
     flagship_sep = os.path.join(art, "flagship_separable.npz")
     mods = (ks, kt, k3)
     cpu = torch.device("cpu")
+    mc_times = {}   # 19c: each family's kernels at the MC batch
     work = tempfile.mkdtemp(prefix="chip_smoke_families_")
     try:
         phase(f"19a separable on the residual trainer (cli train --arch "
@@ -2624,7 +2660,7 @@ def family_phase(dev, card: str) -> None:
             vb = variational.sample_vbatch(
                 torch.Generator(device=dev).manual_seed(7), cfg, MC_N_R,
                 MC_N_PTS, antithetic=True, stratified=True)
-            mc_kernel_check(mod, p32, mcfg, vb, card)
+            mc_times[name] = mc_kernel_check(mod, p32, mcfg, vb, card)
             vb_cpu = variational.VBatch(*(t.cpu() for t in vb))
             vb_64 = variational.VBatch(*(t.double() for t in vb_cpu))
             cfg64 = cfg.replace(dtype="float64")
@@ -2792,6 +2828,7 @@ def family_phase(dev, card: str) -> None:
         sys.stdout.flush()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return mc_times
 
 
 # phase 20: the analysis suite. 20a runs cli analyze --paper-set's data at
@@ -3400,7 +3437,7 @@ def entry_points_phase(dev, card: str) -> None:
     import numpy as np
     import torch
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch import (
-        bench, graft_entry)
+        bench, config, graft_entry)
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import (
         energy, plots)
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.benchmarks import (
@@ -3414,6 +3451,8 @@ def entry_points_phase(dev, card: str) -> None:
         pallas_separable as ks
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
         pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
     mods = (ks, kt, k3, ceiling)
     cpu = torch.device("cpu")
 
@@ -3457,6 +3496,15 @@ def entry_points_phase(dev, card: str) -> None:
               f"points/s; peak_fraction {line['peak_fraction']} / "
               f"{sep['peak_fraction']} of the measured FMA ceiling "
               f"{line['ceiling_fma_gflops']} GFLOP/s ({card})")
+        # float32 K1 at the bench line's batch of the separable step (the
+        # flagship's weights) against its plain versions, and its times
+        sep_cfg = config.Config(model=config.ModelConfig(arch="separable"))
+        mc_kernel_check(ks, ansatz.from_jax_params(
+            _load_npz_params(os.path.join(HERE, "artifacts",
+                                          "flagship_separable.npz")),
+            dtype="float32", device=dev), sep_cfg.model, sample_batch(
+                torch.Generator(device=dev).manual_seed(0), sep_cfg,
+                BENCH_N, device=dev), card, where="bench line")
         for arch, want in (("symmetric", "train_"),
                            ("separable", "separable_")):
             rows = [k for k in _bench_profile(bench, arch)
@@ -4336,19 +4384,133 @@ def _load_npz_params(path: str) -> dict:
     return tree.get("params", tree)
 
 
+# --k1-times: the MC trainer's steps a timed run (after a 5-step warm-up)
+K1_TIMES_MC_STEPS = 50
+
+
+def k1_times(root: str, card: str) -> None:
+    """``python3 chip_smoke.py --k1-times ROOT``: the times of K1 built from
+    the package under ROOT (this checkout, or a parent commit's package
+    unpacked by `git archive` into a git-ignored directory of it), so that
+    two builds are compared in one call (parent, change, change, parent):
+    float32 K1-fwd, K1-bwd and K1-bwd-pg at the flagship batch (164 502
+    points), the bench line's batch (100 000) and the MC batch (1 048 576),
+    the bfloat16 and float64 builds at the flagship batch, each beside its
+    bound; the separable MC step at the CLI's defaults (1 048 576 points)
+    and the bench line's separable points/s; and the flagship's float64
+    E_int at phase 4's four R in hex (equal bit for bit when float64 K1 is
+    unchanged). Prints one JSON line."""
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import bench, config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.analysis import \
+        energy
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import _build
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        variational
+    if not os.path.abspath(ks.__file__).startswith(root + os.sep):
+        raise AssertionError(f"--k1-times {root}: imported {ks.__file__}")
+    dev = torch.device("cuda")
+    t0 = time.time()
+    _build.build(["separable_fwd", "separable_bwd"])
+    print(f"K1 of {root} built in {time.time() - t0:.1f} s", flush=True)
+    src = os.path.join(HERE, "artifacts", "flagship_separable.npz")
+    art, _ = checkpoint.load_params(src)
+    art = art.get("params", art)
+    cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                        dtype="float64")
+    mcfg = cfg.model
+    kw = dict(p_sym=mcfg.inversion_symmetry, ry=mcfg.ry, rz=mcfg.rz)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cfg32 = config.Config(model=config.ModelConfig(arch="separable"))
+    batches = {
+        "flagship": variational.dual_grid_vbatch(cfg, N_R, N_XI, N_ETA,
+                                                 device=dev),
+        "bench": sample_batch(gen, cfg32, BENCH_N, device=dev),
+        "MC": variational.sample_vbatch(gen, cfg32, MC_N_R, MC_N_PTS,
+                                        antithetic=True, stratified=True)}
+    out = {"root": root, "card": card, "times": {}}
+    with torch.no_grad():
+        for bname, batch in batches.items():
+            for dt in ((torch.float32, torch.bfloat16, torch.float64)
+                       if bname == "flagship" else (torch.float32,)):
+                params = ansatz.from_jax_params(art, dtype=dt, device=dev)
+                rr = batch.r.to(dt)
+                if batch.x.dim() == 2:
+                    rr = rr[:, None].expand_as(batch.x).reshape(-1)
+                pts = [t.reshape(-1).to(dt).contiguous()
+                       for t in (batch.x, batch.y, batch.z)]
+                a = ansatz.orbital_exponent(params, rr)
+                b = ansatz.gz_exponent(params, rr, mcfg.inversion_symmetry,
+                                       a)
+                ws = ks.kernel_weights(params, dt)
+                args = (a, b, *pts, rr.contiguous())
+                n = rr.numel()
+                dpsi = torch.randn(n, generator=gen, device=dev).to(dt)
+                dlap = torch.randn(n, generator=gen, device=dev).to(dt)
+                dt_name = str(dt)[6:]
+                t = {"fwd": cuda_ms(lambda: ks.separable_fwd_cuda(
+                         ws, *args, **kw), label="K1-fwd"),
+                     "bwd": cuda_ms(lambda: ks.separable_bwd_cuda(
+                         ws, *args, dpsi, dlap, **kw), label="K1-bwd"),
+                     "bwd_pg": cuda_ms(lambda: ks.separable_bwd_cuda(
+                         ws, *args, dpsi, dlap, point_grads=True, **kw),
+                         label="K1-bwd-pg")}
+                for which in ("fwd", "bwd", "bwd_pg"):
+                    t[which + "_bound"] = bound_ms(n, ws[0].shape[1],
+                                                   dt_name, which)[0]
+                out["times"][f"{dt_name} {n}"] = t
+                print(f"{dt_name} n={n}: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in t.items()), flush=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_k1_times_")
+    try:
+        mc = ["variational", "--arch", "separable", src, "--n-r",
+              str(MC_N_R), "--n-pts", str(MC_N_PTS), "--antithetic",
+              "--stratified-r", "--lr", str(MC_LR), "--device", "cuda"]
+        run_cli(mc + ["--epochs", "5", "--out", os.path.join(work, "w")])
+        res, _ = run_cli(mc + ["--epochs", str(K1_TIMES_MC_STEPS), "--out",
+                               os.path.join(work, "mc")])
+        out["mc_steps_per_s"] = res["points_per_sec"] / (MC_N_R * MC_N_PTS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    sep = bench.measure_ours(BENCH_N, BENCH_STEPS, "float32",
+                             arch="separable")
+    out["bench_separable_points_per_s"] = sep["points_per_sec"]
+    out["bench_separable_points_per_s_median"] = sep["points_per_sec_median"]
+    params64 = ansatz.from_jax_params(art, dtype="float64", device=dev)
+    out["e_int_hex"] = [
+        float(energy.rayleigh_quotient_spheroidal(params64, cfg, r)).hex()
+        for r in (0.2, 1.0, 2.0, 4.0)]
+    print("k1_times: " + json.dumps(out), flush=True)
+
+
 def main() -> int:
     import torch
     argv = sys.argv[1:]
-    if argv and (len(argv) != 2 or argv[0] != "--mesh"
-                 or not argv[1].isdigit() or int(argv[1]) < 2):
-        print("usage: chip_smoke.py [--mesh N]  (N >= 2 cards)",
-              file=sys.stderr)
+    k1_root = None
+    if argv[:1] == ["--k1-times"] and len(argv) <= 2:
+        k1_root = os.path.abspath(argv[1] if len(argv) == 2 else HERE)
+    elif argv and (len(argv) != 2 or argv[0] != "--mesh"
+                   or not argv[1].isdigit() or int(argv[1]) < 2):
+        print("usage: chip_smoke.py [--mesh N | --k1-times [ROOT]]  "
+              "(N >= 2 cards)", file=sys.stderr)
         return 2
-    multi = int(argv[1]) if argv else 0
+    multi = int(argv[1]) if argv and k1_root is None else 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
               file=sys.stderr)
         return 1
+    if k1_root is not None:
+        sys.path.insert(0, k1_root)
+        k1_times(k1_root, card_line())
+        return 0
     sys.path.insert(0, HERE)
     try:
         __import__(PKG)
@@ -4416,13 +4578,24 @@ def main() -> int:
                and e["spill_stores"] + e["spill_loads"] > 0]
     if spilled:
         raise AssertionError(f"K3 spills at H <= 16: {spilled}")
+    # K1's float32 and bfloat16 builds (one thread a point): no training
+    # instantiation at H <= 16 may spill (the point-gradient ones and
+    # H = 32 are printed above)
+    k1_spilled = [
+        (name, e) for name in ("separable_fwd", "separable_bwd")
+        for e in ptxas_entries(_build.log_path(name).read_text())
+        if e["dtype"] != "float64" and e["h"] <= 16 and not e["pg"]
+        and e["spill_stores"] + e["spill_loads"] > 0]
+    if k1_spilled:
+        raise AssertionError(f"K1 float32/bfloat16 spills at H <= 16: "
+                             f"{k1_spilled}")
     for mod, name, pg in ((ks, "separable_fwd", False),
                           (ks, "separable_bwd", False),
                           (ks, "separable_bwd", True),
                           (kt, "train_fwd", False), (kt, "train_bwd", False),
                           (kt, "train_bwd", True)):
         for dt in (torch.float64, torch.float32, torch.bfloat16):
-            threads = ks.THREADS if mod is ks else kt.threads(dt)
+            threads = mod.threads(dt)
             for h in mod.SUPPORTED_HIDDEN:
                 blocks, smem = mod.occupancy(name, h, dt, pg)
                 print(f"  {name}{' PG' if pg else ''} {str(dt)[6:]} H={h}: "
@@ -4468,9 +4641,10 @@ def main() -> int:
     both = (("float64", torch.float64), ("float32", torch.float32))
     # the flagship weights at the flagship batch and at one make evaluate
     # quotient in both types; the other widths the kernels are built for
-    # at that quotient in float64, the flagship's type
+    # at that quotient, in both types too (float32's one-thread-a-point
+    # kernels are instantiated per width)
     cases = [("flagship", vb, None, both), ("evaluate", vb_eval, None, both)]
-    cases += [(f"H={h}", vb_eval, h, both[:1])
+    cases += [(f"H={h}", vb_eval, h, both)
               for h in ks.SUPPORTED_HIDDEN if h != hidden]
     for batch_name, batch, h, (dt_name, dt) in (
             (c[0], c[1], c[2], d) for c in cases for d in c[3]):
@@ -4640,7 +4814,7 @@ def main() -> int:
         k3_entry = k3_phases(dev, card)
         pg = pg_phase(dev, card)
         excited_phase(dev, card)
-        family_phase(dev, card)
+        mc_times = family_phase(dev, card)
         analysis_phase(dev, card)
         mesh_sweep_phase(dev, card)
         entry_points_phase(dev, card)
@@ -4649,7 +4823,7 @@ def main() -> int:
         shutil.rmtree(KEEP_DIR, ignore_errors=True)
     phase()
 
-    t64 = times["float64"]
+    t64, t32, tmc = times["float64"], times["float32"], mc_times["separable"]
     kernels = []
     for which, line in (("fwd", 293), ("bwd", 325)):
         kernels.append({
@@ -4666,6 +4840,19 @@ def main() -> int:
             "bound_ms": t64[f"{which}_bound"],
             "bound_by": t64[f"{which}_bound_by"],
             "library_ms": None,
+            # the float32 build at the flagship batch (phase 6) and on its
+            # own main path, the MC trainer's 1 048 576 points (19c: one
+            # launch a step)
+            "float32": {"max_abs_err": errs["float32"][which],
+                        "ms": t32[which], "plain_ms": t32[f"{which}_plain"],
+                        "bound_ms": t32[f"{which}_bound"],
+                        "bound_by": t32[f"{which}_bound_by"]},
+            "float32_mc": {"launches": MC_STEPS,
+                           "max_abs_err": tmc[f"{which}_err"],
+                           "ms": tmc[which],
+                           "plain_ms": tmc[f"{which}_plain"],
+                           "bound_ms": tmc[f"{which}_bound"],
+                           "bound_by": tmc[f"{which}_bound_by"]},
         })
     kernels += k2 + [k3_entry] + pg + bf16
     print(f"smoke run {time.time() - t_start:.1f} s")

@@ -65,6 +65,55 @@ struct Layout {
   static constexpr int SIZE = H * H + 5 * H + 1;
 };
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// Sum over the lanes of a warp of each of the calling thread's C values
+// (lanes OFF, 2 OFF, ... apart hold the same units), by recursive halving:
+// at each level a lane keeps half its values, adds its partner's half of
+// them and passes the other half on, so the C values cost C - 1 exchanges;
+// the levels past one value add whole values. v[0] ends as the warp's sum
+// of the value in the returned slot. The order of every sum is fixed.
+template <int C, int OFF, typename T>
+__device__ __forceinline__ int warp_unit_sum(T* v, int lane) {
+  if constexpr (C > 1) {
+    const bool up = (lane & OFF) != 0;
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) {
+      const T send = up ? v[j] : v[j + C / 2];
+      const T keep = up ? v[j + C / 2] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, OFF);
+    }
+    return (up ? C / 2 : 0) + warp_unit_sum<C / 2, OFF * 2>(v, lane);
+  } else {
+#pragma unroll
+    for (int off = OFF; off < 32; off <<= 1)
+      v[0] += __shfl_xor_sync(kFull, v[0], off);
+    return 0;
+  }
+}
+
+// The warp's sums over its lanes of C consecutive units' values v (one
+// point a lane), added by the owner lanes (0 .. C - 1) to sums[unit].
+template <int C>
+__device__ __forceinline__ void add_warp_sums(float* v, float* sums,
+                                              int lane) {
+  const int slot = warp_unit_sum<C, 1>(v, lane);
+  if (lane < C) sums[slot] += v[0];
+}
+
+// Four floats to and from 16-byte aligned shared memory in one access.
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void load4(const float* src, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(src);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
 // Adjoint of the scalar geometry of one pair of nuclei at (+-R, +-ry, +-rz)
 // (the backward kernels' point-gradient instantiations; the plain version
 // is ops/pallas_separable.geometry_vjp). For the displacements

@@ -8,24 +8,37 @@
 // the nuclei), so gradients are kept as two coefficients and dot products
 // reduce to scalars with u1.u2 = c12.
 //
-// Work layout. A block of kThreads threads owns a tile of P points at a
-// time. The per-point scalar work (geometry, GZ pair, bounded correction,
-// product rule and their adjoints) runs one thread a point on the block's
-// first P threads, the scalar lanes; what the MLPs need of it, and what
-// they return, passes through per-point vectors in shared memory. For the
-// MLPs, TPP threads share a point, UPT consecutive units each.
-// An MLP's first-layer triples are the [3P, H] tile A in shared memory
-// (row c P + p holds component c of point p), and the H x H products
-//   L = A W2,  dA = G W2^T,  dW2 += A^T G
-// run on the tile: on the float64 tensor cores (mma.sync m8n8k4 through
-// nvcuda::wmma fragments of double) where T is double and 8 divides H, as
-// FMAs from shared memory otherwise (float32 keeps full float32: TF32 would
-// break its tolerances).
+// Work layout, by type.
+// - float64 (the tile kernels): a block of kThreads threads owns a tile of
+//   P points at a time. The per-point scalar work (geometry, GZ pair,
+//   bounded correction, product rule and their adjoints) runs one thread a
+//   point on the block's first P threads, the scalar lanes; what the MLPs
+//   need of it, and what they return, passes through per-point vectors in
+//   shared memory. For the MLPs, TPP threads share a point, UPT consecutive
+//   units each. An MLP's first-layer triples are the [3P, H] tile A in
+//   shared memory (row c P + p holds component c of point p), and the
+//   H x H products
+//     L = A W2,  dA = G W2^T,  dW2 += A^T G
+//   run on the tile: on the float64 tensor cores (mma.sync m8n8k4 through
+//   nvcuda::wmma fragments of double) where 8 divides H, as FMAs from
+//   shared memory at H = 4.
+// - float32, and bfloat16 computing in float (the point kernels): one
+//   thread a point from its inputs to its outputs, kPointThreads points a
+//   block. Both MLPs' weights are staged once a block in shared memory,
+//   each MLP's w2 rows 16-byte aligned; every thread of a warp reads the
+//   same weights, so each read is a broadcast. A point's first-layer
+//   triples stay in registers, and the second layer takes four units at a
+//   time: one 16-byte read of w2[j][k..k+3] serves the point's three
+//   components, 12 multiply-adds (mlp_point_forward). Threads meet at a
+//   barrier only after the weights are staged, and in the backward around
+//   its weight-gradient sums over the block's points. TF32 is not used (it
+//   would break float32's tolerances).
 //
 // Weight layout of one MLP (2 -> H -> H -> 1, tanh), packed row-major as the
 // wrapper concatenates them: w1 (2,H) | b1 (H) | w2 (H,H) | b2 (H) | ow (H)
 // | ob (1); the lambda MLP first, then the mu MLP. In shared memory each MLP
-// starts on a 32-byte boundary (stride WSP), as the fragments' loads need.
+// starts on a 32-byte boundary (stride WSP), as the fragments' loads need;
+// with H a multiple of 4, w2, b2 and ow then start on 16-byte boundaries.
 #pragma once
 
 #include <mma.h>
@@ -67,7 +80,7 @@ struct GZ {
 
 constexpr int kThreads = 256;  // threads a block
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+using kern::kFull;
 
 template <int H>
 struct Tile {
@@ -262,12 +275,112 @@ __device__ __forceinline__ void mlp_tile_forward(const T* W, T s, T cf, T* X,
 }
 
 // Load both MLPs' packed weights (storage type S) into shared memory at
-// stride WSP, in the compute type T.
-template <typename T, int H, typename S>
+// stride WSP, in the compute type T, by a block of NT threads.
+template <typename T, int H, int NT = kThreads, typename S>
 __device__ __forceinline__ void load_weights(const S* __restrict__ w, T* sw) {
   constexpr int WS = Layout<H>::SIZE;
-  for (int i = threadIdx.x; i < 2 * WS; i += kThreads)
+  for (int i = threadIdx.x; i < 2 * WS; i += NT)
     sw[(i / WS) * Tile<H>::WSP + i % WS] = kern::ld(w[i]);
+}
+
+// ---------------------------------------------------------------------------
+// The point kernels (float32; bfloat16 in float)
+
+constexpr int kPointThreads = 128;  // points (threads) a block
+
+// The float64 build runs on tiles, the float32 and bfloat16 builds (storage
+// type S) one thread a point.
+template <typename S>
+constexpr bool tiled() {
+  return std::is_same<S, double>::value;
+}
+
+// Points a block takes at a time (the wrappers' points_per_tile).
+template <typename S, int H>
+constexpr int points_per_tile() {
+  return tiled<S>() ? Tile<H>::P : kPointThreads;
+}
+
+// v, hidden from the compiler: what is computed from it is computed anew,
+// never shared with the same expression of the original value (sharing
+// would change which products are fused into multiply-adds, and so the
+// bits, of the code that the expression came from).
+__device__ __forceinline__ float opaque(float v) {
+  asm volatile("" : "+f"(v));
+  return v;
+}
+
+// One MLP at the calling thread's point: the output triple (o0, o1, o2) =
+// (f, df/ds, d2f/ds2) for the seed (s, 1, 0) and the constant input cf.
+// The first-layer triples a_j = (t, g w, h w^2) stay in registers; the
+// second layer runs four units at a time in a loop unrolled twice (fully
+// unrolled, the compiler loads many units' weights ahead and spills 2.7 KB
+// at H = 16). ROWS (the backward): the units' t go to the point's row A
+// (the weight gradient forms the triples again from t) and the second
+// layer's (u, l1, l2) to its row Y (component c at c H), and the loop
+// stays rolled (it runs beside the backward's registers).
+template <int H, bool ROWS>
+__device__ __forceinline__ void mlp_point_forward(const float* W, float s,
+                                                  float cf, float* A,
+                                                  float* Y, float& o0,
+                                                  float& o1, float& o2) {
+  using L = Layout<H>;
+  float x0[H], x1[H], x2[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float w = W[L::W1 + j];
+    const float t = m_tanh(s * w + cf * W[L::W1 + H + j] + W[L::B1 + j]);
+    const float g = 1.0f - t * t;
+    const float h = -2.0f * t * g;
+    x0[j] = t;
+    x1[j] = g * w;
+    x2[j] = h * w * w;
+  }
+  if constexpr (ROWS) {
+#pragma unroll
+    for (int j = 0; j < H; j += 4) kern::store4(A + j, x0 + j);
+  }
+  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
+#pragma unroll (ROWS ? 1 : 2)
+  for (int k0 = 0; k0 < H; k0 += 4) {
+    float y[3][4];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[c][i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      float w[4];
+      kern::load4(W + L::W2 + j * H + k0, w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        y[0][i] += x0[j] * w[i];
+        y[1][i] += x1[j] * w[i];
+        y[2][i] += x2[j] * w[i];
+      }
+    }
+    float b2[4], ow[4];
+    kern::load4(W + L::B2 + k0, b2);
+    kern::load4(W + L::OW + k0, ow);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float u = m_tanh(y[0][i] + b2[i]);
+      const float l1 = y[1][i], l2 = y[2][i];
+      const float gg = 1.0f - u * u;
+      const float hh = -2.0f * u * gg;
+      y[0][i] = u;
+      acc0 += u * ow[i];
+      acc1 += gg * l1 * ow[i];
+      acc2 += (gg * l2 + hh * l1 * l1) * ow[i];
+    }
+    if constexpr (ROWS) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) kern::store4(Y + c * H + k0, y[c]);
+    }
+  }
+  o0 = acc0 + W[L::OB];
+  o1 = acc1;
+  o2 = acc2;
 }
 
 // Bounded correction exp(c tanh((lam + mu) / c)) and the product rule.

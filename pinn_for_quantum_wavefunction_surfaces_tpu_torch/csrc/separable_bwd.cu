@@ -16,53 +16,81 @@
 // belong on the tensor cores, and the float64 tanh of the forward's 4 H
 // units is the next cost.
 //
-// Design (separable.cuh): a block of 256 threads walks tiles of P points
-// (32 at H = 16), in a fixed order; the grid is at most a fixed multiple of
-// the SM count and depends on n alone (the wrapper's grid_blocks). Per tile:
-// - the geometry and GZ pair on the block's first P threads, one a point;
-// - the forward of both MLPs as in K1-fwd (8 threads a point, tile
-//   products on the tensor cores), each MLP into tiles of its own: its
-//   first-layer triples A and its second layer's (u, l1, l2) stay in shared
-//   memory for the adjoint, so no layer is evaluated twice;
-// - the bounded correction, the product rule and their adjoint with the GZ
-//   pair's, one thread a point: da, db, and the MLP outputs' cotangents
-//   into per-point vectors in shared memory;
-// - per MLP: the second layer's cotangent G written over (u, l1, l2);
-//   dW2 += A^T G on the tensor cores into accumulators that each warp keeps
-//   in registers across the block's tiles (a fixed 8 x 8 tile and K slice
-//   of dW2 per warp); dA = G W2^T; the first layer's adjoint per unit. The
+// The sums over points (the weight gradients) run in a FIXED order with no
+// atomics, so two launches give the same bits (best-iterate selection in
+// L-BFGS compares values across steps): a block walks the tiles blockIdx,
+// blockIdx + grid, ... of a grid fixed by n, H and the type alone (the
+// wrapper's grid_blocks: the resident blocks an SM, 2 in float64 and 3 in
+// float32 and bfloat16, times 132 SMs), keeps its sums across its tiles
+// and writes ONE row of partial weight gradients at the end; the wrapper
+// sums the rows. Lanes past n evaluate the finite pad point with zero
+// cotangents, so everything they add is exactly 0.
+//
+// Design, by type (separable.cuh):
+// - float64 (separable_bwd_kernel): a block of 256 threads walks tiles of
+//   P points (32 at H = 16). Per tile: the geometry and GZ pair on the
+//   block's first P threads, one a point; the forward of both MLPs as in
+//   K1-fwd (8 threads a point, tile products on the tensor cores), each
+//   MLP into tiles of its own: its first-layer triples A and its second
+//   layer's (u, l1, l2) stay in shared memory for the adjoint, so no layer
+//   is evaluated twice; the bounded correction, the product rule and their
+//   adjoint with the GZ pair's, one thread a point: da, db, and the MLP
+//   outputs' cotangents into per-point vectors in shared memory; per MLP
+//   the second layer's cotangent G written over (u, l1, l2), dW2 += A^T G
+//   on the tensor cores into accumulators that each warp keeps in
+//   registers across the block's tiles (a fixed 8 x 8 tile and K slice of
+//   dW2 per warp), dA = G W2^T, and the first layer's adjoint per unit. The
 //   other weight gradients (w1, b1, b2, ow, ob) are summed over the warp's
 //   points by shuffles and added, one owner lane each, into per-warp sums
-//   in shared memory.
-// At the end each block sums its warps' parts in a fixed order and writes
-// ONE row of partial weight gradients; the wrapper sums the rows. No
-// atomics, so two launches give the same bits (best-iterate selection in
-// L-BFGS compares values across steps). Shared memory: the weights, five
-// [3P, H] tiles, the per-warp sums and the per-point vectors, 79 KB in
-// float64 at H = 16: 2 blocks of 8 warps an SM, no spills. Lanes past n
-// evaluate the finite pad point with zero cotangents, so everything they
-// add is exactly 0.
+//   in shared memory. Shared memory: the weights, five [3P, H] tiles, the
+//   per-warp sums and the per-point vectors, 79 KB at H = 16: 2 blocks of
+//   8 warps an SM, no spills.
+// - float32 (separable_bwd_point_kernel): one thread a point, 128 points a
+//   block, two barriers a tile. The point's thread computes its geometry,
+//   GZ pair and both MLPs' forward (mlp_point_forward), writing each MLP's
+//   first-layer t to its row of a shared [128, 2H + 4] buffer and the
+//   second layer's (u, l1, l2) to its row of a [128, 6H + 4] one (the
+//   padding puts a warp's 16-byte row accesses on distinct banks); then
+//   the top's adjoint, da and db, and per MLP the cotangent G written over
+//   (u, l1, l2), dA = G W2^T from its own row (each 16-byte read of
+//   w2[j][k..k+3] serves three components, so W2 is read row-wise and the
+//   transposed bank conflict of a column read never arises) and the first
+//   layer's adjoint. After a barrier, dW2 += A^T G is a register-blocked
+//   product: each thread owns a 4 x 4 block of one MLP's dW2 over a fixed
+//   slice of the tile's points, forms A's triples (t, g w, h w^2) at its
+//   four units from t as the forward does (storing t alone, not the
+//   triples, lets 3 blocks share an SM instead of 2, which measured faster
+//   at every size), reads G's three rows with 16-byte shared loads,
+//   and keeps the block across its tiles; the owners of b2's units add G's
+//   first component beside it. The other small leaves (w1, b1, ow, ob) go
+//   through fixed shuffle trees (common.cuh add_warp_sums) into per-warp
+//   sums. 163 registers and 74 KB of shared memory at H = 16: 3 blocks of
+//   4 warps an SM, no spills. Measured on an H100 SXM at 700 W
+//   (chip_smoke.py --k1-times): 2.4x its operation bound at 1 048 576
+//   points, 3.0x at 164 502. What bounds it: the issue rate of the
+//   products' FMAs and shared loads, and the leaf sums' shuffle trees,
+//   whose latency 12 warps an SM hide poorly (a variant that skipped the
+//   sums ran markedly faster; moving b2's sum into the register-blocked
+//   product above took one fifth of them away).
+// - bfloat16 (separable_bwd_bf16): the float32 kernel on bfloat16 tensors.
+//   Points, heads, weights and cotangents are loaded into float; da, db
+//   and the point gradients are rounded once to bfloat16 as they are
+//   stored; the rows of partial weight gradients stay float32 (the wrapper
+//   sums them in float32 in their fixed order and rounds the sums once), so
+//   two launches still agree bit for bit.
 //
 // Point gradients (PG = true, a compile-time flag; PG = false is the
-// training path and compiles to the same code as before the flag): after
-// each MLP's first-layer adjoint the point's lanes sum, in a fixed
-// butterfly, the MLP's input cotangents ds = sum_j dz0_j w1[0, j] and
-// dcf = sum_j dz0_j w1[1, j] into four more per-point vectors; the tile
-// then ends with one per-point phase on the scalar lanes (point_adjoint,
-// separable.cuh): the point's geometry, GZ pair and top evaluated again,
-// the adjoint of the features, the GZ pair and the explicit R, then the
-// geometry's (common.cuh), written to dx, dy, dz, dr for live points only.
-// Nothing else changes: the weight gradients keep their order and bits.
-// Under the same bound of 2 blocks (128 registers) the float64 PG
-// instantiations at H = 4, 8, 16 spill 120-428 B (phase 2 of chip_smoke.py):
-// the point phase's scalars on top of the MLP adjoint's.
-//
-// bfloat16 (separable_bwd_bf16): the float32 build's arithmetic, tiles and
-// order of sums on bfloat16 tensors. Points, heads, weights and cotangents
-// are loaded into float; da, db and the point gradients are rounded once
-// to bfloat16 as they are stored; the rows of partial weight gradients
-// stay float32 (the wrapper sums them in float32 in their fixed order and
-// rounds the sums once), so two launches still agree bit for bit.
+// training path): the MLPs' input cotangents ds = sum_j dz0_j w1[0, j] and
+// dcf = sum_j dz0_j w1[1, j] are summed with the first layer's adjoint;
+// then the point's geometry, GZ pair and top are evaluated again from its
+// inputs, and the adjoint of the features, the GZ pair and the explicit R,
+// then the geometry's (point_adjoint, separable.cuh; common.cuh), is
+// written to dx, dy, dz, dr for live points only. Float64 sums ds and dcf
+// over a point's lanes in a fixed butterfly into per-point vectors and
+// runs the point phase on the scalar lanes; under its bound of 2 blocks
+// (128 registers) its PG instantiations at H = 4, 8, 16 spill 120-428 B
+// (phase 2 of chip_smoke.py). The float32 thread does it in registers. In
+// both, the weight gradients, da and db keep the bits of PG = false.
 
 #include "separable.cuh"
 
@@ -100,8 +128,8 @@ __host__ __device__ constexpr int scalar_dw2_per_thread() {
   return (H * H + kThreads - 1) / kThreads;
 }
 
-// S: the tensors' storage type; T = compute_t<S> the arithmetic's and the
-// partials' type
+// The float64 build (S = T = double): tiles of P points on the tensor
+// cores.
 template <typename S, int H, bool PG, typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
     separable_bwd_kernel(const S* __restrict__ x, const S* __restrict__ y,
@@ -390,15 +418,325 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 (and bfloat16 in float): one thread a point, register-blocked dW2
+
+template <int H>
+struct PointTile {
+  static constexpr int P = kPointThreads;        // points (threads) a block
+  static constexpr int WARPS = P / 32;
+  static constexpr int PA = 2 * H + 4;           // a point's row of t
+  static constexpr int PS = 6 * H + 4;           // its row of Y / G
+  static constexpr int NB = (H / 4) * (H / 4);   // 4 x 4 blocks of one dW2
+  static constexpr int NO = 2 * NB;              // (MLP, block) owners
+  static constexpr int NSL = P / NO;             // slices of the P points
+  static constexpr int NS = 4 * H + 1;           // a warp's sums of an MLP
+  static_assert(NSL * NO == P, "every thread owns a block and a slice");
+  static_assert(2 * NSL * (H * H + H) <= P * PS,
+                "the dW2 and b2 staging fits G");
+};
+
+// Shared memory of the point kernel: the weights [2][WSP], the points'
+// first-layer t [P][PA] and their Y, then G [P][PS], the warps' per-unit
+// sums [warp][2][NS]: w1 (2H) | b1 (H) | ow (H) | ob (1).
+template <int H>
+constexpr int point_smem_elems() {
+  using PT = PointTile<H>;
+  return 2 * Tile<H>::WSP + PT::P * (PT::PA + PT::PS) +
+         PT::WARPS * 2 * PT::NS;
+}
+
+// S: the tensors' storage type (float or __nv_bfloat16); the arithmetic and
+// the partials are float's.
+template <typename S, int H, bool PG>
+__global__ void __launch_bounds__(kPointThreads, H > 16 ? 1 : 3)
+    separable_bwd_point_kernel(
+        const S* __restrict__ x, const S* __restrict__ y,
+        const S* __restrict__ z, const S* __restrict__ r,
+        const S* __restrict__ a, const S* __restrict__ b,
+        const S* __restrict__ w, const S* __restrict__ dpsi,
+        const S* __restrict__ dlap, S* __restrict__ da_out,
+        S* __restrict__ db_out, float* __restrict__ partials,
+        S* __restrict__ dx_out, S* __restrict__ dy_out,
+        S* __restrict__ dz_out, S* __restrict__ dr_out, int n, float psym,
+        float ry, float rz) {
+  using kern::add_warp_sums;
+  using kern::ld;
+  using kern::load4;
+  using kern::store4;
+  using PT = PointTile<H>;
+  using L = Layout<H>;
+  constexpr int P = PT::P, PA = PT::PA, PS = PT::PS, WS = L::SIZE;
+  constexpr int WSP = Tile<H>::WSP, NS = PT::NS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sw = reinterpret_cast<float*>(smem_raw);
+  float* sA = sw + 2 * WSP;  // [P][PA] first-layer t, MLP m at m H
+  float* sG = sA + P * PA;   // [P][PS] (u, l1, l2), then their cotangents G
+  float* sS = sG + P * PS;   // [warp][mlp][NS] per-unit sums
+  load_weights<float, H, kPointThreads>(w, sw);
+  for (int i = threadIdx.x; i < PT::WARPS * 2 * NS; i += P) sS[i] = 0.0f;
+  __syncthreads();
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  float* sums = sS + (tid / 32) * 2 * NS;
+  float* rowA = sA + tid * PA;
+  float* rowG = sG + tid * PS;
+  // the thread's 4 x 4 block (bi, bk) of MLP om's dW2 and its slice sl of
+  // the tile's points
+  const int own = tid % PT::NO, sl = tid / PT::NO;
+  const int om = own / PT::NB;
+  const int bi = (own % PT::NB) / (H / 4), bk = (own % PT::NB) % (H / 4);
+  float w0[4];  // w1[0, 4 bi .. 4 bi + 3] of MLP om
+  load4(sw + om * WSP + L::W1 + 4 * bi, w0);
+  float dw[4][4], db2[4];  // db2: its four units of b2, where bi = 0
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    db2[u] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) dw[u][v] = 0.0f;
+  }
+
+  const int tiles = (n + P - 1) / P;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int p = tile * P + tid;
+    const bool live = p < n;
+    const float av = live ? ld(a[p]) : 1.0f;
+    const float bv = live ? ld(b[p]) : 1.0f;
+    Point<float> pt;
+    GZ<float> g;
+    point_gz(live ? ld(x[p]) : 1.0f, live ? ld(y[p]) : 1.0f,
+             live ? ld(z[p]) : 1.0f, live ? ld(r[p]) : 1.0f, ry, rz, av, bv,
+             psym, pt, g);
+    // the MLPs' forward, their first-layer t and (u, l1, l2) to shared
+    // memory
+    float o[6];
+    mlp_point_forward<H, true>(sw, pt.t0, pt.cf, rowA, rowG, o[0], o[1],
+                               o[2]);
+    mlp_point_forward<H, true>(sw + WSP, pt.e0, pt.cf, rowA + H,
+                               rowG + 3 * H, o[3], o[4], o[5]);
+    // the top, its adjoint and the GZ pair's
+    Top<float> top;
+    top_forward(o[0], o[1], o[2], o[3], o[4], o[5], g, pt, top);
+    const float gpsi = live ? ld(dpsi[p]) : 0.0f;
+    const float glap = live ? ld(dlap[p]) : 0.0f;
+    const TopGrad<float> tg =
+        top_adjoint(av, bv, o[1], o[4], gpsi, glap, g, pt, top);
+    if (live) {
+      da_out[p] = kern::st<S>(tg.da);
+      db_out[p] = kern::st<S>(tg.db);
+    }
+    {  // ob: both MLPs' output bias takes dq0
+      float c1[1] = {tg.dq0};
+      kern::warp_unit_sum<1, 1>(c1, lane);
+      if (lane == 0) {
+        sums[4 * H] += c1[0];
+        sums[NS + 4 * H] += c1[0];
+      }
+    }
+    float ds[2], dc = 0.0f;  // PG: the MLPs' input cotangents (s, cf)
+#pragma unroll 1
+    for (int m = 0; m < 2; ++m) {
+      const float* W = sw + m * WSP;
+      float* A = rowA + m * H;
+      float* G = rowG + 3 * m * H;
+      float* msums = sums + m * NS;
+      const float d0 = tg.dq0;
+      const float d1 = m == 0 ? tg.dl1 : tg.dm1;
+      const float d2 = m == 0 ? tg.dl2 : tg.dm2;
+      // the second layer's cotangent G over (u, l1, l2), four units at a
+      // time, with the ow terms (b2's is G's first component: summed in
+      // the dW2 pass below)
+#pragma unroll 2
+      for (int k0 = 0; k0 < H; k0 += 4) {
+        float u[4], ll1[4], ll2[4], owk[4], cow[4];
+        load4(G + k0, u);
+        load4(G + H + k0, ll1);
+        load4(G + 2 * H + k0, ll2);
+        load4(W + L::OW + k0, owk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float gg = 1.0f - u[i] * u[i];
+          const float hh = -2.0f * u[i] * gg;
+          cow[i] = u[i] * d0 + (gg * ll1[i]) * d1 +
+                   (gg * ll2[i] + hh * ll1[i] * ll1[i]) * d2;
+          const float db0 = d0 * owk[i], db1 = d1 * owk[i];
+          const float db2 = d2 * owk[i];
+          const float dlin1 = db1 * gg + db2 * 2.0f * hh * ll1[i];
+          const float dlin2 = db2 * gg;
+          float dgg = db1 * ll1[i] + db2 * ll2[i];
+          const float dhh = db2 * ll1[i] * ll1[i];
+          float du = db0 - 2.0f * gg * dhh;
+          dgg = dgg - 2.0f * u[i] * dhh;
+          du = du - 2.0f * u[i] * dgg;
+          u[i] = du * gg;  // dlin0
+          ll1[i] = dlin1;
+          ll2[i] = dlin2;
+        }
+        store4(G + k0, u);
+        store4(G + H + k0, ll1);
+        store4(G + 2 * H + k0, ll2);
+        add_warp_sums<4>(cow, msums + 3 * H + k0, lane);
+      }
+      // dA = G W2^T from the point's row G, four units at a time (each
+      // read of w2[j][k..k+3] serves three components), then the first
+      // layer's adjoint at those units, seed (s, 1, 0)
+      const float s = m == 0 ? pt.t0 : pt.e0;
+      float dsm = 0.0f;
+#pragma unroll 2
+      for (int j0 = 0; j0 < H; j0 += 4) {
+        float dac[3][4];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) dac[c][jj] = 0.0f;
+#pragma unroll
+        for (int k0 = 0; k0 < H; k0 += 4) {
+          float gk[3][4];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) load4(G + c * H + k0, gk[c]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float wv[4];
+            load4(W + L::W2 + (j0 + jj) * H + k0, wv);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int c = 0; c < 3; ++c) dac[c][jj] += gk[c][kk] * wv[kk];
+          }
+        }
+        float t4[4], t0[4], t1[4], t2[4];
+        load4(A + j0, t4);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = j0 + jj;
+          const float wj = W[L::W1 + j];
+          const float t = t4[jj];
+          const float gt = 1.0f - t * t;
+          const float ht = -2.0f * t * gt;
+          const float dz1 = dac[1][jj] * gt + dac[2][jj] * 2.0f * ht * wj;
+          float dg = dac[1][jj] * wj;
+          const float dh = dac[2][jj] * wj * wj;
+          float dt = dac[0][jj] - 2.0f * gt * dh;
+          dg = dg - 2.0f * t * dh;
+          dt = dt - 2.0f * t * dg;
+          const float dz0 = dt * gt;
+          if constexpr (PG) {
+            dsm += dz0 * wj;
+            dc += dz0 * W[L::W1 + H + j];
+          }
+          t0[jj] = s * dz0 + dz1;
+          t1[jj] = pt.cf * dz0;
+          t2[jj] = dz0;
+        }
+        add_warp_sums<4>(t0, msums + j0, lane);
+        add_warp_sums<4>(t1, msums + H + j0, lane);
+        add_warp_sums<4>(t2, msums + 2 * H + j0, lane);
+      }
+      if (m == 0)
+        ds[0] = dsm;
+      else
+        ds[1] = dsm;
+    }
+    if constexpr (PG) {
+      if (live) {
+        // the point's geometry, GZ pair and top evaluated again from its
+        // inputs, as the float64 build does: opaque keeps the compiler from
+        // sharing that with the forward above, so the training outputs
+        // (da, db, the weight gradients) keep the bits of PG = false
+        float gx, gy, gz, gr;
+        point_adjoint(opaque(ld(x[p])), opaque(ld(y[p])), opaque(ld(z[p])),
+                      opaque(ld(r[p])), ry, rz, opaque(av), opaque(bv), psym,
+                      opaque(o[0]), opaque(o[1]), opaque(o[2]), opaque(o[3]),
+                      opaque(o[4]), opaque(o[5]), opaque(gpsi),
+                      opaque(glap), ds[0], ds[1], dc, gx, gy, gz, gr);
+        dx_out[p] = kern::st<S>(gx);
+        dy_out[p] = kern::st<S>(gy);
+        dz_out[p] = kern::st<S>(gz);
+        dr_out[p] = kern::st<S>(gr);
+      }
+    }
+    __syncthreads();
+    // dW2 += A^T G over the points of the thread's slice, A's triples
+    // (t, g w, h w^2) at its four units from t (as the forward has them);
+    // db2 += G's first component
+    for (int pp = sl; pp < P; pp += PT::NSL) {
+      float a[3][4], gv[3][4];
+      load4(sA + pp * PA + om * H + 4 * bi, a[0]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        load4(sG + pp * PS + 3 * om * H + c * H + 4 * bk, gv[c]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float t = a[0][u];
+        const float g = 1.0f - t * t;
+        const float h = -2.0f * t * g;
+        a[1][u] = g * w0[u];
+        a[2][u] = h * w0[u] * w0[u];
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) dw[u][v] += a[c][u] * gv[c][v];
+      if (bi == 0) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) db2[v] += gv[0][v];
+      }
+    }
+    __syncthreads();
+  }
+
+  // the block's row of partial weight gradients, the slices and the warps
+  // combined in a fixed order: dW2 [mlp][slice][H][H] and b2
+  // [mlp][slice][H] staged over G
+  float* st = sG;
+  float* stb = sG + 2 * PT::NSL * H * H;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      st[((om * PT::NSL + sl) * H + 4 * bi + u) * H + 4 * bk + v] = dw[u][v];
+  if (bi == 0) store4(stb + (om * PT::NSL + sl) * H + 4 * bk, db2);
+  __syncthreads();
+  float* part = partials + static_cast<size_t>(blockIdx.x) * 2 * WS;
+  for (int o = tid; o < 2 * WS; o += P) {
+    const int m = o / WS, e = o % WS;
+    float acc = 0.0f;
+    if (e >= L::W2 && e < L::B2) {
+      for (int s = 0; s < PT::NSL; ++s)
+        acc += st[(m * PT::NSL + s) * H * H + e - L::W2];
+    } else if (e >= L::B2 && e < L::OW) {
+      for (int s = 0; s < PT::NSL; ++s)
+        acc += stb[(m * PT::NSL + s) * H + e - L::B2];
+    } else {
+      const int t = e < L::W2   ? e                     // w1, b1
+                    : e < L::OB ? 3 * H + e - L::OW     // ow
+                                : 4 * H;                // ob
+      for (int v = 0; v < PT::WARPS; ++v) acc += sS[(v * 2 + m) * NS + t];
+    }
+    part[o] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+
 template <typename S, int H, bool PG>
 cudaError_t prepare(size_t* smem) {
-  using T = kern::compute_t<S>;
-  static_assert(2 * Dw2<H>::KS * H * H <= 2 * Tile<H>::ROWS * H,
-                "the dW2 staging fits the two tiles");
-  *smem = sizeof(T) * smem_elems<T, H, PG>();
-  return cudaFuncSetAttribute(separable_bwd_kernel<S, H, PG>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+  if constexpr (tiled<S>()) {
+    static_assert(2 * Dw2<H>::KS * H * H <= 2 * Tile<H>::ROWS * H,
+                  "the dW2 staging fits the two tiles");
+    *smem = sizeof(S) * smem_elems<S, H, PG>();
+    return cudaFuncSetAttribute(separable_bwd_kernel<S, H, PG>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  } else {
+    *smem = sizeof(float) * point_smem_elems<H>();
+    return cudaFuncSetAttribute(separable_bwd_point_kernel<S, H, PG>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  }
 }
 
 template <typename S, int H, bool PG>
@@ -408,18 +746,33 @@ cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
                    void* partials, void* dx, void* dy, void* dz, void* dr,
                    int n, int psym, int grid, double ry, double rz,
                    cudaStream_t stream) {
-  using T = kern::compute_t<S>;
+  using T = kern::compute_t<S>;  // also the partials' type
   size_t smem;
   cudaError_t err = prepare<S, H, PG>(&smem);
   if (err != cudaSuccess) return err;
-  separable_bwd_kernel<S, H, PG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const S*>(x), static_cast<const S*>(y),
-      static_cast<const S*>(z), static_cast<const S*>(r),
-      static_cast<const S*>(a), static_cast<const S*>(b),
-      static_cast<const S*>(w), static_cast<const S*>(dpsi),
-      static_cast<const S*>(dlap), static_cast<S*>(da), static_cast<S*>(db),
-      static_cast<T*>(partials), static_cast<S*>(dx), static_cast<S*>(dy),
-      static_cast<S*>(dz), static_cast<S*>(dr), n, T(psym), T(ry), T(rz));
+  const S* px = static_cast<const S*>(x);
+  const S* py = static_cast<const S*>(y);
+  const S* pz = static_cast<const S*>(z);
+  const S* pr = static_cast<const S*>(r);
+  const S* pa = static_cast<const S*>(a);
+  const S* pb = static_cast<const S*>(b);
+  const S* pw = static_cast<const S*>(w);
+  const S* pdpsi = static_cast<const S*>(dpsi);
+  const S* pdlap = static_cast<const S*>(dlap);
+  S* outs[6] = {static_cast<S*>(da), static_cast<S*>(db),
+                static_cast<S*>(dx), static_cast<S*>(dy),
+                static_cast<S*>(dz), static_cast<S*>(dr)};
+  T* ppart = static_cast<T*>(partials);
+  if constexpr (tiled<S>())
+    separable_bwd_kernel<S, H, PG><<<grid, kThreads, smem, stream>>>(
+        px, py, pz, pr, pa, pb, pw, pdpsi, pdlap, outs[0], outs[1], ppart,
+        outs[2], outs[3], outs[4], outs[5], n, T(psym), T(ry), T(rz));
+  else
+    separable_bwd_point_kernel<S, H, PG>
+        <<<grid, kPointThreads, smem, stream>>>(
+            px, py, pz, pr, pa, pb, pw, pdpsi, pdlap, outs[0], outs[1],
+            ppart, outs[2], outs[3], outs[4], outs[5], n, T(psym), T(ry),
+            T(rz));
   return cudaGetLastError();
 }
 
@@ -428,10 +781,14 @@ int occupancy(int* smem_bytes) {
   size_t smem;
   if (prepare<S, H, PG>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, separable_bwd_kernel<S, H, PG>, kThreads, smem) !=
-      cudaSuccess)
-    return -1;
+  cudaError_t err;
+  if constexpr (tiled<S>())
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, separable_bwd_kernel<S, H, PG>, kThreads, smem);
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, separable_bwd_point_kernel<S, H, PG>, kPointThreads, smem);
+  if (err != cudaSuccess) return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
 }
@@ -530,16 +887,23 @@ extern "C" int separable_bwd_bf16(const void* x, const void* y, const void* z,
                                  grid, pg, ry, rz, stream);
 }
 
-// Points a tile at this width, the same in every type (the wrapper's
+// Points a block takes at a time in the build of type code `type`
+// (kern::TypeCode; bfloat16 as float32) at this width (the wrapper's
 // grid_blocks must agree), or -1.
-extern "C" int separable_bwd_points_per_tile(int hidden, int /*type*/) {
+extern "C" int separable_bwd_points_per_tile(int hidden, int type) {
+#define SEP_BWD_TILE(HH)                                      \
+  case HH:                                                    \
+    return type == kern::kF64 ? points_per_tile<double, HH>() \
+                              : points_per_tile<float, HH>();
   switch (hidden) {
-    case 4: return Tile<4>::P;
-    case 8: return Tile<8>::P;
-    case 16: return Tile<16>::P;
-    case 32: return Tile<32>::P;
-    default: return -1;
+    SEP_BWD_TILE(4)
+    SEP_BWD_TILE(8)
+    SEP_BWD_TILE(16)
+    SEP_BWD_TILE(32)
+    default:
+      return -1;
   }
+#undef SEP_BWD_TILE
 }
 
 extern "C" int separable_bwd_occupancy(int hidden, int type,

@@ -8,28 +8,43 @@
 // writes 2 (64 bytes in float64) but does about 2 (6 H^2 + 29 H + 1) + 115
 // floating-point operations (~4.1k at H = 16) and 4 H + 6 transcendentals:
 // ~64 flop/byte, above the card's float64 ridge point (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte). Two thirds of the operations are the second
+// 3.35 TB/s = 20 flop/byte); in float32, 32 bytes a point, ~128 flop/byte
+// against the same ridge. Two thirds of the operations are the second
 // layers' products, 3 H^2 multiply-adds a point and MLP; the float64 tanh
 // of the 4 H units is a software routine of tens of instructions each.
 //
-// Design (separable.cuh): a block of 256 threads takes one tile of P
-// points (32 at H = 16). The first P threads compute the points' geometry
-// and GZ pair, one a point, and later the bounded correction and product
-// rule; in between, 8 threads a point evaluate the MLPs, whose tanh units
-// they share, and each MLP's second layer runs as the tile product
-// [3P, H] x [H, H] on the float64 tensor cores instead of 3 H^2 scalar
-// multiply-adds a point. Shared memory holds the weights, two [3P, H] tiles
-// and the per-point vectors (32 KB in float64 at H = 16), so several blocks
-// are resident on an SM. Measured (chip_smoke.py phase 6) the kernel moved
-// little against the one-thread-a-point design: removing the second layer's
-// scalar multiply-adds, or the per-point work repeated on 8 lanes, did not
-// set its time; the float64 tanh of the 4 H units and the tile's barriers
-// remain. Lanes past n evaluate the finite pad point and store nothing.
-//
-// bfloat16 (separable_fwd_bf16): the float32 build's arithmetic and tiles
-// on bfloat16 tensors. The points, heads and weights are loaded into float
-// and psi and lap psi rounded once to bfloat16 as they are stored
-// (common.cuh ld, st): half the float32 build's bytes, the same operations.
+// Design, by type (separable.cuh):
+// - float64 (separable_fwd_kernel): a block of 256 threads takes one tile
+//   of P points (32 at H = 16). The first P threads compute the points'
+//   geometry and GZ pair, one a point, and later the bounded correction
+//   and product rule; in between, 8 threads a point evaluate the MLPs,
+//   whose tanh units they share, and each MLP's second layer runs as the
+//   tile product [3P, H] x [H, H] on the float64 tensor cores instead of
+//   3 H^2 scalar multiply-adds a point. Shared memory holds the weights,
+//   two [3P, H] tiles and the per-point vectors (32 KB at H = 16), so
+//   several blocks are resident on an SM. Measured (chip_smoke.py phase 6)
+//   the kernel moved little against the one-thread-a-point design: the
+//   float64 tanh of the 4 H units and the tile's barriers set its time.
+// - float32 (separable_fwd_point_kernel): one thread a point from its
+//   inputs to psi and lap psi, 128 points a block, one block a tile; no
+//   barrier but the one after the weights are staged. Both MLPs' weights
+//   sit in static shared memory (2.7 KB at H = 16), where every read is a
+//   broadcast; a point's first-layer triples stay in registers and the
+//   second layer takes four units at a time, one 16-byte read of w2 for 12
+//   multiply-adds (mlp_point_forward). 116 registers at H = 16, 4 blocks
+//   of 4 warps an SM, no spills. Measured on an H100 SXM at 700 W
+//   (chip_smoke.py --k1-times): 2.3x its operation bound at 1 048 576
+//   points, 2.7x at the flagship's 164 502 (the last, partial wave of
+//   blocks). What bounds it is the issue rate of its instructions: beside
+//   the 6 H^2 product FMAs a point, the 4 H tanhf (an EX2, an RCP and a
+//   select of about a dozen instructions each), the units' epilogues and
+//   the point's geometry. A tanh of five instructions measured barely
+//   faster and is not used (its error near 0 is absolute, not relative).
+// - bfloat16 (separable_fwd_bf16): the float32 kernel on bfloat16 tensors.
+//   The points, heads and weights are loaded into float and psi and lap psi
+//   rounded once to bfloat16 as they are stored (common.cuh ld, st): half
+//   the float32 build's bytes, the same operations.
+// Lanes past n evaluate the finite pad point and store nothing.
 
 #include "separable.cuh"
 
@@ -42,7 +57,7 @@ __host__ __device__ constexpr int smem_elems() {
   return 2 * Tile<H>::WSP + 2 * Tile<H>::ROWS * H + kFwdSlots * Tile<H>::P;
 }
 
-// S: the tensors' storage type; T = compute_t<S> the arithmetic's
+// The float64 build (S = T = double): one tile of P points a block.
 template <typename S, int H, typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
     separable_fwd_kernel(const S* __restrict__ x, const S* __restrict__ y,
@@ -105,13 +120,60 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
   }
 }
 
+// S: the tensors' storage type (float or __nv_bfloat16); the arithmetic is
+// float's. One thread a point and one block a tile (the wrapper's grid is
+// n_tiles): with no loop over tiles the compiler keeps no weights in
+// registers across one, and the kernel needs 116 registers at H = 16 where
+// a grid-stride loop needed 128 and spilled.
+template <typename S, int H>
+__global__ void __launch_bounds__(kPointThreads, H > 16 ? 2 : 4)
+    separable_fwd_point_kernel(const S* __restrict__ x,
+                               const S* __restrict__ y,
+                               const S* __restrict__ z,
+                               const S* __restrict__ r,
+                               const S* __restrict__ a,
+                               const S* __restrict__ b,
+                               const S* __restrict__ w, S* __restrict__ psi,
+                               S* __restrict__ lap, int n, float psym,
+                               float ry, float rz) {
+  using kern::ld;
+  __shared__ __align__(16) float sw[2 * Tile<H>::WSP];
+  load_weights<float, H, kPointThreads>(w, sw);
+  __syncthreads();
+
+  const int p = blockIdx.x * kPointThreads + threadIdx.x;
+  const bool live = p < n;
+  Point<float> pt;
+  GZ<float> g;
+  point_gz(live ? ld(x[p]) : 1.0f, live ? ld(y[p]) : 1.0f,
+           live ? ld(z[p]) : 1.0f, live ? ld(r[p]) : 1.0f, ry, rz,
+           live ? ld(a[p]) : 1.0f, live ? ld(b[p]) : 1.0f, psym, pt, g);
+  float l0, l1, l2, m0, m1, m2;
+  mlp_point_forward<H, false>(sw, pt.t0, pt.cf, nullptr, nullptr, l0, l1,
+                              l2);
+  mlp_point_forward<H, false>(sw + Tile<H>::WSP, pt.e0, pt.cf, nullptr,
+                              nullptr, m0, m1, m2);
+  Top<float> s;
+  top_forward(l0, l1, l2, m0, m1, m2, g, pt, s);
+  if (live) {
+    psi[p] = kern::st<S>(s.psi);
+    lap[p] = kern::st<S>(s.lap);
+  }
+}
+
+// Shared memory (bytes) of a launch beyond the static, set as the kernel's
+// limit.
 template <typename S, int H>
 cudaError_t prepare(size_t* smem) {
-  using T = kern::compute_t<S>;
-  *smem = sizeof(T) * smem_elems<T, H>();
-  return cudaFuncSetAttribute(separable_fwd_kernel<S, H>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+  if constexpr (tiled<S>()) {
+    *smem = sizeof(S) * smem_elems<S, H>();
+    return cudaFuncSetAttribute(separable_fwd_kernel<S, H>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  } else {
+    *smem = 0;
+    return cudaSuccess;
+  }
 }
 
 template <typename S, int H>
@@ -123,24 +185,41 @@ cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
   size_t smem;
   cudaError_t err = prepare<S, H>(&smem);
   if (err != cudaSuccess) return err;
-  separable_fwd_kernel<S, H><<<grid, kThreads, smem, stream>>>(
-      static_cast<const S*>(x), static_cast<const S*>(y),
-      static_cast<const S*>(z), static_cast<const S*>(r),
-      static_cast<const S*>(a), static_cast<const S*>(b),
-      static_cast<const S*>(w), static_cast<S*>(psi), static_cast<S*>(lap), n,
-      T(psym), T(ry), T(rz));
+  const S* px = static_cast<const S*>(x);
+  const S* py = static_cast<const S*>(y);
+  const S* pz = static_cast<const S*>(z);
+  const S* pr = static_cast<const S*>(r);
+  const S* pa = static_cast<const S*>(a);
+  const S* pb = static_cast<const S*>(b);
+  const S* pw = static_cast<const S*>(w);
+  if constexpr (tiled<S>())
+    separable_fwd_kernel<S, H><<<grid, kThreads, smem, stream>>>(
+        px, py, pz, pr, pa, pb, pw, static_cast<S*>(psi),
+        static_cast<S*>(lap), n, T(psym), T(ry), T(rz));
+  else
+    separable_fwd_point_kernel<S, H><<<grid, kPointThreads, 0, stream>>>(
+        px, py, pz, pr, pa, pb, pw, static_cast<S*>(psi),
+        static_cast<S*>(lap), n, T(psym), T(ry), T(rz));
   return cudaGetLastError();
 }
 
-// Resident blocks per SM and shared memory per block (bytes).
+// Resident blocks per SM and shared memory per block (bytes, static and
+// dynamic).
 template <typename S, int H>
 int occupancy(int* smem_bytes) {
   size_t smem;
   if (prepare<S, H>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, separable_fwd_kernel<S, H>, kThreads, smem) != cudaSuccess)
-    return -1;
+  cudaError_t err;
+  if constexpr (tiled<S>()) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, separable_fwd_kernel<S, H>, kThreads, smem);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, separable_fwd_point_kernel<S, H>, kPointThreads, smem);
+    smem = sizeof(float) * 2 * Tile<H>::WSP;
+  }
+  if (err != cudaSuccess) return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
 }
@@ -195,16 +274,23 @@ extern "C" int separable_fwd_bf16(const void* x, const void* y, const void* z,
                                  psym, grid, ry, rz, stream);
 }
 
-// Points a tile at this width, the same in every type (the wrapper's
-// grid_blocks must agree), or -1.
-extern "C" int separable_fwd_points_per_tile(int hidden, int /*type*/) {
+// Points a block takes at a time in the build of type code `type`
+// (kern::TypeCode; bfloat16 as float32) at this width (the wrapper's
+// n_tiles must agree), or -1.
+extern "C" int separable_fwd_points_per_tile(int hidden, int type) {
+#define SEP_FWD_TILE(HH)                                      \
+  case HH:                                                    \
+    return type == kern::kF64 ? points_per_tile<double, HH>() \
+                              : points_per_tile<float, HH>();
   switch (hidden) {
-    case 4: return Tile<4>::P;
-    case 8: return Tile<8>::P;
-    case 16: return Tile<16>::P;
-    case 32: return Tile<32>::P;
-    default: return -1;
+    SEP_FWD_TILE(4)
+    SEP_FWD_TILE(8)
+    SEP_FWD_TILE(16)
+    SEP_FWD_TILE(32)
+    default:
+      return -1;
   }
+#undef SEP_FWD_TILE
 }
 
 // Resident blocks per SM of the instantiation of type code `type`

@@ -23,7 +23,7 @@
 // wrapper's grid_blocks: the resident blocks per SM times 132), keeps its
 // sums across its tiles, and writes ONE row of H^2 + 5H + 1 partials at
 // the end; the wrapper sums the rows. The per-unit sums (w1, b1, b2, ow) go
-// through fixed shuffle trees by recursive halving (train_tile.cuh
+// through fixed shuffle trees by recursive halving (common.cuh
 // warp_unit_sum), one owner lane a unit, into per-warp sums in shared
 // memory. Nothing is evaluated twice: the adjoint of a first-layer unit
 // needs only its sigmoid s (kept in A) and the envelopes. Lanes past n
@@ -84,6 +84,9 @@
 #include "train_tile.cuh"
 
 using namespace trn;
+using kern::add_warp_sums;
+using kern::load4;
+using kern::store4;
 
 namespace {
 
@@ -394,29 +397,8 @@ constexpr int point_smem_elems() {
   return PT::WSP + 2 * PT::P * PT::PS + PT::WARPS * PT::NT;
 }
 
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void load4(const float* src, float* v) {
-  const float4 t = *reinterpret_cast<const float4*>(src);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-
 __device__ __forceinline__ void store2(float* dst, const float* v) {
   *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-}
-
-// The warp's sums over its points of C consecutive units' values v, added
-// by the owner lanes (0 .. C - 1) to sums[unit].
-template <int C>
-__device__ __forceinline__ void add_warp_sums(float* v, float* sums,
-                                              int lane) {
-  const int slot = warp_unit_sum<C, 1>(v, lane);
-  if (lane < C) sums[slot] += v[0];
 }
 
 // S: the tensors' storage type (float or __nv_bfloat16); T = float the

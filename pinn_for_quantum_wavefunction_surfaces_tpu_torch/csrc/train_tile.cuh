@@ -30,7 +30,8 @@ namespace trn {
 
 constexpr int kTileThreads = 256;  // threads a block
 constexpr int kTileWarps = kTileThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+using kern::kFull;
+using kern::warp_unit_sum;
 
 template <int H>
 struct Tile {
@@ -106,32 +107,6 @@ __device__ __forceinline__ T pair_sum(T v) {
   for (int off = 1; off < Tile<H>::TPP; off <<= 1)
     v += __shfl_xor_sync(kFull, v, off);
   return v;
-}
-
-// Sum over the pairs of a warp of each of the calling thread's unit values
-// (v[i] for unit q + TPP i, q its lane in its pair's group), by recursive
-// halving: at each level a lane keeps half its values, adds its partner's
-// half of them and passes the other half on, so the UPT values cost UPT - 1
-// exchanges; the levels past one value add whole values. v[0] ends as the
-// warp's sum of unit q + TPP slot (the returned slot); the lanes below H
-// hold distinct units. The order of every sum is fixed.
-template <int C, int OFF, typename T>
-__device__ __forceinline__ int warp_unit_sum(T* v, int lane) {
-  if constexpr (C > 1) {
-    const bool up = (lane & OFF) != 0;
-#pragma unroll
-    for (int j = 0; j < C / 2; ++j) {
-      const T send = up ? v[j] : v[j + C / 2];
-      const T keep = up ? v[j + C / 2] : v[j];
-      v[j] = keep + __shfl_xor_sync(kFull, send, OFF);
-    }
-    return (up ? C / 2 : 0) + warp_unit_sum<C / 2, OFF * 2>(v, lane);
-  } else {
-#pragma unroll
-    for (int off = OFF; off < 32; off <<= 1)
-      v[0] += __shfl_xor_sync(kFull, v[0], off);
-    return 0;
-  }
 }
 
 // warp_unit_sum of each of the thread's NV arrays of unit values, added by

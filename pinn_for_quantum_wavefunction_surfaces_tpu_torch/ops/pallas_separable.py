@@ -26,10 +26,11 @@ coefficients on (u1, u2) and every dot product reduces to scalars with
 u1.u2 = c12. The gradients of t and eta^2 are orthogonal (u1+u2 is
 orthogonal to u1-u2), so per point the whole forward Laplacian is a handful
 of scalars besides the two MLPs. The kernels hold those scalars per point
-in registers and the MLPs' [3 points, H] triples as tiles in shared
-memory, whose H x H products run on the float64 tensor cores
-(``csrc/separable.cuh``); ``points_per_tile`` and ``grid_blocks`` size the
-launches.
+in registers. The float64 build keeps the MLPs' [3 points, H] triples as
+tiles in shared memory, whose H x H products run on the float64 tensor
+cores; the float32 and bfloat16 builds run one thread a point, its triples
+in registers (``csrc/separable.cuh``). ``points_per_tile`` and
+``grid_blocks`` size the launches by type.
 """
 
 from __future__ import annotations
@@ -363,31 +364,41 @@ def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/separable_fwd.cu, csrc/separable_bwd.cu)
 
-# The kernels' work layout (csrc/separable.cuh): blocks of THREADS threads,
-# min(8, H) threads a point, so a tile of THREADS // min(8, H) points.
-THREADS = 256
+# The kernels' work layout (csrc/separable.cuh), by type: the float64
+# build's blocks of 256 threads take tiles of 256 // min(8, H) points (min(8,
+# H) threads a point); the float32 and bfloat16 builds' blocks of 128
+# threads take 128 points, one a thread.
 # K1-bwd's grid has at most this many blocks per SM of an H100 (132 SMs):
 # the resident blocks its __launch_bounds__ asks for, so one wave.
-GRID_BLOCKS_PER_SM, N_SM = 2, 132
+GRID_BLOCKS_PER_SM = {torch.float64: 2, torch.float32: 3, torch.bfloat16: 3}
+N_SM = 132
 
 
-def points_per_tile(hidden: int) -> int:
+def threads(dtype) -> int:
+    """Threads a block of either kernel."""
+    return 256 if dtype == torch.float64 else 128
+
+
+def points_per_tile(hidden: int, dtype) -> int:
     """Points a block evaluates at a time."""
-    return THREADS // min(8, hidden)
+    if dtype == torch.float64:
+        return threads(dtype) // min(8, hidden)
+    return threads(dtype)
 
 
-def n_tiles(n: int, hidden: int) -> int:
+def n_tiles(n: int, hidden: int, dtype) -> int:
     """Tiles of n points; the last one is padded."""
-    return -(-n // points_per_tile(hidden))
+    return -(-n // points_per_tile(hidden, dtype))
 
 
-def grid_blocks(n: int, hidden: int) -> int:
+def grid_blocks(n: int, hidden: int, dtype) -> int:
     """Blocks of a K1-bwd launch: one a tile, at most GRID_BLOCKS_PER_SM *
     N_SM; each block walks the tiles blockIdx, blockIdx + grid, ... in
-    order. The count depends on n and H alone, so the rows of partial
-    weight gradients (one a block), their order, and so the bits do too.
-    K1-fwd sums nothing across points and takes one block a tile."""
-    return max(1, min(n_tiles(n, hidden), GRID_BLOCKS_PER_SM * N_SM))
+    order. The count depends on n, H and the dtype alone, so the rows of
+    partial weight gradients (one a block), their order, and so the bits do
+    too. K1-fwd sums nothing across points and takes one block a tile."""
+    return max(1, min(n_tiles(n, hidden, dtype),
+                      GRID_BLOCKS_PER_SM[dtype] * N_SM))
 
 
 def _lib(name: str):
@@ -396,8 +407,7 @@ def _lib(name: str):
     points_per_tile once."""
     fwd = name == "separable_fwd"
     return _cuda.tiled_lib(name, 9 if fwd else 16, "separable",
-                           lambda h, _dtype: points_per_tile(h),
-                           n_extra_int=1 if fwd else 2)
+                           points_per_tile, n_extra_int=1 if fwd else 2)
 
 
 def occupancy(name: str, hidden: int, dtype,
@@ -421,10 +431,11 @@ def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
     lib = _lib("separable_fwd")
-    _cuda.launch(lib, pts[0].dtype, pts[0].device,
+    dtype = pts[0].dtype
+    _cuda.launch(lib, dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
-                 ry, rz, extra_ints=(max(1, n_tiles(n, hidden)),))
-    launches[_cuda.launch_key("separable_fwd", pts[0].dtype)] += 1
+                 ry, rz, extra_ints=(max(1, n_tiles(n, hidden, dtype)),))
+    launches[_cuda.launch_key("separable_fwd", dtype)] += 1
     return psi, lap
 
 
@@ -445,9 +456,9 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
     lib = _lib("separable_bwd")
-    grid = grid_blocks(n, hidden)
-    sizes = [int(torch.Size(s).numel()) for s in shapes]
     dtype = pts[0].dtype
+    grid = grid_blocks(n, hidden, dtype)
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
     partials = torch.empty((grid, sum(sizes)),
                            dtype=_cuda.partials_dtype(dtype),
                            device=pts[0].device)

@@ -23,6 +23,8 @@ from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config as tcfg
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
     ansatz as tans
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+    _cuda
+from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
     pallas_separable as tps
 
 from test_torch_separable import (as_t, jax_model,  # noqa: F401
@@ -205,25 +207,39 @@ def test_unported_families_raise(family):
         sorted(params)
 
 
-@pytest.mark.parametrize("hidden", tps.SUPPORTED_HIDDEN)
-def test_grid_sizing(hidden):
+# the float64 cases keep their ids (the width alone)
+GRID_CASES = [pytest.param(h, torch.float64, id=str(h))
+              for h in tps.SUPPORTED_HIDDEN] + [
+    pytest.param(h, dt, id=f"{str(dt)[6:]}-{h}")
+    for dt in (torch.float32, torch.bfloat16) for h in tps.SUPPORTED_HIDDEN]
+
+
+@pytest.mark.parametrize("hidden, dtype", GRID_CASES)
+def test_grid_sizing(hidden, dtype):
     """The kernels' tiles and K1-bwd's grid (rows of partial weight
-    gradients): fixed by n and H alone, capped at a multiple of the SM
-    count, and the blocks' strided walks cover every tile exactly once."""
-    per = tps.points_per_tile(hidden)
-    assert per * min(8, hidden) == tps.THREADS
-    cap = tps.GRID_BLOCKS_PER_SM * tps.N_SM
-    assert [tps.grid_blocks(n, hidden) for n in (0, 1, per, per + 1)] == \
-        [1, 1, 1, 2]
-    for n in (N, 9216, 164_502):   # ragged; a make evaluate quotient; flagship
-        tiles = tps.n_tiles(n, hidden)
+    gradients): fixed by n, H and the type alone, capped at a multiple of
+    the SM count, and the blocks' strided walks cover every tile exactly
+    once. Float64 keeps its tiles (blocks of 256 threads, min(8, H) a
+    point) and grid; float32 and bfloat16 take one thread a point, 128 a
+    block."""
+    per = tps.points_per_tile(hidden, dtype)
+    if dtype == torch.float64:
+        assert per * min(8, hidden) == 256 == tps.threads(dtype)
+    else:
+        assert per == 128 == tps.threads(dtype)
+    cap = tps.GRID_BLOCKS_PER_SM[dtype] * tps.N_SM
+    assert cap == (2 if dtype == torch.float64 else 3) * 132
+    assert [tps.grid_blocks(n, hidden, dtype)
+            for n in (0, 1, per, per + 1)] == [1, 1, 1, 2]
+    for n in (N, 9216, 100_000, 164_502, 1_048_576):
+        tiles = tps.n_tiles(n, hidden, dtype)
         assert (tiles - 1) * per < n <= tiles * per
-        grid = tps.grid_blocks(n, hidden)
+        grid = tps.grid_blocks(n, hidden, dtype)
         assert grid == min(tiles, cap)
         walked = sorted(t for blk in range(grid)
                         for t in range(blk, tiles, grid))
         assert walked == list(range(tiles))
-    assert tps.grid_blocks(164_502, hidden) == cap
+    assert tps.grid_blocks(164_502, hidden, dtype) == cap
 
 
 def test_pad_point_adds_exactly_zero():
@@ -251,3 +267,30 @@ def test_kernel_weights_layout():
     assert all(w.dtype == torch.float32 for w in ws)
     np.testing.assert_array_equal(ws[1].numpy()[0],
                                   params["lam1"]["b"].astype(np.float32))
+
+
+@pytest.mark.parametrize("hidden", tps.SUPPORTED_HIDDEN)
+def test_packed_rows_are_16_byte_aligned(hidden):
+    """The float32 and bfloat16 kernels read w2's rows, b2 and ow as 16-byte
+    (four-float) vectors from the weights they stage at a stride of the
+    packed MLP's size rounded up to four floats (csrc/separable.cuh WSP):
+    in the packed order (``_cuda.pack`` of the 12 weights) each of those
+    starts on a multiple of four floats in both MLPs, and each w2 row is
+    four-float aligned too."""
+    sizes = [int(np.prod(s)) for s in tps.weight_shapes(hidden)]
+    offsets = np.cumsum([0] + sizes)
+    mlp = sum(sizes[:6])
+    wsp = (mlp + 3) // 4 * 4
+    assert mlp == hidden * hidden + 5 * hidden + 1
+    for m in (0, 1):
+        w2, b2, ow = (int(offsets[6 * m + k]) - m * mlp for k in (2, 3, 4))
+        for off in (w2, b2, ow) + tuple(w2 + i * hidden
+                                        for i in range(hidden)):
+            assert (m * wsp + off) % 4 == 0
+    ws = [torch.arange(n, dtype=torch.float32).reshape(s) + 1000.0 * k
+          for k, (n, s) in enumerate(zip(sizes, tps.weight_shapes(hidden)))]
+    packed = _cuda.pack(ws)
+    assert packed.numel() == 2 * mlp
+    for k, w in enumerate(ws):
+        np.testing.assert_array_equal(
+            packed[offsets[k]:offsets[k + 1]].numpy(), w.reshape(-1).numpy())
