@@ -187,8 +187,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
     and E_int's mean, max and signed minimum against the exact oracle beside
     the shipped artifact's; every R within [-1e-4, 0.01] mHa, both K1
     kernels launched; b: --mesh 1 against the unsharded runs, bit for bit:
-    the polish's 40 Adam losses and params at the flagship grid, cli train
-    at make train's configuration (20 steps, K2-fwd and K2-bwd each step);
+    the polish's 40 Adam losses and params at the flagship grid (the
+    unsharded warmup with graph=False; --mesh stays eager), cli train at
+    make train's configuration (20 steps, K2-fwd and K2-bwd each step;
+    the unsharded run captured);
     rayleigh_quotient_sharded at world size 1 equal to rayleigh_quotient to
     rtol 1e-12 for flagship.npz (K2-fwd) and flagship_model.bin (K3); c:
     cli sweep --polish 300 --arch separable --dtype float64 at R = 0.5, 1,
@@ -250,6 +252,20 @@ Phases (any failure exits non-zero; none is caught and passed over):
     flagship_separable.npz (K1-fwd) and of phase 15's checkpoint (K3), in
     processes of their own (the E-head fit runs on the host CPU), one
     launch a quotient.
+ The captured steps (training/graphs.py), each against the same run with
+ graph=False, bit for bit, the launch counts set to 0 before each run:
+ 24. a: engine.train at make train's configuration (GZ + alpha, step
+    schedule, float32, 100 000 points), 300 steps in chunks of 100 with a
+    resample every 7 steps and the frozen batch after step 270: history,
+    params, best loss and params, EMA and the last batch equal, exactly
+    one K2-fwd and one K2-bwd launch a step; then engine.finetune for 100
+    steps (no K2-bwd); b: train_variational at the CLI's defaults (32 x
+    32 768 points, float32, antithetic, stratified), 50 steps, from
+    flagship_separable.npz (K1) and flagship.npz (K2); c: the flagship
+    polish's Adam warmup (n_r 39, 40 x 24 dual grid, float64, 100 steps,
+    K1): params and logged losses equal. Each prints its steps/s captured
+    and eager from the same call, and the profiler's wall, busy time and
+    idle share a step over ten steps of each.
 
 ``python3 chip_smoke.py --mesh N`` (a host with N >= 2 cards) runs phases
 1 and 2, then the --mesh N paths across the N cards (NCCL) against the same
@@ -264,6 +280,13 @@ N (its first step's loss within 2e-2 of one card's, finite and falling).
 under ROOT (default: this checkout; a parent commit's package unpacked by
 ``git archive`` into a git-ignored directory of it compares two builds in
 one call), as ``k1_times`` says, and prints one JSON line.
+
+``python3 chip_smoke.py --step-times [ROOT]`` runs the trainers and the
+bench line through the public entry points of the package under ROOT, as
+``step_times`` says, and prints one JSON line: make train's, the
+Monte-Carlo trainer's (both families) and the Adam warmup's steps/s, the
+bench line's points/s (both families). Run it as parent, change, change,
+parent in one call to compare two commits.
 
 Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
 the card line, and last
@@ -286,6 +309,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "pinn_for_quantum_wavefunction_surfaces_tpu_torch"
@@ -1813,7 +1837,8 @@ def excited_polish(label, flags, loss_name, card, work, ks=None):
     """One cut polish recipe through ``cli variational`` on the card: its
     wall time, Adam and L-BFGS steps/s (the Adam phase ends when the CLI
     writes warmup.npz), training evaluations of ``loss_name`` (those under
-    autograd; the validation grid's run without), the launches of the
+    autograd, the validation grid's run without: the Adam steps, one an
+    evaluation, and the L-BFGS line search's, counted), the launches of the
     kernel module ``ks`` (default K1's) and peak device memory of the run,
     its meta and params."""
     import torch
@@ -1828,13 +1853,24 @@ def excited_polish(label, flags, loss_name, card, work, ks=None):
     lbfgs = int(flags[flags.index("--lbfgs") + 1])
     out_dir = os.path.join(work, label)
     real, evals = getattr(variational, loss_name), [0]
+    real_adam, in_adam = variational._adam_minimize, [False]
 
     def counted(*a, **k):
-        if torch.is_grad_enabled():
+        # a captured Adam warmup calls its loss at its first step and at
+        # its capture only: its evaluations are its steps, counted below
+        if torch.is_grad_enabled() and not in_adam[0]:
             evals[0] += 1
         return real(*a, **k)
 
+    def adam_minimize(*a, **k):
+        in_adam[0] = True
+        try:
+            return real_adam(*a, **k)
+        finally:
+            in_adam[0] = False
+
     setattr(variational, loss_name, counted)
+    variational._adam_minimize = adam_minimize
     try:
         ks.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -1846,6 +1882,8 @@ def excited_polish(label, flags, loss_name, card, work, ks=None):
         t1 = time.time()
     finally:
         setattr(variational, loss_name, real)
+        variational._adam_minimize = real_adam
+    evals[0] += adam
     counts = dict(ks.launches)
     peak = torch.cuda.max_memory_allocated()
     t_adam = os.path.getmtime(os.path.join(out_dir, "warmup.npz")) - t0
@@ -3267,9 +3305,12 @@ def mesh_sweep_phase(dev, card: str) -> None:
 
             variational.quotient_loss = record
             try:
+                # eager: a captured warmup calls its loss twice, at its
+                # first step and at its capture
                 p = variational.polish_spheroidal(
                     init, cfg, n_r=N_R, n_xi=N_XI, n_eta=N_ETA, steps=0,
-                    adam_steps=ADAM_STEPS, mesh=mesh, device=dev)
+                    adam_steps=ADAM_STEPS, mesh=mesh, device=dev,
+                    graph=False)
             finally:
                 variational.quotient_loss = real
             return (torch.stack(seen).cpu().numpy(),
@@ -4491,18 +4532,396 @@ def k1_times(root: str, card: str) -> None:
     print("k1_times: " + json.dumps(out), flush=True)
 
 
+# --step-times: make train's configuration for STEP_TIMES_TRAIN steps in
+# chunks of STEP_TIMES_TRAIN_CHUNK, the Monte-Carlo trainer at the CLI's
+# defaults for STEP_TIMES_MC steps a family in chunks of STEP_TIMES_MC_CHUNK,
+# and the flagship polish's Adam warmup for STEP_TIMES_ADAM steps (it logs
+# every 100): each rate between the run's first and last host reads, which
+# leaves the first chunk's one-time costs out
+STEP_TIMES_TRAIN, STEP_TIMES_TRAIN_CHUNK = 400, 100
+STEP_TIMES_MC, STEP_TIMES_MC_CHUNK = 100, 25
+STEP_TIMES_ADAM = 400
+
+
+def _between_reads(marks: list) -> float:
+    """Steps/s between a run's first and last host reads, from its
+    (step, time) marks at the chunk ends: the first chunk's one-time costs
+    (the eager first step, the capture) stay out."""
+    if len(marks) < 2:
+        return float("nan")
+    (s0, t0), (s1, t1) = marks[0], marks[-1]
+    return (s1 - s0) / (t1 - t0)
+
+
+def step_times(root: str, card: str) -> None:
+    """``python3 chip_smoke.py --step-times ROOT``: the trainers' rates
+    through the public entry points of the package under ROOT (this
+    checkout, or a parent commit's package unpacked by `git archive` into a
+    git-ignored directory of it), so that two commits are compared in one
+    call (parent, change, change, parent): ``engine.train`` at make train's
+    configuration, ``train_variational`` at the CLI's defaults from both
+    flagship artifacts, ``polish_spheroidal``'s Adam warmup at the
+    flagship's grid, each in steps/s, and ``bench.measure_ours`` (the bench
+    line's points/s, both families). The make train loss and the warmup's
+    last logged loss, in hex, show whether two commits take the same steps.
+    Prints one JSON line."""
+    import dataclasses
+
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import bench, config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import _build
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        engine, variational
+    if not os.path.abspath(engine.__file__).startswith(root + os.sep):
+        raise AssertionError(f"--step-times {root}: imported "
+                             f"{engine.__file__}")
+    dev = torch.device("cuda")
+    t0 = time.time()
+    _build.build(list(_build.KERNELS))
+    print(f"kernels of {root} built in {time.time() - t0:.1f} s", flush=True)
+    out = {"root": root, "card": card}
+
+    def mark(marks):
+        return lambda step, *_: marks.append((step, time.time()))
+
+    tcfg = config.Config(model=config.ModelConfig(gz=True,
+                                                  trainable_exponent=True))
+    tcfg = tcfg.replace(train=dataclasses.replace(
+        tcfg.train, lr_schedule="step", n_train=N_TRAIN,
+        epochs=STEP_TIMES_TRAIN, scan_chunk=STEP_TIMES_TRAIN_CHUNK))
+    marks = []
+    res = engine.train(tcfg, device=dev, log_cb=mark(marks))
+    out["make_train_steps_per_s"] = _between_reads(marks)
+    out["make_train_loss_hex"] = float(res.history["Ltot"][-1]).hex()
+    art = os.path.join(HERE, "artifacts")
+    for name, src, mcfg in (
+            ("separable", "flagship_separable.npz",
+             config.ModelConfig(arch="separable")),
+            ("symmetric", "flagship.npz",
+             config.ModelConfig(gz=True, trainable_exponent=True))):
+        cfg = config.Config(model=mcfg)
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, scan_chunk=STEP_TIMES_MC_CHUNK))
+        params = ansatz.from_jax_params(
+            _load_npz_params(os.path.join(art, src)), dtype="float32",
+            device=dev)
+        marks = []
+        variational.train_variational(
+            cfg, params=params, n_r=MC_N_R, n_pts=MC_N_PTS,
+            epochs=STEP_TIMES_MC, lr=MC_LR, antithetic=True, stratified=True,
+            log_cb=mark(marks), device=dev)
+        out[f"mc_{name}_steps_per_s"] = _between_reads(marks)
+    cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                        dtype="float64")
+    init = ansatz.init_params(cfg.model, seed=cfg.train.seed,
+                              dtype="float64", device=dev)
+    marks, logged = [], []
+
+    def log(i, m):
+        marks.append((i, time.time()))
+        logged.append(m["E_adam"])
+
+    variational.polish_spheroidal(init, cfg, n_r=N_R, n_xi=N_XI,
+                                  n_eta=N_ETA, steps=0,
+                                  adam_steps=STEP_TIMES_ADAM, log_cb=log,
+                                  device=dev)
+    out["adam_warmup_steps_per_s"] = _between_reads(marks)
+    out["adam_loss_hex"] = float(logged[-1]).hex()
+    for arch in ("symmetric", "separable"):
+        r = bench.measure_ours(BENCH_N, BENCH_STEPS, "float32", arch=arch)
+        out[f"bench_{arch}_points_per_s"] = r["points_per_sec"]
+        out[f"bench_{arch}_points_per_s_median"] = r["points_per_sec_median"]
+    print("step_times: " + json.dumps(out), flush=True)
+
+
+# phase 24: each captured path against its graph=False run, in one call.
+# 24a: make train's configuration (GZ + alpha, step schedule, float32,
+# N_TRAIN points) cut to CAPTURE_TRAIN_STEPS steps in chunks of
+# CAPTURE_CHUNK, a resample every CAPTURE_RESAMPLE steps (so resamples, the
+# frozen-batch cutoff at 0.9 of the run and chunk boundaries all fall
+# inside it) and sc_step cut as the run is (make train's 3000 of 20 000:
+# the rate changes inside it too), then its fine-tune; 24b: the
+# Monte-Carlo trainer at the CLI's defaults (MC_N_R x MC_N_PTS, float32,
+# antithetic, stratified) from both flagship artifacts, a chunk boundary
+# every CAPTURE_MC_CHUNK steps; 24c: the flagship polish's Adam warmup (its
+# dual grid, float64). Each path's idle share from the profiler over
+# CAPTURE_PROFILE_STEPS steps after three (eager, capture, one replay)
+CAPTURE_TRAIN_STEPS, CAPTURE_CHUNK, CAPTURE_RESAMPLE = 300, 100, 7
+CAPTURE_SC_STEP = 45
+CAPTURE_FINETUNE_STEPS, CAPTURE_FINETUNE_CHUNK = 100, 50
+CAPTURE_MC_STEPS, CAPTURE_MC_CHUNK = 50, 20
+CAPTURE_ADAM_STEPS = 100
+CAPTURE_PROFILE_STEPS = 10
+
+
+def _same_history(label: str, got: dict, want: dict) -> None:
+    import numpy as np
+    if sorted(got) != sorted(want) or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError(f"{label}: the histories differ")
+
+
+def _rates(label: str, steps: int, runs: dict, marks: dict) -> dict:
+    """Steps/s of the captured and the eager run of one call: over the
+    whole run (setup and capture included) and between its first and last
+    host reads (the chunk ends), printed side by side."""
+    out = {}
+    for graph, res in runs.items():
+        steady = _between_reads(marks[graph])
+        out["captured" if graph else "eager"] = {
+            "steps_per_s": steps / res.runtime_s,
+            "steady_steps_per_s": steady}
+    c, e = out["captured"], out["eager"]
+    print(f"  {label}: captured {c['steps_per_s']:.2f} steps/s "
+          f"(between host reads {c['steady_steps_per_s']:.2f}), eager "
+          f"{e['steps_per_s']:.2f} ({e['steady_steps_per_s']:.2f}); "
+          f"x{c['steady_steps_per_s'] / e['steady_steps_per_s']:.2f}",
+          flush=True)
+    return out
+
+
+def _idle(label: str, make_advance) -> dict:
+    """The profiler's wall, busy time and idle share a step of a live
+    trainer, captured and eager: ``make_advance(graph)`` builds one and
+    returns its step function; three steps first (the eager call, the
+    capture and one replay)."""
+    out = {}
+    for graph in (True, False):
+        advance = make_advance(graph)
+        for _ in range(3):
+            advance()
+        wall, busy, _ = profile_device(
+            advance, CAPTURE_PROFILE_STEPS,
+            f"{label} step, {'captured' if graph else 'eager'}")
+        out["captured" if graph else "eager"] = {
+            "wall_ms": wall, "busy_ms": busy, "idle": 1.0 - busy / wall}
+    return out
+
+
+def captured_phase(dev, card: str) -> dict:
+    """Phase 24: the trainers' captured steps (training/graphs.py) against
+    the same runs with graph=False, bit for bit (losses, params, best loss
+    and params, EMA, the batch after a resample), with exact launch counts
+    (one forward and one backward launch a step; no backward in the
+    fine-tune), steps/s of both from this call and the idle shares."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_residual as k3
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        engine, variational
+    mods = (ks, kt, k3)
+    summary = {"card": card}
+
+    def run_both(label, fn, steps, want):
+        """fn(graph, log_cb) -> result, for graph True then False, each
+        with the launch counts reset before it and checked after it."""
+        runs, marks = {}, {}
+        for graph in (True, False):
+            marks[graph] = []
+            _reset(*mods)
+            torch.cuda.synchronize()
+            runs[graph] = fn(graph, lambda step, *_, m=marks[graph]:
+                             m.append((step, time.time())))
+            torch.cuda.synchronize()
+            counts = _nonzero(_all_launches(*mods))
+            print(f"  {label}, {'captured' if graph else 'eager'}: "
+                  f"launches {counts} ({steps} steps)", flush=True)
+            if counts != want:
+                raise AssertionError(f"24 {label} launches: {counts}, want "
+                                     f"{want}")
+        return runs, marks
+
+    phase(f"24a make train captured against graph=False (GZ + alpha, "
+          f"float32, {N_TRAIN} points, {CAPTURE_TRAIN_STEPS} steps in "
+          f"chunks of {CAPTURE_CHUNK}, a resample every {CAPTURE_RESAMPLE} "
+          f"steps until step {int(0.9 * CAPTURE_TRAIN_STEPS)}), then "
+          f"{CAPTURE_FINETUNE_STEPS} fine-tune steps ({card})")
+    tcfg = config.Config(model=config.ModelConfig(gz=True,
+                                                  trainable_exponent=True))
+    tcfg = tcfg.replace(train=dataclasses.replace(
+        tcfg.train, lr_schedule="step", n_train=N_TRAIN,
+        epochs=CAPTURE_TRAIN_STEPS, scan_chunk=CAPTURE_CHUNK,
+        resample_every=CAPTURE_RESAMPLE, sc_step=CAPTURE_SC_STEP))
+    runs, marks = run_both(
+        "make train",
+        lambda g, cb: engine.train(tcfg, device=dev, graph=g, log_cb=cb),
+        CAPTURE_TRAIN_STEPS, {"train_fwd": CAPTURE_TRAIN_STEPS,
+                              "train_bwd": CAPTURE_TRAIN_STEPS})
+    a, b = runs[True], runs[False]
+    _same_history("24a make train", a.history, b.history)
+    for name in ("params", "best_params", "ema_params"):
+        _same_arrays(f"make train {name}", getattr(a, name),
+                     getattr(b, name))
+    if a.best_loss != b.best_loss or not all(
+            torch.equal(u, v) for u, v in zip(a.state.batch, b.state.batch)):
+        raise AssertionError("24a: the best loss or the last batch differs")
+    loss = float(a.history["Ltot"][-1])
+    print(f"  best loss, and the batch of the last resample, equal bit for "
+          f"bit; Ltot after {CAPTURE_TRAIN_STEPS} steps {loss:.9e} "
+          f"({loss.hex()})")
+    summary["make_train"] = _rates("make train", CAPTURE_TRAIN_STEPS, runs,
+                                   marks)
+    summary["make_train"]["loss_hex"] = loss.hex()
+    fcfg = config.finetune_config(tcfg)
+    fcfg = fcfg.replace(train=dataclasses.replace(
+        fcfg.train, epochs=CAPTURE_FINETUNE_STEPS,
+        scan_chunk=CAPTURE_FINETUNE_CHUNK))
+    ft, ft_marks = run_both(
+        "fine-tune",
+        lambda g, cb: engine.finetune(fcfg, a.best_params, device=dev,
+                                      graph=g, log_cb=cb),
+        CAPTURE_FINETUNE_STEPS, {"train_fwd": CAPTURE_FINETUNE_STEPS})
+    _same_history("24a fine-tune", ft[True].history, ft[False].history)
+    for name in ("params", "best_params", "ema_params"):
+        _same_arrays(f"fine-tune {name}", getattr(ft[True], name),
+                     getattr(ft[False], name))
+    summary["finetune"] = _rates("fine-tune", CAPTURE_FINETUNE_STEPS, ft,
+                                 ft_marks)
+
+    def train_step(graph):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tr = engine.Trainer(tcfg, device=dev, generator=gen, graph=graph)
+
+        def sample(g):
+            return sample_batch(g, tcfg, device=dev)
+
+        tr.batch = sample(gen)
+        return lambda: tr.advance(sample)
+
+    summary["make_train"]["profile"] = _idle("make train", train_step)
+
+    phase(f"24b the Monte-Carlo trainer captured against graph=False "
+          f"({MC_N_R} x {MC_N_PTS} points, float32, antithetic, "
+          f"stratified, {CAPTURE_MC_STEPS} steps in chunks of "
+          f"{CAPTURE_MC_CHUNK}) ({card})")
+    art = os.path.join(HERE, "artifacts")
+    for name, src, mcfg, key in (
+            ("separable", "flagship_separable.npz",
+             config.ModelConfig(arch="separable"), "separable"),
+            ("symmetric", "flagship.npz",
+             config.ModelConfig(gz=True, trainable_exponent=True),
+             "train")):
+        cfg = config.Config(model=mcfg)
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, scan_chunk=CAPTURE_MC_CHUNK))
+        tree = _load_npz_params(os.path.join(art, src))
+
+        def start():
+            return ansatz.from_jax_params(tree, dtype="float32", device=dev)
+
+        def mc(g, cb, _cfg=cfg):
+            return variational.train_variational(
+                _cfg, params=start(), n_r=MC_N_R, n_pts=MC_N_PTS,
+                epochs=CAPTURE_MC_STEPS, lr=MC_LR, antithetic=True,
+                stratified=True, log_cb=cb, device=dev, graph=g)
+
+        runs, marks = run_both(f"MC {name}", mc, CAPTURE_MC_STEPS, {
+            f"{key}_fwd": CAPTURE_MC_STEPS, f"{key}_bwd": CAPTURE_MC_STEPS})
+        _same_history(f"24b MC {name}", runs[True].history,
+                      runs[False].history)
+        for field in ("params", "ema_params"):
+            _same_arrays(f"MC {name} {field}", getattr(runs[True], field),
+                         getattr(runs[False], field))
+        summary[f"mc_{name}"] = _rates(f"MC {name}", CAPTURE_MC_STEPS, runs,
+                                       marks)
+        live = {}
+
+        def mc_step(graph, _cfg=cfg):
+            tr = variational.MonteCarloTrainer(
+                _cfg, start(), MC_N_R, MC_N_PTS,
+                torch.Generator(device=dev).manual_seed(0), antithetic=True,
+                stratified=True, device=dev, graph=graph)
+            live[graph] = tr
+            return tr.advance
+
+        summary[f"mc_{name}"]["profile"] = _idle(f"MC {name}", mc_step)
+        if not all(torch.equal(u, v) for u, v in zip(
+                live[True].vb, live[False].vb)) or not torch.equal(
+                live[True].flat, live[False].flat):
+            raise AssertionError(f"24b MC {name}: the profiled runs' last "
+                                 "batches or params differ")
+        print(f"  the profiled runs' last batches and params equal bit for "
+              f"bit ({3 + CAPTURE_PROFILE_STEPS} steps)")
+
+    phase(f"24c the flagship polish's Adam warmup captured against "
+          f"graph=False (n_r {N_R}, {N_XI} x {N_ETA} dual grid, float64, "
+          f"{CAPTURE_ADAM_STEPS} steps) ({card})")
+    cfg = config.Config(model=config.ModelConfig(arch="separable"),
+                        dtype="float64")
+    init = ansatz.init_params(cfg.model, seed=cfg.train.seed,
+                              dtype="float64", device=dev)
+    logs = {}
+
+    def warmup(g, cb):
+        logs[g] = []
+
+        def log(i, m):
+            cb(i)
+            logs[g].append((i, m["E_adam"]))
+
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p = variational.polish_spheroidal(
+            init, cfg, n_r=N_R, n_xi=N_XI, n_eta=N_ETA, steps=0,
+            adam_steps=CAPTURE_ADAM_STEPS, log_cb=log, device=dev, graph=g)
+        torch.cuda.synchronize()
+        return types.SimpleNamespace(params=ansatz.to_numpy_params(p),
+                                     runtime_s=time.time() - t0)
+
+    runs, marks = run_both("Adam warmup", warmup, CAPTURE_ADAM_STEPS, {
+        "separable_fwd": CAPTURE_ADAM_STEPS,
+        "separable_bwd": CAPTURE_ADAM_STEPS})
+    _same_arrays("Adam warmup params", runs[True].params,
+                 runs[False].params)
+    if logs[True] != logs[False]:
+        raise AssertionError(f"24c: the logged losses differ: {logs}")
+    print(f"  the logged losses equal: {logs[True]} (E_adam "
+          f"{logs[True][-1][1].hex()})")
+    summary["adam_warmup"] = {
+        ("captured" if g else "eager"): {
+            "steps_per_s": CAPTURE_ADAM_STEPS / r.runtime_s}
+        for g, r in runs.items()}
+    summary["adam_warmup"]["loss_hex"] = logs[True][-1][1].hex()
+    vb = variational.dual_grid_vbatch(cfg, N_R, N_XI, N_ETA, device=dev)
+
+    def warm_step(graph):
+        return variational.AdamWarmup(init, cfg, vb, CAPTURE_ADAM_STEPS,
+                                      1.0, graph=graph).advance
+
+    summary["adam_warmup"]["profile"] = _idle("Adam warmup", warm_step)
+    print("captured: " + json.dumps(summary), flush=True)
+    return summary
+
+
 def main() -> int:
     import torch
     argv = sys.argv[1:]
-    k1_root = None
+    k1_root = step_root = None
     if argv[:1] == ["--k1-times"] and len(argv) <= 2:
         k1_root = os.path.abspath(argv[1] if len(argv) == 2 else HERE)
+    elif argv[:1] == ["--step-times"] and len(argv) <= 2:
+        step_root = os.path.abspath(argv[1] if len(argv) == 2 else HERE)
     elif argv and (len(argv) != 2 or argv[0] != "--mesh"
                    or not argv[1].isdigit() or int(argv[1]) < 2):
-        print("usage: chip_smoke.py [--mesh N | --k1-times [ROOT]]  "
-              "(N >= 2 cards)", file=sys.stderr)
+        print("usage: chip_smoke.py [--mesh N | --k1-times [ROOT] | "
+              "--step-times [ROOT]]  (N >= 2 cards)", file=sys.stderr)
         return 2
-    multi = int(argv[1]) if argv and k1_root is None else 0
+    multi = (int(argv[1]) if argv and k1_root is None and step_root is None
+             else 0)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
               file=sys.stderr)
@@ -4510,6 +4929,10 @@ def main() -> int:
     if k1_root is not None:
         sys.path.insert(0, k1_root)
         k1_times(k1_root, card_line())
+        return 0
+    if step_root is not None:
+        sys.path.insert(0, step_root)
+        step_times(step_root, card_line())
         return 0
     sys.path.insert(0, HERE)
     try:
@@ -4819,6 +5242,7 @@ def main() -> int:
         mesh_sweep_phase(dev, card)
         entry_points_phase(dev, card)
         bf16 = bf16_phase(dev, card)
+        captured_phase(dev, card)
     finally:
         shutil.rmtree(KEEP_DIR, ignore_errors=True)
     phase()

@@ -559,7 +559,9 @@ def _base_fwdlap(params: dict, s: fwdlap.Spatial) -> fwdlap.Spatial:
 def _flip_gx(s: fwdlap.Spatial) -> fwdlap.Spatial:
     """Gradients taken in (-x, y, z) as gradients in (x, y, z): negate the
     x row. The laplacian is mirror-invariant."""
-    sign = s.g.new_tensor([-1.0, 1.0, 1.0])[:, None]
+    # made on the device (no host copy, which a CUDA graph cannot capture)
+    sign = torch.ones((3, 1), dtype=s.g.dtype, device=s.g.device)
+    sign[0] = -1.0
     return fwdlap.Spatial(s.v, s.g * sign, s.l)
 
 

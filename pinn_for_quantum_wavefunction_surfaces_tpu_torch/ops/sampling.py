@@ -107,7 +107,11 @@ def sample_batch_at_r(gen: torch.Generator, cfg: Config, r_value,
     dev = resolve_device(gen.device if device is None else device)
     b = dom.box
     x, y, z = (_uniform(gen, n, -b, b, dtype, dev) for _ in range(3))
-    r = torch.as_tensor(r_value, dtype=dtype, device=dev).expand(n)
+    # a scalar R filled on the device (no host copy, which a CUDA graph
+    # cannot capture)
+    r = (r_value.to(dtype=dtype, device=dev)
+         if isinstance(r_value, torch.Tensor) else
+         torch.full((), float(r_value), dtype=dtype, device=dev)).expand(n)
     return clamp_and_mask(cfg, x, y, z, r)
 
 

@@ -3,11 +3,13 @@ resampling, best-params tracking, an EMA and freeze-aware fine-tuning.
 
 The PyTorch counterpart of the JAX package's ``training/engine.py``. The
 JAX engine runs ``scan_chunk`` steps as one compiled ``lax.scan`` and reads
-the device only between chunks; this engine runs the steps eagerly and also
+the device only between chunks. Here one step is captured once as a CUDA
+graph and replayed every step (``training/graphs.py``), and the host also
 reads the device only between chunks: resampling is decided on the host from
-the step counter, the batch is drawn on the device from an explicit
+the step counter (the JAX engine's ``lax.cond``) and replays a captured draw
+into the static batch, the batch is drawn on the device from an explicit
 ``torch.Generator``, and the best loss, best params, EMA and per-step
-history stay on the device until a chunk ends.
+history stay in static device buffers until a chunk ends.
 
 - Resampling: every ``resample_every`` steps while ``step < resample_frac *
   epochs`` (the last 10% train on a frozen batch, which makes best
@@ -15,13 +17,18 @@ history stay on the device until a chunk ends.
 - Best params: the params with the lowest loss seen at any step (the loss
   is that of the params before the step's update); persisting them
   (``checkpoint_cb``) is gated to ``step > best_after_frac * epochs``.
-- Optimiser: ``torch.optim.Adam`` with the JAX betas and eps, whose update
-  is optax.adam's formula; ``lr_schedule="step"`` is optax's staircase
+- Optimiser: ``Adam``, optax.adam's update (the JAX engine's optimiser)
+  written as in-place tensor ops, with the step count and the rate as
+  device tensors; ``lr_schedule="step"`` is optax's staircase
   ``exponential_decay``: lr * sc_decay^floor(count / sc_step).
 - Freezing: the trainable leaves are views of one flat tensor, the only
   Adam parameter (one ``torch.where`` tracks the best, one op updates the
   EMA); frozen leaves are constants outside it, so autograd computes no
   gradient for them at all (fine-tuning launches no backward kernel).
+- Capture: on a CUDA device without a mesh, by default (``graph=True``);
+  eager on the CPU, which only the tests ask for, and under a mesh, whose
+  all-reduces stay eager. ``graph=False`` forces the eager step, which
+  equals the captured one bit for bit.
 - Mesh: ``train(..., mesh=)`` runs on every rank of a
   ``parallel.mesh.Mesh``, the batch sharded over the ranks and the loss's
   sums and the gradient all-reduced (``Trainer``).
@@ -42,6 +49,7 @@ from ..io.checkpoint import as_tensor
 from ..models import ansatz
 from ..ops.sampling import Batch, sample_batch
 from ..parallel.mesh import shard_batch
+from . import graphs
 from .losses import loss_fn
 
 # Frozen subtrees of the symmetric family's fine-tune stage: only the E
@@ -105,12 +113,58 @@ class _Layout:
         return out
 
 
-def make_optimizer(cfg: Config, flat: torch.Tensor) -> torch.optim.Adam:
+class Adam:
+    """optax.adam (the JAX package's optimiser) on one flat vector, its
+    update written as in-place tensor ops on buffers that stay where they
+    are, so that a CUDA graph can capture it. The step count and the rate
+    are 0-d tensors on the vector's device; ``set_lr`` sets the rate from
+    the host before a step. The moments ``mu`` and ``nu`` take the
+    vector's type, as optax's do; the update runs in the work type
+    (float32 for bfloat16) and each stored value is rounded once.
+
+    Per step, as optax computes it: mu = (1 - b1) g + b1 mu, nu = (1 - b2)
+    g^2 + b2 nu, the bias corrections 1 - b^count in the work type cast to
+    the moments' type, and p - lr (mu / bc1) / (sqrt(nu / bc2) + eps)."""
+
+    def __init__(self, flat: torch.Tensor, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.flat = flat
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.work = torch.promote_types(flat.dtype, torch.float32)
+        self.mu = torch.zeros_like(flat)
+        self.nu = torch.zeros_like(flat)
+        self.count = torch.zeros((), dtype=self.work, device=flat.device)
+        self.lr = torch.full((), lr, dtype=flat.dtype, device=flat.device)
+        self._lr = lr
+
+    def set_lr(self, lr: float) -> None:
+        """The rate of the next steps (one fill, when it changes)."""
+        if lr != self._lr:
+            self.lr.fill_(lr)
+            self._lr = lr
+
+    @torch.no_grad()
+    def step(self, grad: torch.Tensor) -> None:
+        """One update of the vector from its gradient."""
+        b1, b2, w = self.b1, self.b2, self.work
+        dtype = self.flat.dtype
+        self.count.add_(1)
+        bc1 = (1 - torch.pow(b1, self.count)).to(dtype).to(w)
+        bc2 = (1 - torch.pow(b2, self.count)).to(dtype).to(w)
+        g = grad.to(w)
+        mu = (1 - b1) * g + b1 * self.mu.to(w)
+        nu = (1 - b2) * (g * g) + b2 * self.nu.to(w)
+        self.mu.copy_(mu)
+        self.nu.copy_(nu)
+        self.flat.copy_(self.flat.to(w) - self.lr.to(w) * (
+            (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)))
+
+
+def make_optimizer(cfg: Config, flat: torch.Tensor) -> Adam:
     """Adam with the configured lr, betas and eps over the flat vector (the
     step schedule is applied by ``learning_rate`` before each step)."""
     t = cfg.train
-    return torch.optim.Adam([flat], lr=t.lr, betas=tuple(t.betas),
-                            eps=t.eps)
+    return Adam(flat, lr=t.lr, b1=t.betas[0], b2=t.betas[1], eps=t.eps)
 
 
 def learning_rate(cfg: Config, count: int) -> float:
@@ -124,23 +178,19 @@ def learning_rate(cfg: Config, count: int) -> float:
     return t.lr
 
 
-def _opt_tree(cfg, opt, flat, layout, sched_count):
+def _opt_tree(cfg, opt: Adam, layout, sched_count):
     """Adam's state in the JAX package's layout (the flattened optax state
     of ``cli train``'s state.npz): [{count, mu, nu}] plus {count} of the
     schedule with ``lr_schedule == "step"``."""
-    st = opt.state.get(flat, {})
-    count = int(st["step"]) if st else 0
-    zeros = torch.zeros_like(flat)
-    tree = [{"count": np.int32(count),
-             "mu": layout.tree(st.get("exp_avg", zeros), with_frozen=False),
-             "nu": layout.tree(st.get("exp_avg_sq", zeros),
-                               with_frozen=False)}]
+    tree = [{"count": np.int32(int(opt.count)),
+             "mu": layout.tree(opt.mu, with_frozen=False),
+             "nu": layout.tree(opt.nu, with_frozen=False)}]
     if cfg.train.lr_schedule == "step":
         tree.append({"count": np.int32(sched_count)})
     return tree
 
 
-def _restore_opt(cfg, opt, flat, layout, opt_state) -> int:
+def _restore_opt(cfg, opt: Adam, layout, opt_state) -> int:
     """Load a JAX-layout Adam state (lists or '0'/'1'-keyed dicts, as a
     state.npz reads back) into ``opt``; returns the schedule count."""
     def part(i):
@@ -152,11 +202,9 @@ def _restore_opt(cfg, opt, flat, layout, opt_state) -> int:
         return parts[i]
     adam = part(0)
     count = int(np.asarray(adam["count"]))
-    opt.state[flat] = {
-        "step": torch.tensor(float(count)),
-        "exp_avg": layout.flat(adam["mu"], flat.dtype, flat.device),
-        "exp_avg_sq": layout.flat(adam["nu"], flat.dtype, flat.device),
-    }
+    opt.count.fill_(count)
+    for buf, key in ((opt.mu, "mu"), (opt.nu, "nu")):
+        buf.copy_(layout.flat(adam[key], buf.dtype, buf.device))
     if cfg.train.lr_schedule == "step":
         return int(np.asarray(part(1)["count"]))
     return count
@@ -176,6 +224,15 @@ class Trainer:
     the best loss and params, the EMA and the generator. ``advance`` takes
     one step; ``state()`` is its ``TrainState``.
 
+    Every tensor a step reads or writes is a static buffer, updated in
+    place: ``flat``, Adam's moments, ``best_flat``, ``best_loss``,
+    ``ema_flat``, the ``batch`` (assigning one copies into it) and the
+    history ``row`` of the last step. So with ``graph`` on a CUDA device
+    without a mesh the step is captured as a CUDA graph at its second call
+    and replayed from then on, and so is the draw of a resample
+    (``graphs.StepGraph``); on the CPU, under a mesh, or with ``graph``
+    False every step runs eagerly, the same arithmetic.
+
     With ``mesh`` the batch is this rank's block of the global batch, every
     batch sum and count of the loss is all-reduced over the ranks
     (``Mesh.sum``, differentiable), each rank differentiates its 1/N share
@@ -193,7 +250,7 @@ class Trainer:
                  frozen: frozenset = frozenset(), best_params=None,
                  best_loss=None, ema_params=None, batch=None,
                  generator: Optional[torch.Generator] = None, mesh=None,
-                 device="cuda"):
+                 device="cuda", graph: bool = True):
         t = cfg.train
         self.cfg, self.mesh = cfg, mesh
         dev = mesh.device if mesh is not None else resolve_device(device)
@@ -208,8 +265,8 @@ class Trainer:
         self.opt = make_optimizer(cfg, self.flat)
         self.sched_count = 0
         if opt_state is not None:
-            self.sched_count = _restore_opt(cfg, self.opt, self.flat,
-                                            self.layout, opt_state)
+            self.sched_count = _restore_opt(cfg, self.opt, self.layout,
+                                            opt_state)
         self.loss_dtype = torch.promote_types(dtype, torch.float32)
         self.best_loss = torch.full((), float("inf") if best_loss is None
                                     else float(best_loss),
@@ -218,20 +275,53 @@ class Trainer:
                           else self.layout.flat(best_params, dtype, dev))
         self.ema_flat = (self.flat.detach().clone() if ema_params is None
                          else self.layout.flat(ema_params, dtype, dev))
+        # the last step's History: (l_tot, l_pde, l_bc, E) in the loss type
+        self.row = torch.zeros(4, dtype=self.loss_dtype, device=dev)
         self.step = int(start_step)
+        self._batch = None
         self.batch = batch
         self.generator = generator
+        self.capture = graphs.captures(dev, mesh, graph)
+        self._step = graphs.StepGraph(self._train_step, self.capture)
+        self._sampler = None    # (sample callable, its StepGraph)
+
+    @property
+    def batch(self) -> Optional[Batch]:
+        """The static batch the steps train on (None until one is set);
+        assigning a batch copies it into this one."""
+        return self._batch
+
+    @batch.setter
+    def batch(self, batch: Optional[Batch]) -> None:
+        if batch is not None:
+            self._batch = graphs.keep(self._batch, batch)
 
     def advance(self, sample: Callable[[torch.Generator], Batch]) -> History:
         """One Adam step: a fresh ``sample(generator)`` first when the
         schedule resamples (every ``resample_every`` steps while ``step <
-        resample_frac * epochs``). Returns the step's history (tensors on
-        the device; the loss is that of the params before the update)."""
-        cfg, m, t = self.cfg, self.mesh, self.cfg.train
+        resample_frac * epochs``). Returns the step's history: views of
+        ``row`` (on the device, overwritten by the next step; the loss is
+        that of the params before the update)."""
+        t = self.cfg.train
         if self.step % t.resample_every == 0 and \
                 self.step < int(t.resample_frac * t.epochs):
-            self.batch = sample(self.generator)
-        self.opt.zero_grad(set_to_none=True)
+            if self._sampler is None or self._sampler[0] is not sample:
+                def draw():
+                    self.batch = sample(self.generator)
+                self._sampler = (sample, graphs.StepGraph(
+                    draw, self.capture, generators=(self.generator,)))
+            self._sampler[1]()
+        self.opt.set_lr(learning_rate(self.cfg, self.sched_count))
+        self._step()
+        self.sched_count += 1
+        self.step += 1
+        return History(*self.row)
+
+    def _train_step(self) -> None:
+        """The step on the static buffers: loss and gradient, best, history
+        row, Adam, EMA."""
+        cfg, m = self.cfg, self.mesh
+        self.flat.grad = None
         l_tot, aux = self.loss(self.layout.tree(self.flat), cfg, self.batch,
                                allreduce=None if m is None else m.sum)
         e_last = aux.e_last
@@ -246,26 +336,25 @@ class Trainer:
                 e_last.detach(), torch.zeros_like(e_last)))
         with torch.no_grad():
             improved = l_tot < self.best_loss
-            self.best_flat = torch.where(improved, self.flat, self.best_flat)
-            self.best_loss = torch.where(improved, l_tot.to(self.loss_dtype),
-                                         self.best_loss)
-            hist = History(l_tot.detach(), aux.l_pde.detach(),
-                           aux.l_bc.detach(), e_last.detach())
-        self.opt.param_groups[0]["lr"] = learning_rate(cfg, self.sched_count)
-        self.opt.step()
-        self.sched_count += 1
+            self.best_flat.copy_(torch.where(improved, self.flat,
+                                             self.best_flat))
+            self.best_loss.copy_(torch.where(
+                improved, l_tot.to(self.loss_dtype), self.best_loss))
+            self.row.copy_(torch.stack((l_tot, aux.l_pde, aux.l_bc,
+                                        e_last)))
+        self.opt.step(self.flat.grad)
         with torch.no_grad():
-            d = t.ema_decay
-            self.ema_flat = d * self.ema_flat + (1.0 - d) * self.flat
-        self.step += 1
-        return hist
+            d = cfg.train.ema_decay
+            self.ema_flat.copy_(d * self.ema_flat + (1.0 - d) * self.flat)
 
     def state(self) -> TrainState:
+        """The run's state; its tensors are views of the live buffers (copy
+        what must outlive the next step)."""
         lay = self.layout
         return TrainState(
             self.step, lay.tree(self.flat.detach()),
-            None if lay.frozen else _opt_tree(self.cfg, self.opt, self.flat,
-                                              lay, self.sched_count),
+            None if lay.frozen else _opt_tree(self.cfg, self.opt, lay,
+                                              self.sched_count),
             self.batch, lay.tree(self.best_flat), self.best_loss,
             lay.tree(self.ema_flat), self.generator)
 
@@ -279,7 +368,7 @@ def train(cfg: Config,
           log_cb: Optional[Callable[[int, dict], None]] = None,
           mesh=None,
           batch: Optional[Batch] = None,
-          device="cuda") -> TrainResult:
+          device="cuda", graph: bool = True) -> TrainResult:
     """Run the training schedule on ``device`` (with ``mesh``: on every
     rank of it, each on its own device).
 
@@ -299,11 +388,14 @@ def train(cfg: Config,
     batch from the same generator and keeps its block
     (``parallel.mesh.shard_batch``), so the run equals the unsharded one up
     to the order of the all-reduced sums (bit for bit at world size 1).
-    Only rank 0 calls ``log_cb`` and ``checkpoint_cb``."""
+    Only rank 0 calls ``log_cb`` and ``checkpoint_cb``.
+
+    ``graph``: capture the step on a CUDA device without a mesh (the
+    default; ``Trainer``); False runs it eagerly."""
     t = cfg.train
     dev = mesh.device if mesh is not None else resolve_device(device)
     tr = Trainer(cfg, params, opt_state=opt_state, start_step=start_step,
-                 frozen=frozen, mesh=mesh, device=dev,
+                 frozen=frozen, mesh=mesh, device=dev, graph=graph,
                  generator=torch.Generator(device=dev).manual_seed(
                      int(t.seed)))
 
@@ -327,7 +419,8 @@ def train(cfg: Config,
         # run's rows widen exactly to float32)
         hist = torch.empty((n, 4), dtype=tr.loss_dtype, device=dev)
         for j in range(n):
-            hist[j] = torch.stack(tuple(tr.advance(sample)))
+            tr.advance(sample)
+            hist[j].copy_(tr.row)
         n_done += n
         chunks.append(hist.cpu().numpy())
         best = float(tr.best_loss)

@@ -32,6 +32,12 @@ ground-family reference is one K1-fwd launch a grid on the card).
 
 With a mesh (``parallel.mesh``) the spheroidal polish shards its R rows
 over the ranks (``polish_spheroidal(mesh=)``).
+
+The JAX package scan-chunks the Monte-Carlo trainer and the polish's Adam
+warmup. Here their steps (``MonteCarloTrainer``, ``AdamWarmup``) work on
+static buffers, and on a CUDA device without a mesh each is captured once
+as a CUDA graph and replayed every step (``training/graphs.py``); L-BFGS
+stays eager.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from ..device import resolve_device, resolve_dtype
 from ..models import ansatz
 from ..ops import operators, routing
 from ..ops.sampling import sample_importance
-from . import engine
+from . import engine, graphs
 from .lbfgs import LBFGS
 
 # line-search evaluations an L-BFGS step may spend beyond its first: optax's
@@ -400,29 +406,76 @@ def _lbfgs_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
     return best_p
 
 
+def warmup_lr(lr: float, steps: int, i: int) -> float:
+    """The Adam warmup's rate at step ``i`` (0-based): optax's staircase
+    exponential_decay(lr, steps // 4, 0.5), lr * 0.5^floor(i / (steps //
+    4)), in float32 as optax evaluates it on its int32 step count, whatever
+    the params' type."""
+    f32 = np.float32
+    return float(f32(lr) * f32(0.5) ** f32(i // max(steps // 4, 1)))
+
+
+class AdamWarmup:
+    """The polish's deterministic-Adam warmup as a graph-ready step (the
+    JAX package scan-chunks it): one gradient evaluation of ``loss_fn`` on
+    the fixed batch and one Adam update a call, on static buffers (the
+    params' flat vector, Adam's moments, ``loss``: the objective of the
+    params before the update). ``graphs.StepGraph`` captures it on a CUDA
+    device without a mesh when ``graph`` is set. ``mesh``: as in
+    _lbfgs_minimize."""
+
+    def __init__(self, params: dict, cfg: Config, vb: VBatch, steps: int,
+                 head_weight: float, lr: float = 3e-3, loss_fn=None,
+                 mesh=None, graph: bool = True):
+        self.cfg, self.vb, self.steps = cfg, vb, steps
+        self.head_weight, self.lr0, self.mesh = head_weight, lr, mesh
+        self.loss_fn = quotient_loss if loss_fn is None else loss_fn
+        self.layout = engine._Layout(params, frozenset())
+        leaf = _leaves(params)[0]
+        self.flat = self.layout.flat(params, leaf.dtype,
+                                     leaf.device).requires_grad_(True)
+        self.opt = engine.Adam(self.flat, lr=lr)   # optax.adam's defaults
+        self.loss = None
+        self.done = 0
+        self._step = graphs.StepGraph(
+            self._eval_and_update,
+            graphs.captures(leaf.device, mesh, graph))
+
+    def params(self) -> dict:
+        """A copy of the current params."""
+        return self.layout.tree(self.flat.detach().clone())
+
+    def advance(self) -> None:
+        self.opt.set_lr(warmup_lr(self.lr0, self.steps, self.done))
+        self._step()
+        self.done += 1
+
+    def _eval_and_update(self) -> None:
+        self.flat.grad = None
+        loss, _ = self.loss_fn(self.layout.tree(self.flat), self.cfg,
+                               self.vb, self.head_weight)
+        _backward(loss, [self.flat], self.mesh)
+        self.loss = graphs.keep(self.loss, loss)
+        self.opt.step(self.flat.grad)
+
+
 def _adam_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
                    head_weight: float, lr: float = 3e-3,
-                   log_cb=None, loss_fn=None, mesh=None) -> dict:
+                   log_cb=None, loss_fn=None, mesh=None,
+                   graph: bool = True) -> dict:
     """Deterministic-Adam warmup on ``loss_fn`` (default quotient_loss) over
-    a fixed batch: one gradient evaluation per step, with the staircase
-    schedule lr * 0.5^floor(step / (steps // 4)). Logs every 100 steps and
-    at the end. ``mesh``: as in _lbfgs_minimize."""
-    loss_fn = quotient_loss if loss_fn is None else loss_fn
-    p = _trainable(params)
-    leaves = _leaves(p)
-    opt = torch.optim.Adam(leaves, lr=lr)   # optax.adam's defaults
-    sched = torch.optim.lr_scheduler.StepLR(
-        opt, step_size=max(steps // 4, 1), gamma=0.5)
-    for i in range(steps):
-        opt.zero_grad()
-        loss, _ = loss_fn(p, cfg, vb, head_weight)
-        _backward(loss, leaves, mesh)
-        opt.step()
-        sched.step()
-        done = i + 1
+    a fixed batch (``AdamWarmup``): one gradient evaluation per step, with
+    the staircase schedule ``warmup_lr``. Logs every 100 steps and at the
+    end, the host's only reads of the device. ``mesh``: as in
+    _lbfgs_minimize; ``graph``: capture the step (``AdamWarmup``)."""
+    warm = AdamWarmup(params, cfg, vb, steps, head_weight, lr, loss_fn,
+                      mesh, graph)
+    for _ in range(steps):
+        warm.advance()
+        done = warm.done
         if log_cb is not None and (done % 100 == 0 or done == steps):
-            log_cb(done, {"E_adam": loss.item()})
-    return _snapshot(p)
+            log_cb(done, {"E_adam": warm.loss.item()})
+    return warm.params()
 
 
 def _coprime_size(n: int, offset: int) -> int:
@@ -485,7 +538,7 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
                       memory_size: int = 15,
                       val_grid: bool = True,
                       best_save: Optional[str] = None,
-                      device="cuda") -> dict:
+                      device="cuda", graph: bool = True) -> dict:
     """Adam warmup + L-BFGS on the exact (quadrature) variational objective.
 
     ``dual_grid`` averages quotients over two coprime-sized grids per R, so
@@ -508,7 +561,10 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
     on its rank, and the means over R and the gradient are all-reduced.
     Every rank takes the same steps on the same values, so the params stay
     equal bit for bit on every rank. Only rank 0 logs and writes
-    ``warmup_save`` and ``best_save``."""
+    ``warmup_save`` and ``best_save``.
+
+    ``graph``: the Adam warmup's step is captured as a CUDA graph on a CUDA
+    device without a mesh (``AdamWarmup``); L-BFGS stays eager."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     dtype = resolve_dtype(cfg.dtype)
     if mesh is not None and cfg.domain.fixed_r is None:
@@ -570,7 +626,8 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
                 return quotient_loss(p, cfg, vbv, head_weight, mesh=mesh)[0]
     if adam_steps:
         params = _adam_minimize(params, cfg, vb, adam_steps, head_weight,
-                                log_cb=log_cb, loss_fn=loss_fn, mesh=mesh)
+                                log_cb=log_cb, loss_fn=loss_fn, mesh=mesh,
+                                graph=graph)
         if warmup_save:
             from ..io import checkpoint
             checkpoint.save(warmup_save,
@@ -638,9 +695,65 @@ def polish_lbfgs(params: Optional[dict], cfg: Config, n_r: int = 64,
 class VState(NamedTuple):
     step: int
     params: dict          # port params (views of the trained vector)
-    opt: torch.optim.Adam
+    opt: engine.Adam
     ema_params: dict
     generator: torch.Generator
+
+
+class MonteCarloTrainer:
+    """The Monte-Carlo trainer's live state as a graph-ready step: a fresh
+    ``sample_vbatch`` from ``gen`` each step, its quotient_loss and
+    gradient, an Adam update and the EMA, on static buffers (the params'
+    flat vector, Adam's moments, ``ema_flat``, the batch ``vb`` and the
+    history ``row`` (Ltot, E_mean, l_head) of the last step).
+    ``graphs.StepGraph`` captures the step, the draw included (the
+    generator registered), on a CUDA device when ``graph`` is set."""
+
+    def __init__(self, cfg: Config, params: dict, n_r: int, n_pts: int,
+                 gen: torch.Generator, ema_decay: float = 0.999,
+                 antithetic: bool = False, stratified: bool = False,
+                 device="cuda", graph: bool = True):
+        dev = resolve_device(device)
+        dtype = resolve_dtype(cfg.dtype)
+        self.cfg, self.n_r, self.n_pts, self.gen = cfg, n_r, n_pts, gen
+        self.antithetic, self.stratified = antithetic, stratified
+        self.ema_decay, self.device = ema_decay, dev
+        params = ansatz.as_params(params, dtype, dev)
+        self.layout = engine._Layout(params, frozenset())
+        self.flat = self.layout.flat(params, dtype, dev).requires_grad_(True)
+        self.opt = engine.make_optimizer(cfg, self.flat)
+        self.ema_flat = self.flat.detach().clone()
+        # in the loss type (float32 for bfloat16 params: numpy has no
+        # bfloat16)
+        self.row = torch.zeros(3, dtype=torch.promote_types(
+            dtype, torch.float32), device=dev)
+        self.vb = None
+        self.step = 0
+        self._step = graphs.StepGraph(self._train_step,
+                                      graphs.captures(dev, None, graph),
+                                      generators=(gen,))
+
+    def advance(self) -> None:
+        self.opt.set_lr(engine.learning_rate(self.cfg, self.step))
+        self._step()
+        self.step += 1
+
+    def _train_step(self) -> None:
+        self.vb = graphs.keep(self.vb, sample_vbatch(
+            self.gen, self.cfg, self.n_r, self.n_pts,
+            antithetic=self.antithetic, stratified=self.stratified,
+            device=self.device))
+        self.flat.grad = None
+        loss, aux = quotient_loss(self.layout.tree(self.flat), self.cfg,
+                                  self.vb)
+        loss.backward()
+        with torch.no_grad():
+            self.row.copy_(torch.stack([loss, aux["e_mean"],
+                                        aux["l_head"]]))
+        self.opt.step(self.flat.grad)
+        with torch.no_grad():
+            d = self.ema_decay
+            self.ema_flat.copy_(d * self.ema_flat + (1.0 - d) * self.flat)
 
 
 def train_variational(cfg: Config, params: Optional[dict] = None,
@@ -650,13 +763,16 @@ def train_variational(cfg: Config, params: Optional[dict] = None,
                       ema_decay: float = 0.999,
                       gen: Optional[torch.Generator] = None,
                       antithetic: bool = False, stratified: bool = False,
-                      log_cb=None, device="cuda") -> engine.TrainResult:
+                      log_cb=None, device="cuda",
+                      graph: bool = True) -> engine.TrainResult:
     """The Monte-Carlo variational trainer: Adam on quotient_loss over a
     fresh ``sample_vbatch`` each step, with the rate ``lr`` (default
     ``cfg.train.lr``) under ``cfg.train.lr_schedule``, and an exponential
     moving average (``ema_decay``) of the params that starts at the initial
     ones. Draws come from ``gen`` (default: seeded with
     ``cfg.train.seed``); ``params`` None starts from the seeded init.
+    ``graph``: capture the step (the draw included) as a CUDA graph on a
+    CUDA device (``MonteCarloTrainer``); False runs it eagerly.
 
     The host reads the device every ``cfg.train.scan_chunk`` steps and then
     calls ``log_cb(step, {"E_mean", "l_head"})``. The history holds the JAX
@@ -673,41 +789,21 @@ def train_variational(cfg: Config, params: Optional[dict] = None,
     if params is None:
         params = ansatz.init_params(cfg.model, seed=t.seed, dtype=dtype,
                                     device=dev)
-    params = ansatz.as_params(params, dtype, dev)
-    layout = engine._Layout(params, frozenset())
-    flat = layout.flat(params, dtype, dev).requires_grad_(True)
-    opt = engine.make_optimizer(cfg, flat)
-    ema_flat = flat.detach().clone()
-    d = ema_decay
+    mc = MonteCarloTrainer(cfg, params, n_r, n_pts, gen, ema_decay,
+                           antithetic, stratified, dev, graph)
     chunks = []
-    n_done = 0
     t0 = time.perf_counter()
-    while n_done < epochs:
-        n = min(t.scan_chunk, epochs - n_done)
-        # in the loss type (float32 for bfloat16 params: numpy has no
-        # bfloat16)
-        hist = torch.empty((n, 3),
-                           dtype=torch.promote_types(dtype, torch.float32),
-                           device=dev)
+    while mc.step < epochs:
+        n = min(t.scan_chunk, epochs - mc.step)
+        hist = torch.empty((n, 3), dtype=mc.row.dtype, device=dev)
         for j in range(n):
-            vb = sample_vbatch(gen, cfg, n_r, n_pts, antithetic=antithetic,
-                               stratified=stratified, device=dev)
-            opt.zero_grad(set_to_none=True)
-            loss, aux = quotient_loss(layout.tree(flat), cfg, vb)
-            loss.backward()
-            with torch.no_grad():
-                hist[j] = torch.stack([loss, aux["e_mean"], aux["l_head"]])
-            opt.param_groups[0]["lr"] = engine.learning_rate(cfg,
-                                                             n_done + j)
-            opt.step()
-            with torch.no_grad():
-                ema_flat = d * ema_flat + (1.0 - d) * flat
-        n_done += n
+            mc.advance()
+            hist[j].copy_(mc.row)
         chunks.append(hist.cpu().numpy())
         if log_cb is not None:
             last = chunks[-1][-1]
-            log_cb(n_done, {"E_mean": float(last[1]),
-                            "l_head": float(last[2])})
+            log_cb(mc.step, {"E_mean": float(last[1]),
+                             "l_head": float(last[2])})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     runtime = time.perf_counter() - t0
@@ -716,11 +812,12 @@ def train_variational(cfg: Config, params: Optional[dict] = None,
     # quotient part and Lbc the head term, as in the JAX package
     history = {"Ltot": h[:, 0], "Lpde": h[:, 0] - h[:, 2], "Lbc": h[:, 2],
                "Energy": h[:, 1]}
-    final = ansatz.to_numpy_params(layout.tree(flat.detach()))
-    ema = ansatz.to_numpy_params(layout.tree(ema_flat))
+    layout = mc.layout
+    final = ansatz.to_numpy_params(layout.tree(mc.flat.detach()))
+    ema = ansatz.to_numpy_params(layout.tree(mc.ema_flat))
     return engine.TrainResult(
-        state=VState(n_done, layout.tree(flat.detach()), opt,
-                     layout.tree(ema_flat), gen),
+        state=VState(mc.step, layout.tree(mc.flat.detach()), mc.opt,
+                     layout.tree(mc.ema_flat), gen),
         params=final, best_params=final,
         best_loss=float(history["Ltot"][-1]), history=history,
         runtime_s=runtime,

@@ -460,7 +460,7 @@ def test_trainer_adam_step_matches_optax():
     assert tr.flat.dtype == BF and tr.best_loss.dtype == torch.float32
     h = tr.advance(lambda g: tb)
     st = tr.state()
-    assert tr.opt.state[tr.flat]["exp_avg"].dtype == BF
+    assert tr.opt.mu.dtype == tr.opt.nu.dtype == BF
     assert st.best_loss.dtype == torch.float32
     assert normwise(h.l_tot, np.asarray(hist.l_tot)) <= BF16_GAP
     for k in new.params:

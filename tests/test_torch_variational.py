@@ -110,20 +110,44 @@ def test_quotient_loss_value_and_gradients_match_jax(hidden, p_sym):
 
 
 def test_adam_schedule_matches_optax_staircase():
-    """StepLR(steps // 4, 0.5) reproduces optax.exponential_decay(lr,
-    steps // 4, 0.5, staircase=True), step for step."""
+    """The warmup's rate (``warmup_lr``, set on its Adam before each step)
+    reproduces optax.exponential_decay(lr, steps // 4, 0.5,
+    staircase=True) on the int32 step count that optax's update passes it
+    (a float32 value), step for step."""
     steps, lr = 10, 3e-3
     sched = optax.exponential_decay(lr, transition_steps=steps // 4,
                                     decay_rate=0.5, staircase=True)
-    w = torch.zeros(1, requires_grad=True)
-    opt = torch.optim.Adam([w], lr=lr)
-    step_lr = torch.optim.lr_scheduler.StepLR(opt, step_size=steps // 4,
-                                              gamma=0.5)
     for i in range(steps):
-        np.testing.assert_allclose(opt.param_groups[0]["lr"],
-                                   float(sched(i)), rtol=1e-15)
-        opt.step()
-        step_lr.step()
+        np.testing.assert_allclose(tvar.warmup_lr(lr, steps, i),
+                                   float(sched(jnp.int32(i))), rtol=1e-15)
+
+
+def test_adam_warmup_matches_jax():
+    """The polish's Adam warmup (``AdamWarmup``: optax's update as
+    in-place tensor ops on one flat vector) against the JAX package's
+    scan-chunked _adam_minimize, on the same dual spheroidal grid from the
+    same JAX init of the separable family: 12 steps, so that the staircase
+    halves the rate three times; params within rtol 1e-9 (the tolerance of
+    test_adam_steps_and_resume_match_jax), the logged loss within 1e-10."""
+    _, _, params = jax_model(1, 8)
+    jc, tc = configs(hidden=8)
+    vb = tvar.dual_grid_vbatch(tc, 2, 10, 8, device="cpu")
+    vbj = jvar.VBatch(*(jnp.asarray(a.numpy()) for a in vb))
+    logs_j, logs_t = [], []
+    want = jvar._adam_minimize(jax.tree.map(jnp.asarray, params), jc, vbj,
+                               12, 1.0,
+                               log_cb=lambda i, m: logs_j.append((i, m)))
+    got = tvar._adam_minimize(tans.from_jax_params(params, device="cpu"),
+                              tc, vb, 12, 1.0,
+                              log_cb=lambda i, m: logs_t.append((i, m)))
+    for k in want:
+        for f in want[k]:
+            np.testing.assert_allclose(got[k][f].numpy(),
+                                       np.asarray(want[k][f]), rtol=1e-9,
+                                       atol=1e-13, err_msg=f"{k}/{f}")
+    assert [i for i, _ in logs_t] == [i for i, _ in logs_j] == [12]
+    np.testing.assert_allclose(logs_t[0][1]["E_adam"],
+                               logs_j[0][1]["E_adam"], rtol=1e-10)
 
 
 def test_adam_warmup_then_lbfgs_lowers_the_loss():
