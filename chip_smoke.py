@@ -288,6 +288,10 @@ Monte-Carlo trainer's (both families) and the Adam warmup's steps/s, the
 bench line's points/s (both families). Run it as parent, change, change,
 parent in one call to compare two commits.
 
+``python3 chip_smoke.py --tracing`` measures what the port's tracing
+(``utils/profiling.py``) costs on the card and checks that it changes no
+step, as ``tracing_costs`` says, and prints one JSON line.
+
 Each phase prints its wall time. Then one JSON line ``{"kernels": [...]}``,
 the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when run
@@ -3494,7 +3498,7 @@ def entry_points_phase(dev, card: str) -> None:
         pallas_train as kt
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
         import sample_batch
-    mods = (ks, kt, k3, ceiling)
+    mods = (ks, kt, k3)
     cpu = torch.device("cpu")
 
     def launched(label, counts, want):
@@ -3519,8 +3523,7 @@ def entry_points_phase(dev, card: str) -> None:
         launched("cli bench", _all_launches(*mods), {
             "train_fwd": steps, "train_bwd": steps, "separable_fwd": steps,
             "separable_bwd": steps, "train_bwd_pg": 0,
-            "separable_bwd_pg": 0, "residual_fwd": 0, "ceiling_fma": 4,
-            "ceiling_tanh": 4})
+            "separable_bwd_pg": 0, "residual_fwd": 0})
         sep = line["separable"]
         rates = (line["value"], sep["points_per_sec"])
         if not (all(np.isfinite(rates)) and min(rates) > 0):
@@ -4636,6 +4639,215 @@ def step_times(root: str, card: str) -> None:
     print("step_times: " + json.dumps(out), flush=True)
 
 
+# --tracing: replays of a step graph timed a round, rounds a graph, host
+# calls of advance timed a state, and make train's steps, the MC trainer's
+# and the Adam warmup's in a run whose tracing is switched on at its first
+# read (two chunks a run)
+TRACING_REPLAYS, TRACING_ROUNDS, TRACING_CALLS = 200, 4, 200
+TRACING_TRAIN, TRACING_MC, TRACING_ADAM = 500, 100, 200
+
+
+def _replay_ms(graphs_: dict) -> dict:
+    """{name: device ms a replay} of each CUDA graph, TRACING_ROUNDS rounds
+    of TRACING_REPLAYS replays between CUDA events, the graphs taken in
+    turn each round; the median round."""
+    import numpy as np
+    import torch
+    times = {k: [] for k in graphs_}
+    for _ in range(TRACING_ROUNDS):
+        for k, g in graphs_.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            for _ in range(TRACING_REPLAYS):
+                g.replay()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b) / TRACING_REPLAYS)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _advance_us(advance) -> float:
+    """Median host µs of ``advance()``, each call begun with the device's
+    queue drained."""
+    import numpy as np
+    import torch
+    spans = []
+    for _ in range(TRACING_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        advance()
+        spans.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return 1e6 * float(np.median(spans))
+
+
+def tracing_costs(card: str) -> None:
+    """``python3 chip_smoke.py --tracing``: what the port's tracing
+    (``utils/profiling.py``) costs, and that it changes no step, for make
+    train's ``engine.Trainer``, the Monte-Carlo trainer (the flagship
+    artifact, float32) and the polish's Adam warmup (float64, the
+    flagship's dual grid), each at its recipe's batch:
+
+    - device ms a replay of each step graph captured without the phase
+      marks and with them (the graph of the other state held), in turn;
+    - host µs of ``advance`` with the spans off and on (no profiler);
+    - the phases of one step with tracing on;
+    - ``engine.train``, ``train_variational`` and ``_adam_minimize`` with
+      tracing switched on at their first read (the graphs captured again)
+      against the same runs without: histories, logged losses and
+      parameters equal bit for bit.
+
+    Prints one JSON line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import _build
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        engine, variational
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.utils import \
+        profiling
+    dev = torch.device("cuda")
+    _build.build(list(_build.KERNELS))
+    out = {"card": card}
+    tcfg = config.Config(model=config.ModelConfig(gz=True,
+                                                  trainable_exponent=True))
+    tcfg = tcfg.replace(train=dataclasses.replace(
+        tcfg.train, lr_schedule="step", n_train=N_TRAIN, epochs=100_000,
+        resample_frac=0.9))
+    mcfg = config.Config(model=config.ModelConfig(arch="separable"))
+    mc_params = ansatz.from_jax_params(_load_npz_params(os.path.join(
+        HERE, "artifacts", "flagship_separable.npz")), dtype="float32",
+        device=dev)
+    pcfg = config.Config(model=config.ModelConfig(arch="separable"),
+                         dtype="float64")
+    p_params = ansatz.init_params(pcfg.model, seed=pcfg.train.seed,
+                                  dtype="float64", device=dev)
+    vb = variational.dual_grid_vbatch(pcfg, N_R, N_XI, N_ETA,
+                                      dtype="float64", device=dev)
+
+    def trainer():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tr = engine.Trainer(tcfg, device=dev, generator=gen)
+
+        def sample(g):
+            return sample_batch(g, tcfg, device=dev)
+
+        tr.batch = sample(gen)
+        return tr, lambda: tr.advance(sample), {
+            "step": lambda: tr._step.graph,
+            "sample": lambda: tr._sampler[1].graph}
+
+    def monte_carlo():
+        mc = variational.MonteCarloTrainer(
+            mcfg, mc_params, MC_N_R, MC_N_PTS,
+            torch.Generator(device=dev).manual_seed(0), antithetic=True,
+            stratified=True, device=dev)
+        return mc, mc.advance, {"step": lambda: mc._step.graph}
+
+    def warmup():
+        w = variational.AdamWarmup(p_params, pcfg, vb, 1500, 1.0)
+        return w, w.advance, {"step": lambda: w._step.graph}
+
+    for name, make in (("make_train", trainer), ("mc", monte_carlo),
+                       ("adam_warmup", warmup)):
+        tr, advance, graphs_of = make()
+        for _ in range(3):
+            advance()
+        host_off = _advance_us(advance)
+        plain = {k: g() for k, g in graphs_of.items()}
+        profiling.enable(True)
+        advance()                       # captured again, with the marks
+        host_on = _advance_us(advance)
+        phases = tr.phases()
+        marked = {k: g() for k, g in graphs_of.items()}
+        profiling.enable(False)
+        times = _replay_ms({**{f"{k}_plain": g for k, g in plain.items()},
+                            **{f"{k}_marked": g for k, g in marked.items()}})
+        out[name] = {"replay_ms": times, "advance_host_us_off": host_off,
+                     "advance_host_us_on": host_on, "phases_ms": phases}
+        print(f"  {name}: {json.dumps(out[name])}", flush=True)
+        del tr, advance, plain, marked
+        torch.cuda.synchronize()
+
+    def switch_at_first_read(log):
+        def cb(step, metrics):
+            log.append((step, dict(metrics)))
+            profiling.enable(True)
+        return cb
+
+    def runs(run):
+        """(logs, result) of ``run(log_cb)`` without tracing, then with
+        tracing switched on at the first read."""
+        got = []
+        for switch in (False, True):
+            log = []
+            cb = switch_at_first_read(log) if switch else \
+                (lambda step, m, log=log: log.append((step, dict(m))))
+            res = run(cb)
+            profiling.enable(False)
+            got.append((log, res))
+        return got
+
+    def same(label, a, b):
+        if isinstance(a, dict):
+            for k in a:
+                same(f"{label}.{k}", a[k], b[k])
+        elif isinstance(a, np.ndarray) or np.isscalar(a):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"tracing switched on: {label} differs")
+        else:
+            raise TypeError(f"{label}: {type(a)}")
+
+    def losses_only(log):
+        return [{k: v for k, v in m.items() if not k.endswith("_ms")}
+                for _, m in log]
+
+    checks = {}
+    tr_cfg = tcfg.replace(train=dataclasses.replace(
+        tcfg.train, epochs=TRACING_TRAIN, scan_chunk=TRACING_TRAIN // 2))
+    (l0, r0), (l1, r1) = runs(lambda cb: engine.train(tr_cfg, device=dev,
+                                                      log_cb=cb))
+    if not any(k.endswith("_ms") for k in l1[-1][1]):
+        raise AssertionError("engine.train logged no phase ms with tracing "
+                             "on")
+    for k in r0.history:
+        same(f"make_train.history.{k}", r0.history[k], r1.history[k])
+    for part in ("params", "best_params", "ema_params"):
+        same(f"make_train.{part}", getattr(r0, part), getattr(r1, part))
+    checks["make_train"] = {"steps": TRACING_TRAIN, "logs": l1[-1][1],
+                            "loss_hex": float(r0.history["Ltot"][-1]).hex()}
+    mc_cfg = mcfg.replace(train=dataclasses.replace(
+        mcfg.train, scan_chunk=TRACING_MC // 2))
+    (l0, r0), (l1, r1) = runs(lambda cb: variational.train_variational(
+        mc_cfg, params=mc_params, n_r=MC_N_R, n_pts=MC_N_PTS,
+        epochs=TRACING_MC, lr=MC_LR, antithetic=True, stratified=True,
+        log_cb=cb, device=dev))
+    for k in r0.history:
+        same(f"mc.history.{k}", r0.history[k], r1.history[k])
+    same("mc.params", r0.params, r1.params)
+    same("mc.ema_params", r0.ema_params, r1.ema_params)
+    checks["mc"] = {"steps": TRACING_MC,
+                    "loss_hex": float(r0.history["Ltot"][-1]).hex()}
+    (l0, r0), (l1, r1) = runs(lambda cb: variational._adam_minimize(
+        p_params, pcfg, vb, TRACING_ADAM, 1.0, log_cb=cb))
+    if losses_only(l0) != losses_only(l1) or len(l0) != 2:
+        raise AssertionError(f"adam warmup: logs {l0} against {l1}")
+    same("adam_warmup.params", ansatz.to_numpy_params(r0),
+         ansatz.to_numpy_params(r1))
+    checks["adam_warmup"] = {"steps": TRACING_ADAM,
+                             "loss_hex": float(l0[-1][1]["E_adam"]).hex()}
+    out["switched_on_midway_equal"] = checks
+    print("tracing: " + json.dumps(out), flush=True)
+
+
 # phase 24: each captured path against its graph=False run, in one call.
 # 24a: make train's configuration (GZ + alpha, step schedule, float32,
 # N_TRAIN points) cut to CAPTURE_TRAIN_STEPS steps in chunks of
@@ -4911,6 +5123,14 @@ def main() -> int:
     import torch
     argv = sys.argv[1:]
     k1_root = step_root = None
+    if argv == ["--tracing"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available; nothing to run",
+                  file=sys.stderr)
+            return 1
+        sys.path.insert(0, HERE)
+        tracing_costs(card_line())
+        return 0
     if argv[:1] == ["--k1-times"] and len(argv) <= 2:
         k1_root = os.path.abspath(argv[1] if len(argv) == 2 else HERE)
     elif argv[:1] == ["--step-times"] and len(argv) <= 2:
@@ -4918,7 +5138,8 @@ def main() -> int:
     elif argv and (len(argv) != 2 or argv[0] != "--mesh"
                    or not argv[1].isdigit() or int(argv[1]) < 2):
         print("usage: chip_smoke.py [--mesh N | --k1-times [ROOT] | "
-              "--step-times [ROOT]]  (N >= 2 cards)", file=sys.stderr)
+              "--step-times [ROOT] | --tracing]  (N >= 2 cards)",
+              file=sys.stderr)
         return 2
     multi = (int(argv[1]) if argv and k1_root is None and step_root is None
              else 0)
@@ -4980,9 +5201,8 @@ def main() -> int:
     phase("2 build")
     t0 = time.time()
     _build.build()
-    print(f"built {', '.join(_build.SOURCES)} in {time.time() - t0:.1f} s; "
-          "each done after " + ", ".join(
-              f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()))
+    print(f"built {', '.join(_build.SOURCES)} in {time.time() - t0:.1f} s",
+          flush=True)
     for name in _build.KERNELS:
         for line in ptxas_summary(_build.log_path(name).read_text()):
             print(f"  {name} {line}")

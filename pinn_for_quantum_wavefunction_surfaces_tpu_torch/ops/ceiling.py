@@ -28,14 +28,6 @@ UNROLL = {"fma": 16, "tanh": 4}
 # the library's ceiling_shape(which) index of each number above
 _SHAPE_INDEX = {"chains": 0, "fma": 1, "tanh": 2}
 
-# launch count of each kernel (a plain integer); only the CUDA path adds
-launches = {"ceiling_fma": 0, "ceiling_tanh": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 def operations(n: int, iters: int, which: str) -> float:
     """Operations of one call on n elements: FLOP for ``"fma"`` (2 a
@@ -98,7 +90,6 @@ def chain_cuda(x0: torch.Tensor, iters: int, a: float, b: float,
     if err:
         raise RuntimeError(f"ceiling_{which} launch failed: CUDA error {err} "
                            f"({lib.ceiling_error_string(err).decode()})")
-    launches[f"ceiling_{which}"] += 1
     return out
 
 

@@ -32,6 +32,9 @@ history stay in static device buffers until a chunk ends.
 - Mesh: ``train(..., mesh=)`` runs on every rank of a
   ``parallel.mesh.Mesh``, the batch sharded over the ranks and the loss's
   sums and the gradient all-reduced (``Trainer``).
+- Tracing (``utils/profiling.py``, off by default): spans around each step
+  and chunk read, phase marks inside the step (``Trainer.phases``), and
+  each chunk's ``log_cb`` record gains the last step's phase ms.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..io.checkpoint import as_tensor
 from ..models import ansatz
 from ..ops.sampling import Batch, sample_batch
 from ..parallel.mesh import shard_batch
+from ..utils import profiling
 from . import graphs
 from .losses import loss_fn
 
@@ -284,6 +288,7 @@ class Trainer:
         self.capture = graphs.captures(dev, mesh, graph)
         self._step = graphs.StepGraph(self._train_step, self.capture)
         self._sampler = None    # (sample callable, its StepGraph)
+        self._drew = False      # whether the last step resampled
 
     @property
     def batch(self) -> Optional[Batch]:
@@ -302,29 +307,43 @@ class Trainer:
         resample_frac * epochs``). Returns the step's history: views of
         ``row`` (on the device, overwritten by the next step; the loss is
         that of the params before the update)."""
-        t = self.cfg.train
-        if self.step % t.resample_every == 0 and \
-                self.step < int(t.resample_frac * t.epochs):
-            if self._sampler is None or self._sampler[0] is not sample:
-                def draw():
-                    self.batch = sample(self.generator)
-                self._sampler = (sample, graphs.StepGraph(
-                    draw, self.capture, generators=(self.generator,)))
-            self._sampler[1]()
-        self.opt.set_lr(learning_rate(self.cfg, self.sched_count))
-        self._step()
-        self.sched_count += 1
-        self.step += 1
+        with profiling.annotate("advance", self.step):
+            t = self.cfg.train
+            self._drew = self.step % t.resample_every == 0 and \
+                self.step < int(t.resample_frac * t.epochs)
+            if self._drew:
+                if self._sampler is None or self._sampler[0] is not sample:
+                    def draw():
+                        profiling.mark("sample")
+                        self.batch = sample(self.generator)
+                    self._sampler = (sample, graphs.StepGraph(
+                        draw, self.capture, generators=(self.generator,)))
+                with profiling.annotate("resample"):
+                    self._sampler[1]()
+            self.opt.set_lr(learning_rate(self.cfg, self.sched_count))
+            with profiling.annotate("step"):
+                self._step()
+            self.sched_count += 1
+            self.step += 1
         return History(*self.row)
+
+    def phases(self) -> dict:
+        """{phase: device ms} of the last step while tracing is on (else
+        {}): ``sample`` if it resampled, then ``forward`` (the loss),
+        ``backward`` and ``update`` (best, history row, Adam, EMA)."""
+        out = self._sampler[1].phases() if self._drew else {}
+        return {**out, **self._step.phases()}
 
     def _train_step(self) -> None:
         """The step on the static buffers: loss and gradient, best, history
         row, Adam, EMA."""
         cfg, m = self.cfg, self.mesh
         self.flat.grad = None
+        profiling.mark("forward")
         l_tot, aux = self.loss(self.layout.tree(self.flat), cfg, self.batch,
                                allreduce=None if m is None else m.sum)
         e_last = aux.e_last
+        profiling.mark("backward")
         if m is None:
             l_tot.backward()
         else:
@@ -334,6 +353,7 @@ class Trainer:
             e_last = m.sum(torch.where(
                 torch.tensor(m.rank == m.size - 1, device=self.device),
                 e_last.detach(), torch.zeros_like(e_last)))
+        profiling.mark("update")
         with torch.no_grad():
             improved = l_tot < self.best_loss
             self.best_flat.copy_(torch.where(improved, self.flat,
@@ -378,8 +398,9 @@ def train(cfg: Config,
     absolute counter. ``params`` None draws the seeded init
     (``cfg.train.seed``); ``opt_state`` is an Adam state in the JAX layout
     (a state.npz's "opt" tree). The host reads the device every
-    ``scan_chunk`` steps: ``log_cb(step, metrics)`` and, past the persist
-    gate and on a new best, ``checkpoint_cb(state, step)``. ``batch``:
+    ``scan_chunk`` steps: ``log_cb(step, metrics)`` (with tracing on, also
+    the last step's ``<phase>_ms``: ``Trainer.phases``) and, past the
+    persist gate and on a new best, ``checkpoint_cb(state, step)``. ``batch``:
     the first (global) batch, trained on until the schedule resamples
     (default: drawn from the generator).
 
@@ -422,13 +443,16 @@ def train(cfg: Config,
             tr.advance(sample)
             hist[j].copy_(tr.row)
         n_done += n
-        chunks.append(hist.cpu().numpy())
-        best = float(tr.best_loss)
+        with profiling.annotate("read"):
+            chunks.append(hist.cpu().numpy())
+            best = float(tr.best_loss)
         if log_cb is not None and coordinator:
             last = chunks[-1][-1]
-            log_cb(n_done, {"Ltot": float(last[0]), "Lpde": float(last[1]),
-                            "Lbc": float(last[2]), "E": float(last[3]),
-                            "best": best})
+            rec = {"Ltot": float(last[0]), "Lpde": float(last[1]),
+                   "Lbc": float(last[2]), "E": float(last[3]), "best": best}
+            if profiling.enabled():
+                rec.update({f"{k}_ms": v for k, v in tr.phases().items()})
+            log_cb(n_done, rec)
         if (checkpoint_cb is not None and coordinator
                 and n_done > persist_after and best < last_persisted_best):
             checkpoint_cb(tr.state(), n_done)

@@ -25,6 +25,14 @@ The kernel wrappers count their launches in Python (``ops/_cuda.launch_key``)
 and a replay passes through no wrapper: the launches that a capture records
 are taken off the counts, and added back once per replay, so the counts stay
 exact.
+
+Tracing (``utils/profiling.py``): each call that runs ``fn`` as Python (the
+eager call, a capture, every call of an eager step) records the phase marks
+``fn`` makes while tracing is on, and ``phases`` reads them after the call.
+A graph holds the marks of the tracing state it was captured under: when
+the state differs at a call, the graph is released and captured again, once,
+so the steps of one process run without marks while tracing is off and with
+them while it is on.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Callable
 import torch
 
 from ..ops import pallas_residual, pallas_separable, pallas_train
+from ..utils import profiling
 
 # the kernel wrappers' launch counts
 COUNTERS = (pallas_separable.launches, pallas_train.launches,
@@ -77,21 +86,27 @@ class StepGraph:
         self.generators = tuple(g for g in generators if g is not None)
         self.counters = counters
         self.graph = None
+        self.traced = False     # the tracing state the graph holds
+        self.marks = None       # the phase marks of the last recorded call
         self.warm = False
         self.per_replay = [{} for _ in counters]   # launches a replay makes
         self._stream = None
 
     def __call__(self) -> None:
         if not self.capture:
-            self.fn()
+            self._run()
             return
         if not self.warm:
             self.eager()
             self.warm = True
             return
+        if self.graph is not None and self.traced != profiling.enabled():
+            self.graph = None     # the last reference: released
         if self.graph is None:
             before = [dict(c) for c in self.counters]
-            self.graph = self.record()
+            self.traced = profiling.enabled()
+            with profiling.annotate("capture"):
+                self.graph = self.record()
             self.per_replay = [{k: c[k] - b.get(k, 0) for k in c}
                                for c, b in zip(self.counters, before)]
             for c, b in zip(self.counters, before):
@@ -100,6 +115,17 @@ class StepGraph:
         for c, d in zip(self.counters, self.per_replay):
             for k, v in d.items():
                 c[k] += v
+
+    def _run(self) -> None:
+        """``fn``, its phase marks recorded while tracing is on."""
+        with profiling.recording() as marks:
+            self.fn()
+        self.marks = marks
+
+    def phases(self) -> dict:
+        """{phase: device ms} of the last call ({} if it ran with tracing
+        off); waits on the call's last mark only."""
+        return profiling.phase_ms(self.marks)
 
     @property
     def stream(self) -> torch.cuda.Stream:
@@ -115,7 +141,7 @@ class StepGraph:
         cur = torch.cuda.current_stream()
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            self.fn()
+            self._run()
         cur.wait_stream(self.stream)
 
     def record(self):
@@ -126,5 +152,5 @@ class StepGraph:
         for gen in self.generators:
             graph.register_generator_state(gen)
         with torch.cuda.graph(graph, stream=self.stream):
-            self.fn()
+            self._run()
         return graph

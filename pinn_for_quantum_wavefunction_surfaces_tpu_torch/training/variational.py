@@ -37,7 +37,8 @@ The JAX package scan-chunks the Monte-Carlo trainer and the polish's Adam
 warmup. Here their steps (``MonteCarloTrainer``, ``AdamWarmup``) work on
 static buffers, and on a CUDA device without a mesh each is captured once
 as a CUDA graph and replayed every step (``training/graphs.py``); L-BFGS
-stays eager.
+stays eager. Both steps carry the spans and phase marks of
+``utils/profiling.py`` (off by default; ``phases``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from ..device import resolve_device, resolve_dtype
 from ..models import ansatz
 from ..ops import operators, routing
 from ..ops.sampling import sample_importance
+from ..utils import profiling
 from . import engine, graphs
 from .lbfgs import LBFGS
 
@@ -446,15 +448,25 @@ class AdamWarmup:
         return self.layout.tree(self.flat.detach().clone())
 
     def advance(self) -> None:
-        self.opt.set_lr(warmup_lr(self.lr0, self.steps, self.done))
-        self._step()
-        self.done += 1
+        with profiling.annotate("advance", self.done):
+            self.opt.set_lr(warmup_lr(self.lr0, self.steps, self.done))
+            with profiling.annotate("step"):
+                self._step()
+            self.done += 1
+
+    def phases(self) -> dict:
+        """{phase: device ms} of the last step while tracing is on (else
+        {}): ``forward``, ``backward``, ``update`` (the loss kept, Adam)."""
+        return self._step.phases()
 
     def _eval_and_update(self) -> None:
         self.flat.grad = None
+        profiling.mark("forward")
         loss, _ = self.loss_fn(self.layout.tree(self.flat), self.cfg,
                                self.vb, self.head_weight)
+        profiling.mark("backward")
         _backward(loss, [self.flat], self.mesh)
+        profiling.mark("update")
         self.loss = graphs.keep(self.loss, loss)
         self.opt.step(self.flat.grad)
 
@@ -474,7 +486,9 @@ def _adam_minimize(params: dict, cfg: Config, vb: VBatch, steps: int,
         warm.advance()
         done = warm.done
         if log_cb is not None and (done % 100 == 0 or done == steps):
-            log_cb(done, {"E_adam": warm.loss.item()})
+            with profiling.annotate("read"):
+                loss = warm.loss.item()
+            log_cb(done, {"E_adam": loss})
     return warm.params()
 
 
@@ -734,19 +748,31 @@ class MonteCarloTrainer:
                                       generators=(gen,))
 
     def advance(self) -> None:
-        self.opt.set_lr(engine.learning_rate(self.cfg, self.step))
-        self._step()
-        self.step += 1
+        with profiling.annotate("advance", self.step):
+            self.opt.set_lr(engine.learning_rate(self.cfg, self.step))
+            with profiling.annotate("step"):
+                self._step()
+            self.step += 1
+
+    def phases(self) -> dict:
+        """{phase: device ms} of the last step while tracing is on (else
+        {}): ``sample`` (the draw), ``forward``, ``backward``, ``update``
+        (history row, Adam, EMA)."""
+        return self._step.phases()
 
     def _train_step(self) -> None:
+        profiling.mark("sample")
         self.vb = graphs.keep(self.vb, sample_vbatch(
             self.gen, self.cfg, self.n_r, self.n_pts,
             antithetic=self.antithetic, stratified=self.stratified,
             device=self.device))
         self.flat.grad = None
+        profiling.mark("forward")
         loss, aux = quotient_loss(self.layout.tree(self.flat), self.cfg,
                                   self.vb)
+        profiling.mark("backward")
         loss.backward()
+        profiling.mark("update")
         with torch.no_grad():
             self.row.copy_(torch.stack([loss, aux["e_mean"],
                                         aux["l_head"]]))
@@ -799,7 +825,8 @@ def train_variational(cfg: Config, params: Optional[dict] = None,
         for j in range(n):
             mc.advance()
             hist[j].copy_(mc.row)
-        chunks.append(hist.cpu().numpy())
+        with profiling.annotate("read"):
+            chunks.append(hist.cpu().numpy())
         if log_cb is not None:
             last = chunks[-1][-1]
             log_cb(mc.step, {"E_mean": float(last[1]),

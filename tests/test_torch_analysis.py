@@ -462,17 +462,25 @@ def test_loss_figures(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    """trace writes a Chrome trace holding annotate's named region; sync
-    reads the first element of a tree of tensors; StepTimer times each
-    call."""
+    """trace turns tracing on for its region and writes a Chrome trace
+    holding annotate's span (``pinn.<name>``); the phase marks recorded
+    there time each phase; outside it tracing is off again: no span, no
+    marks."""
+    assert not profiling.enabled()
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("probe-region"):
-            x = torch.full((3,), 2.0) * 1.5
+        with profiling.annotate("probe-region", 1):
+            with profiling.recording() as marks:
+                profiling.mark("scale")
+                x = torch.full((3,), 2.0) * 1.5
+                profiling.mark("sum")
+                x.sum()
+    assert not profiling.enabled()
     with open(tmp_path / profiling.TRACE_NAME) as fh:
         names = {e.get("name") for e in json.load(fh)["traceEvents"]}
-    assert "probe-region" in names
-    assert profiling.sync({"a": [x]}) == 3.0
-    timer = profiling.StepTimer(points_per_step=10)
-    out = timer.measure(lambda s: (s, s * 2.0), torch.ones(2), reps=3)
-    assert torch.equal(out[1], torch.full((2,), 2.0))
-    assert len(timer.times) == 3 and timer.points_per_sec > 0
+    assert "pinn.probe-region" in names
+    assert torch.equal(x, torch.full((3,), 3.0))
+    ms = profiling.phase_ms(marks)
+    assert set(ms) == {"scale", "sum"} and min(ms.values()) >= 0.0
+    with profiling.recording() as off:
+        profiling.mark("scale")
+    assert off is None

@@ -127,7 +127,6 @@ def test_ceiling_chain_plain_against_numpy(which):
     assert ceiling.operations(64, iters, which) == (
         (2 if which == "fma" else 1) * 64 * ceiling.CHAINS
         * ceiling.UNROLL[which] * iters)
-    assert ceiling.launches == {"ceiling_fma": 0, "ceiling_tanh": 0}
 
 
 def test_ceilings_on_the_cpu_are_finite():

@@ -245,7 +245,9 @@ def test_cli_export_table_csv_and_refusals(tmp_path, capsys):
 
 
 def test_cli_train_profile(tmp_path, capsys):
-    """train --profile DIR writes a Chrome trace of the run into DIR."""
+    """train --profile DIR writes a Chrome trace of the run into DIR, with
+    the trainer's spans, and each chunk's record in metrics.jsonl carries
+    the last step's phase ms."""
     prof = tmp_path / "prof"
     cli.main(["train", "--device", "cpu", "--epochs", "2", "--n-train", "64",
               "--out", str(tmp_path / "run"), "--profile", str(prof)])
@@ -255,4 +257,10 @@ def test_cli_train_profile(tmp_path, capsys):
         events = json.load(fh)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names)
+    assert {"pinn.advance", "pinn.resample", "pinn.step",
+            "pinn.read"} <= names
     assert os.path.exists(tmp_path / "run" / "best.npz")
+    with open(tmp_path / "run" / "metrics.jsonl") as fh:
+        recs = [json.loads(line) for line in fh]
+    assert recs and all(
+        {"forward_ms", "backward_ms", "update_ms"} <= set(r) for r in recs)
