@@ -521,18 +521,11 @@ def kernel_weights(params: dict, dtype) -> tuple:
         for k, f in _W_NAMES)
 
 
-def psi_lap_train_separable(params: dict, mcfg, x, y, z, r,
-                            point_grads: bool = False):
-    """(psi, lap, E) through the fused separable kernel. The R-only heads
-    (E, alpha, b) run and differentiate in torch autograd; the spatial
-    network runs in the kernel through SeparableKernel, so autograd of any
-    loss composes exactly. By default the point coordinates are constants
-    (training treats the batch as data); with ``point_grads`` gradients
-    flow to x, y, z and r too, r's through the kernel and the heads.
-
-    Raises NotImplementedError, on every device, for the models that
-    ``ansatz.kernel_unsupported_reason`` names (node factors, m_abs): the
-    kernel and its plain versions would drop their factors."""
+def _refuse(params: dict, mcfg) -> None:
+    """Raises NotImplementedError, on every device, for params that K1 does
+    not carry: the symmetric family's, and the models that
+    ``ansatz.kernel_unsupported_reason`` names (node factors, m_abs), whose
+    factors the kernel and its plain versions would drop."""
     if "lam1" not in params:
         raise NotImplementedError(
             "not separable params: the symmetric family's kernel is "
@@ -541,16 +534,45 @@ def psi_lap_train_separable(params: dict, mcfg, x, y, z, r,
     if reason is not None:
         raise NotImplementedError(
             f"{reason}: such models take ansatz.psi_fwdlap")
-    dtype = x.dtype
-    r_pts = r
-    if not point_grads:
-        x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
-    e = ansatz.energy(params, r)
+
+
+def separable_heads(params: dict, mcfg, r) -> tuple:
+    """(alpha, b) at the R values ``r``: the R-only heads that K1 reads at
+    each point, differentiable in the params."""
     a = ansatz.orbital_exponent(params, r)
-    b = ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a)
+    return a, ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a)
+
+
+def separable_psi_lap(params: dict, mcfg, heads, x, y, z, r,
+                      point_grads: bool = False):
+    """(psi, lap) of flat points through SeparableKernel, given the heads
+    ``separable_heads`` at each point. Gradients flow to the weights and
+    through the heads; to x, y, z and r only with ``point_grads``."""
+    _refuse(params, mcfg)
+    dtype = x.dtype
+    if not point_grads:
+        x, y, z, r = (t.detach() for t in (x, y, z, r))
     cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz),
            bool(point_grads))
-    psi, lap = SeparableKernel.apply(cfg, a.to(dtype), b.to(dtype),
-                                     x, y, z, r_pts,
-                                     *kernel_weights(params, dtype))
+    return SeparableKernel.apply(cfg, *(h.to(dtype) for h in heads),
+                                 x, y, z, r, *kernel_weights(params, dtype))
+
+
+def psi_lap_train_separable(params: dict, mcfg, x, y, z, r,
+                            point_grads: bool = False):
+    """(psi, lap, E) through the fused separable kernel. The R-only heads
+    (E, alpha, b) run at every point and differentiate in torch autograd;
+    the spatial network runs in the kernel through SeparableKernel, so
+    autograd of any loss composes exactly. By default the point
+    coordinates are constants (training treats the batch as data); with
+    ``point_grads`` gradients flow to x, y, z and r too, r's through the
+    kernel and the heads.
+
+    Raises NotImplementedError, on every device, for the models that
+    ``ansatz.kernel_unsupported_reason`` names (node factors, m_abs): the
+    kernel and its plain versions would drop their factors."""
+    _refuse(params, mcfg)
+    e = ansatz.energy(params, r)
+    heads = separable_heads(params, mcfg, r)
+    psi, lap = separable_psi_lap(params, mcfg, heads, x, y, z, r, point_grads)
     return psi, lap, e

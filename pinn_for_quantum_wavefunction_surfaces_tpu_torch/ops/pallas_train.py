@@ -452,21 +452,12 @@ def kernel_weights(params: dict, mcfg, dtype) -> tuple:
             out["w"].to(dtype), ob)
 
 
-def psi_lap_train(params: dict, mcfg, x, y, z, r,
-                  point_grads: bool = False):
-    """(psi, lap, E) of the symmetric family through the fused kernel. The
-    R-only heads (E, gate, alpha, b) run and differentiate in torch
-    autograd; the spatial network runs in the kernel through TrainKernel,
-    so autograd of any loss composes exactly. By default the point
-    coordinates are constants (training treats the batch as data); with
-    ``point_grads`` gradients flow to x, y, z and r too (force-through-batch
-    analyses), r's through the kernel and the heads.
-
-    Covers fixed exponents, trainable alpha(R) and Guillemin-Zener b(R).
-    Raises NotImplementedError, on every device, for separable params and
-    for the models that ``ansatz.kernel_unsupported_reason`` names (the
-    minimal family, R-input models): the kernel and its plain versions
-    would compute another psi."""
+def _refuse(params: dict, mcfg) -> None:
+    """Raises NotImplementedError, on every device, for params that K2 does
+    not carry: separable params, and the models that
+    ``ansatz.kernel_unsupported_reason`` names (the minimal family, R-input
+    models), for which the kernel and its plain versions would compute
+    another psi."""
     if "lam1" in params:
         raise NotImplementedError(
             "separable params: their kernel is "
@@ -475,18 +466,50 @@ def psi_lap_train(params: dict, mcfg, x, y, z, r,
     if reason is not None:
         raise NotImplementedError(
             f"{reason}: such models take ansatz.psi_fwdlap")
-    dtype = x.dtype
-    r_pts = r
-    if not point_grads:
-        x, y, z, r_pts = (t.detach() for t in (x, y, z, r))
-    e = ansatz.energy(params, r)
+
+
+def train_heads(params: dict, mcfg, r) -> tuple:
+    """(alpha, b, gate) at the R values ``r``: the R-only heads that K2
+    reads at each point, differentiable in the params."""
     g = ansatz.gate(params, r)
     a = (ansatz.orbital_exponent(params, r) if "alpha1" in params
          else torch.ones_like(r))
     b = ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a)
+    return a, b, g
+
+
+def train_psi_lap(params: dict, mcfg, heads, x, y, z, r,
+                  point_grads: bool = False):
+    """(psi, lap) of flat points through TrainKernel, given the heads
+    ``train_heads`` at each point. Gradients flow to the weights and
+    through the heads; to x, y, z and r only with ``point_grads``."""
+    _refuse(params, mcfg)
+    dtype = x.dtype
+    if not point_grads:
+        x, y, z, r = (t.detach() for t in (x, y, z, r))
     cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz),
            bool(point_grads))
-    psi, lap = TrainKernel.apply(cfg, a.to(dtype), b.to(dtype), g.to(dtype),
-                                 x, y, z, r_pts,
-                                 *kernel_weights(params, mcfg, dtype))
+    return TrainKernel.apply(cfg, *(h.to(dtype) for h in heads),
+                             x, y, z, r, *kernel_weights(params, mcfg, dtype))
+
+
+def psi_lap_train(params: dict, mcfg, x, y, z, r,
+                  point_grads: bool = False):
+    """(psi, lap, E) of the symmetric family through the fused kernel. The
+    R-only heads (E, gate, alpha, b) run at every point and differentiate
+    in torch autograd; the spatial network runs in the kernel through
+    TrainKernel, so autograd of any loss composes exactly. By default the
+    point coordinates are constants (training treats the batch as data);
+    with ``point_grads`` gradients flow to x, y, z and r too
+    (force-through-batch analyses), r's through the kernel and the heads.
+
+    Covers fixed exponents, trainable alpha(R) and Guillemin-Zener b(R).
+    Raises NotImplementedError, on every device, for separable params and
+    for the models that ``ansatz.kernel_unsupported_reason`` names (the
+    minimal family, R-input models): the kernel and its plain versions
+    would compute another psi."""
+    _refuse(params, mcfg)
+    e = ansatz.energy(params, r)
+    psi, lap = train_psi_lap(params, mcfg, train_heads(params, mcfg, r),
+                             x, y, z, r, point_grads)
     return psi, lap, e

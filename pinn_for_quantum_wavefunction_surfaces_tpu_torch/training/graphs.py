@@ -21,10 +21,10 @@ eager on the CPU, which only the tests ask for, and under a mesh, whose
 NCCL all-reduces stay eager for now. A capture or replay error raises:
 nothing falls back to the eager step.
 
-The kernel wrappers count their launches in Python (``ops/_cuda.launch_key``)
-and a replay passes through no wrapper: the launches that a capture records
-are taken off the counts, and added back once per replay, so the counts stay
-exact.
+The kernel wrappers count their launches in Python (``ops/_cuda.launch_key``),
+and the routes their head evaluations (``ops/routing.head_evals``); a replay
+passes through neither: what a capture records is taken off the counts, and
+added back once per replay, so the counts stay exact.
 
 Tracing (``utils/profiling.py``): each call that runs ``fn`` as Python (the
 eager call, a capture, every call of an eager step) records the phase marks
@@ -41,12 +41,12 @@ from typing import Callable
 
 import torch
 
-from ..ops import pallas_residual, pallas_separable, pallas_train
+from ..ops import pallas_residual, pallas_separable, pallas_train, routing
 from ..utils import profiling
 
-# the kernel wrappers' launch counts
+# the kernel wrappers' launch counts and the routes' head evaluations
 COUNTERS = (pallas_separable.launches, pallas_train.launches,
-            pallas_residual.launches)
+            pallas_residual.launches, routing.head_evals)
 
 
 def keep(static, value):

@@ -14,8 +14,9 @@ their mean plus an MSE term fitting the E(R) head. Three trainers:
   params;
 - ``polish_lbfgs``: L-BFGS on one fixed importance sample.
 
-psi and lap psi come from ``ops.routing.psi_lap``, keyed by the params and
-the config: separable params through the fused kernel K1
+psi and lap psi come from ``ops.routing.psi_lap_rows``, keyed by the params
+and the config, the kernels' R-only heads evaluated once an R row:
+separable params through the fused kernel K1
 (ops/pallas_separable.py), 2-input symmetric params through K2
 (ops/pallas_train.py), so that on the card every loss evaluation launches
 a forward kernel and every gradient a backward kernel; the models no
@@ -87,12 +88,11 @@ def _work(t: torch.Tensor) -> torch.Tensor:
 
 def _psi_hpsi_rows(params: dict, cfg: Config, vb: VBatch):
     """psi and H psi on the batch's (n_r, n_pts) rows, through the kernel
-    of the params' family or the forward-Laplacian pass
-    (``routing.psi_lap``), in the ``_work`` type."""
-    n_r, n_pts = vb.x.shape
-    rr = vb.r[:, None].expand(n_r, n_pts).reshape(-1)
-    psi_f, lap_f, _ = routing.psi_lap(params, cfg.model, vb.x.reshape(-1),
-                                      vb.y.reshape(-1), vb.z.reshape(-1), rr)
+    of the params' family, its R-only heads evaluated once a row, or the
+    forward-Laplacian pass (``routing.psi_lap_rows``), in the ``_work``
+    type."""
+    psi_f, lap_f = routing.psi_lap_rows(params, cfg.model, vb.x, vb.y, vb.z,
+                                        vb.r)
     return _hpsi(cfg, vb, psi_f, lap_f)
 
 

@@ -224,7 +224,8 @@ def test_kernel_guard_and_routing(case, monkeypatch):
     (m_abs by the config, node factors by the params). Guarded models
     raise on the K1 wrapper, on the CPU as on the card; psi_lap_forward,
     quotient_loss and reference_state_on_batch send them to psi_fwdlap and
-    ground params to the K1 wrapper; so does the deflated loss."""
+    ground params to the K1 wrapper (the quotients' rows to its kernel
+    part, the heads once a row); so does the deflated loss."""
     factors, want = ROUTING_CASES[case]
     mcfg, tm, params = excited_model(hidden=4, **factors)
     tp = tans.from_jax_params(params, device="cpu")
@@ -237,20 +238,23 @@ def test_kernel_guard_and_routing(case, monkeypatch):
             tps.psi_lap_train_separable(tp, tm, x, y, z, r)
     calls = []
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
-    spy_on(monkeypatch, trt, ["psi_lap_train_separable"], calls)
+    spy_on(monkeypatch, trt, ["psi_lap_train_separable",
+                              "separable_psi_lap"], calls)
     psi, lap = ten.psi_lap_forward(tp, tm, x, y, z, r)
     assert calls == [want] and psi.shape == lap.shape == x.shape
     tc = tcfg.Config(model=tm, dtype="float64")
     vb = tvar.spheroidal_vbatch(tc, n_r=2, n_xi=6, n_eta=4, device="cpu")
+    # the quotients' rows: K1 with its heads once a row
+    rows = "separable_psi_lap" if want != "psi_fwdlap" else want
     calls.clear()
     tvar.quotient_loss(tp, tc, vb)
-    assert calls == [want]
+    assert calls == [rows]
     calls.clear()
     psi0, hpsi0 = tvar.reference_state_on_batch(tp, tc, vb)
     assert calls == [want] and not psi0.requires_grad
     calls.clear()
     tvar.quotient_loss_deflated(tp, tc, vb, psi0, hpsi0)
-    assert calls == [want]
+    assert calls == [rows]
 
 
 # the references of make excited-3ssg, in its order: k of them target the

@@ -201,8 +201,9 @@ def _quotient_and_grads(tp, tc, vb):
 @pytest.mark.parametrize("p_sym", [1, -1])
 def test_symmetric_quotient_on_padded_dual_grid(p_sym, monkeypatch):
     """quotient_loss of symmetric (GZ + alpha) params on the polish's padded
-    dual-grid batch: K2's path in the port, JAX's forward-Laplacian pass,
-    equal in value and gradients. The pad points (weight 0) contribute
+    dual-grid batch: K2's path in the port (its heads once an R row,
+    ``routing.psi_lap_rows``), JAX's forward-Laplacian pass, equal in value
+    and gradients. The pad points (weight 0) contribute
     exactly nothing: moving them leaves value and gradients bit for bit,
     and in the ungerade sector the output bias gets no gradient."""
     jm, tm = both(gz=True, trainable_exponent=True, inversion_symmetry=p_sym)
@@ -217,12 +218,12 @@ def test_symmetric_quotient_on_padded_dual_grid(p_sym, monkeypatch):
                                                    has_aux=True),
                                 static_argnums=1)(params, jc, vj)
     calls = []
-    spy_on(monkeypatch, trt, ["psi_lap_train", "psi_lap_train_separable"],
-           calls)
+    spy_on(monkeypatch, trt, ["psi_lap_train", "psi_lap_train_separable",
+                              "train_psi_lap", "separable_psi_lap"], calls)
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
     tp = tans.from_jax_params(params, device="cpu")
     l_t, aux_t, g_t = _quotient_and_grads(tp, tc, vb)
-    assert calls == ["psi_lap_train"]
+    assert calls == ["train_psi_lap"]
     np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-12)
     np.testing.assert_allclose(aux_t["e_r"].detach().numpy(),
                                np.asarray(aux_j["e_r"]), rtol=1e-12)

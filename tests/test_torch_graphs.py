@@ -15,6 +15,9 @@ CUDA graph capture needs of them, and what the capture helper does
   ``train_variational``, ``_adam_minimize``), with one replay a step after
   the first and one a resample after the first: the host's control flow
   around the graphs (resample schedule, rate, history rows).
+- ``routing.head_evals``: a quotient step (Monte-Carlo, Adam warmup) adds
+  its R rows, a residual step its points, a captured step's replays what
+  its eager steps add.
 - The capturable ``Adam`` equals optax.adam on the same gradients under
   the staircase schedule, to a few units in the last place.
 
@@ -32,6 +35,8 @@ import torch
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config as tcfg
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
     ansatz as tans
+from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+    routing
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
     sampling as tsam
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
@@ -319,6 +324,73 @@ def test_stub_captured_monte_carlo_and_warmup_equal_eager(stub_captures):
                        tans.to_numpy_params(out[False]))
     assert logs[True] == logs[False] and logs[True][0][0] == 8
     assert [g.replays for g in stub_captures] == [4, 7]
+
+
+# ---------------------------------------------------------------------------
+# the routes' head evaluations a step
+
+
+class CapturingStub(graphs.StepGraph):
+    """StepGraph whose capture runs ``fn`` once, as recording a graph runs
+    the step's Python, and whose replays run nothing: what a replay adds
+    to the counts is StepGraph's own bookkeeping."""
+
+    def eager(self):
+        self.fn()
+
+    def record(self):
+        self.fn()
+        return StubGraph()
+
+
+def _head_eval_steps(trainer):
+    """(a step of the trainer, the head evaluations one step makes): the
+    quotient's steps evaluate the R-only heads once an R row, the
+    residual's once a point."""
+    if trainer == "residual":
+        cfg = train_cfg(resample_every=1, resample_frac=1.0)
+        gen = torch.Generator().manual_seed(0)
+        tr = teng.Trainer(cfg, device="cpu", generator=gen)
+
+        def sample(g):
+            return tsam.sample_batch(g, cfg, device="cpu")
+
+        tr.batch = sample(gen)
+        return (lambda: tr.advance(sample)), {"rows": 0,
+                                              "points": tr.batch.x.numel()}
+    cfg = train_cfg("separable")
+    params = tans.init_params(cfg.model, seed=1, dtype="float64",
+                              device="cpu")
+    if trainer == "monte_carlo":
+        mc = tvar.MonteCarloTrainer(cfg, params, 2, 64,
+                                    torch.Generator().manual_seed(3),
+                                    device="cpu")
+        return mc.advance, {"rows": 2, "points": 0}
+    vb = tvar.dual_grid_vbatch(cfg, 2, 8, 6, device="cpu")
+    warm = tvar.AdamWarmup(params, cfg, vb, 5, 1.0)
+    return warm.advance, {"rows": vb.r.numel(), "points": 0}
+
+
+@pytest.mark.parametrize("captured", [False, True])
+@pytest.mark.parametrize("trainer", ["monte_carlo", "adam_warmup",
+                                     "residual"])
+def test_head_evals_a_step(trainer, captured, monkeypatch):
+    """One Monte-Carlo or Adam-warmup step adds its R rows to
+    ``routing.head_evals["rows"]`` and nothing to ``"points"``; one
+    residual step adds its batch's points to ``"points"``. A captured
+    step's replays add what its eager steps add (``graphs.COUNTERS``)."""
+    assert any(c is routing.head_evals for c in graphs.COUNTERS)
+    if captured:
+        monkeypatch.setattr(graphs, "StepGraph", CapturingStub)
+        monkeypatch.setattr(graphs, "captures",
+                            lambda device, mesh=None, graph=True:
+                            bool(graph) and mesh is None)
+    step, want = _head_eval_steps(trainer)
+    for _ in range(4):       # eager, capture + replay, then replays
+        before = dict(routing.head_evals)
+        step()
+        assert {k: routing.head_evals[k] - before[k]
+                for k in before} == want
 
 
 # ---------------------------------------------------------------------------
