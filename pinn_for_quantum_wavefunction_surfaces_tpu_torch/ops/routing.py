@@ -14,7 +14,8 @@ Two entries. ``psi_lap`` takes flat points, each with its own R, and
 evaluates the R-only heads at every point. ``psi_lap_rows`` takes rows of
 points that share one R a row (the quotient's batches) and evaluates the
 heads once a row, broadcasting their values to the points; it leaves E(R)
-out, which the quotient evaluates on the rows itself.
+out, which the quotient evaluates on the rows itself. The models that no
+kernel carries take ``ansatz.psi_fwdlap`` at every point from both.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ from .pallas_train import psi_lap_train, train_heads, train_psi_lap
 # integers, added to in Python as the launch counts are
 # (``training/graphs.COUNTERS``).
 head_evals = {"rows": 0, "points": 0}
+# points that each entry sent to ``ansatz.psi_fwdlap`` (the models no kernel
+# carries), counted the same way
+fwdlap_points = {"psi_lap": 0, "psi_lap_rows": 0}
 
 
 def psi_lap(params: dict, mcfg, x, y, z, r):
@@ -36,6 +40,7 @@ def psi_lap(params: dict, mcfg, x, y, z, r):
     for separable params, K2 for symmetric ones, ``ansatz.psi_fwdlap`` for
     the models that no kernel carries."""
     if ansatz.kernel_unsupported_reason(params, mcfg) is not None:
+        fwdlap_points["psi_lap"] += x.numel()
         s, e = ansatz.psi_fwdlap(params, mcfg, x, y, z, r)
         return s.v[..., 0], s.l[..., 0], e
     head_evals["points"] += r.numel()
@@ -62,6 +67,7 @@ def psi_lap_rows(params: dict, mcfg, x, y, z, r):
     x, y, z = (t.reshape(-1) for t in (x, y, z))
     r_pts = _per_point(r, n_pts)
     if ansatz.kernel_unsupported_reason(params, mcfg) is not None:
+        fwdlap_points["psi_lap_rows"] += x.numel()
         s, _ = ansatz.psi_fwdlap(params, mcfg, x, y, z, r_pts)
         return s.v[..., 0], s.l[..., 0]
     head_evals["rows"] += n_r

@@ -22,9 +22,10 @@ NCCL all-reduces stay eager for now. A capture or replay error raises:
 nothing falls back to the eager step.
 
 The kernel wrappers count their launches in Python (``ops/_cuda.launch_key``),
-and the routes their head evaluations (``ops/routing.head_evals``); a replay
-passes through neither: what a capture records is taken off the counts, and
-added back once per replay, so the counts stay exact.
+and the routes their head evaluations (``ops/routing.head_evals``) and the
+points they send to the forward-Laplacian pass (``ops/routing.fwdlap_points``);
+a replay passes through none of them: what a capture records is taken off
+the counts, and added back once per replay, so the counts stay exact.
 
 Tracing (``utils/profiling.py``): each call that runs ``fn`` as Python (the
 eager call, a capture, every call of an eager step) records the phase marks
@@ -44,9 +45,11 @@ import torch
 from ..ops import pallas_residual, pallas_separable, pallas_train, routing
 from ..utils import profiling
 
-# the kernel wrappers' launch counts and the routes' head evaluations
+# the kernel wrappers' launch counts, the routes' head evaluations and
+# their forward-Laplacian points
 COUNTERS = (pallas_separable.launches, pallas_train.launches,
-            pallas_residual.launches, routing.head_evals)
+            pallas_residual.launches, routing.head_evals,
+            routing.fwdlap_points)
 
 
 def keep(static, value):

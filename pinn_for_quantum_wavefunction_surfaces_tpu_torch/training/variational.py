@@ -167,10 +167,13 @@ def quotient_loss_deflated(params: dict, cfg: Config, vb: VBatch,
     row-orthogonalised by ``reference_states_on_batch`` (the contamination
     sum assumes an orthogonal stack), on the rows of ``vb``. hpsi0 is kept
     for the JAX package's signature and unused. ``mesh``: as in
-    quotient_loss (the references are this rank's rows too)."""
+    quotient_loss (the references are this rank's rows too). While tracing
+    is on, the sums after psi and H psi are the step's ``deflate`` phase
+    (``profiling.mark``)."""
     del hpsi0
     mean = _row_mean(mesh)
     psi, hpsi = _psi_hpsi_rows(params, cfg, vb)
+    profiling.mark("deflate")
     if psi0.ndim == 2:
         psi0 = psi0[None]                          # (k=1, rows, pts)
     psi0, w = _work(psi0), _work(vb.w)
@@ -222,6 +225,32 @@ def reference_states_on_batch(params_list, cfg: Config, vb: VBatch):
             ps[i] = ps[i] - coef * ps[j]
             hs[i] = hs[i] - coef * hs[j]
     return torch.stack(ps), torch.stack(hs)
+
+
+def polish_objective(cfg: Config, vb: VBatch, deflate_params=None,
+                     mesh=None):
+    """The polish's objective, ``loss_fn(params, cfg, vb, head_weight) ->
+    (loss, aux)`` as ``AdamWarmup`` and ``_lbfgs_minimize`` call it:
+    quotient_loss, or, with ``deflate_params`` (frozen reference-state
+    params of the same sector, port params or numpy trees, a dict for one
+    or a list for k), quotient_loss_deflated against the references' rows
+    on ``vb``. The rows are computed here once (the span
+    ``pinn.references``), the references in the batch's type and on its
+    device. ``mesh``: as in quotient_loss; ``vb`` is this rank's rows."""
+    if deflate_params is None:
+        def loss_fn(p, cfg_, vb_, hw):
+            return quotient_loss(p, cfg_, vb_, hw, mesh=mesh)
+        return loss_fn
+    refs = (deflate_params if isinstance(deflate_params, (list, tuple))
+            else [deflate_params])
+    frozen = [ansatz.as_params(p, vb.x.dtype, vb.x.device) for p in refs]
+    with profiling.annotate("references"):
+        psi0, hpsi0 = reference_states_on_batch(frozen, cfg, vb)
+
+    def loss_fn(p, cfg_, vb_, hw):
+        return quotient_loss_deflated(p, cfg_, vb_, psi0, hpsi0, hw,
+                                      mesh=mesh)
+    return loss_fn
 
 
 def contamination_curve(params: dict, refs, cfg: Config, r_values,
@@ -456,7 +485,9 @@ class AdamWarmup:
 
     def phases(self) -> dict:
         """{phase: device ms} of the last step while tracing is on (else
-        {}): ``forward``, ``backward``, ``update`` (the loss kept, Adam)."""
+        {}): ``forward``, ``backward``, ``update`` (the loss kept, Adam),
+        and ``deflate`` between forward and backward under a deflated
+        objective (``quotient_loss_deflated``)."""
         return self._step.phases()
 
     def _eval_and_update(self) -> None:
@@ -565,7 +596,7 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
     (port params or numpy trees), a dict for one or a list for k; the
     objective becomes quotient_loss_deflated, targeting the sector's
     (k+1)-th state. The references' rows are computed once on the training
-    grid and once on the validation grid.
+    grid and once on the validation grid (``polish_objective``).
 
     ``mesh`` (``parallel.mesh.Mesh``): the polish runs on every rank of it,
     each on its own device, as the JAX package shards it: n_r rounds up to
@@ -609,35 +640,18 @@ def polish_spheroidal(params: Optional[dict], cfg: Config, n_r: int = 77,
         vb = spheroidal_vbatch(cfg, n_r=n_r, n_xi=n_xi, n_eta=n_eta,
                                xi_span=xi_span, dtype=dtype, device=dev)
     vb = rows(vb)
-
-    def loss_fn(p, cfg_, vb_, hw):
-        return quotient_loss(p, cfg_, vb_, hw, mesh=mesh)
-    frozen = None
-    if deflate_params is not None:
-        refs = (deflate_params if isinstance(deflate_params, (list, tuple))
-                else [deflate_params])
-        frozen = [ansatz.as_params(p, dtype, dev) for p in refs]
-        # the references' rows are row-wise: on this rank's rows they are
-        # the (k, rows, pts) stack's block along axis 1
-        psi0, hpsi0 = reference_states_on_batch(frozen, cfg, vb)
-
-        def loss_fn(p, cfg_, vb_, hw):
-            return quotient_loss_deflated(p, cfg_, vb_, psi0, hpsi0, hw,
-                                          mesh=mesh)
+    # the references' rows are row-wise: on this rank's rows they are the
+    # (k, rows, pts) stack's block along axis 1
+    loss_fn = polish_objective(cfg, vb, deflate_params, mesh)
     val_fn = None
     if val_grid and steps:
         vbv = rows(validation_vbatch(cfg, n_r, n_xi, n_eta, dual_grid,
                                      xi_span, dtype, dev))
-        if frozen is not None:
-            # the validation grid's own reference rows
-            psi0v, hpsi0v = reference_states_on_batch(frozen, cfg, vbv)
+        # the validation grid's own reference rows
+        val_loss = polish_objective(cfg, vbv, deflate_params, mesh)
 
-            def val_fn(p):
-                return quotient_loss_deflated(p, cfg, vbv, psi0v, hpsi0v,
-                                              head_weight, mesh=mesh)[0]
-        else:
-            def val_fn(p):
-                return quotient_loss(p, cfg, vbv, head_weight, mesh=mesh)[0]
+        def val_fn(p):
+            return val_loss(p, cfg, vbv, head_weight)[0]
     if adam_steps:
         params = _adam_minimize(params, cfg, vb, adam_steps, head_weight,
                                 log_cb=log_cb, loss_fn=loss_fn, mesh=mesh,
