@@ -95,28 +95,31 @@ Phases (any failure exits non-zero; none is caught and passed over):
     CUDA-event times of the PG and the training launches side by side,
     beside the bound.
  The excited-state families (node factors, the |m| transverse factor,
- deflation), which no kernel carries: their psi and lap psi take the plain
- forward-Laplacian pass on CUDA tensors, and K1-fwd runs only for
+ deflation), which K1 carries in its factor epilogue (the launch keys
+ separable_fwd_ex and separable_bwd_ex); K1's ground launches run for
  ground-family references:
  18. a: E_int of the 17 shipped excited artifacts (spheroidal 96 x 96,
     float64; each config from its meta, as cli evaluate derives it) at four
     R of the artifact's own domain equal to the JAX package's CPU values to
-    1e-10, with no K1 launch, and at R = 1 inside each one's golden-test
-    band against the exact oracle; b: make excited-2ssg through cli
-    variational, cut in depth (--xi-node, deflated against the flagship,
-    n_r 39, 40 x 24 dual grid, validation grid): the deflated loss finite
-    and lower, K1-fwd launched exactly twice (the reference's training and
-    validation rows) and K1-bwd never, target_state 2ssg in the meta, then
-    torch.profiler over ten deflated evaluations; c: make excited-3ssg, cut
-    (three references at 48 x 32): two K1-fwd launches (the flagship
-    reference only), the references row-orthogonal to 1e-10, target_state
-    3ssg; d: make excited-2ppu, cut (--m-abs 1, no deflation): no K1
-    launch, target_state 2ppu; e: cli evaluate artifacts/excited_2ssg.npz
-    --contam-vs artifacts/flagship_separable.npz: the int_* and contam_*
-    fields equal to the JAX CLI's to 1e-6, contamination < 1e-4, fit RMS
-    within 0.01 mHa, one K1-fwd launch (the reference's). Each run prints
-    its wall time, steps/s, line-search evaluations a step and peak device
-    memory beside the card's name and power limit.
+    1e-10, one K1-fwd-ex launch a quotient and nothing else, and at R = 1
+    inside each one's golden-test band against the exact oracle; b: make
+    excited-2ssg through cli variational, cut in depth (--xi-node,
+    deflated against the flagship, n_r 39, 40 x 24 dual grid, validation
+    grid): the deflated loss finite and lower, K1-fwd launched exactly
+    twice (the reference's training and validation rows), K1-bwd-ex a
+    gradient and K1-fwd-ex an evaluation, target_state 2ssg in the meta,
+    then torch.profiler over ten deflated evaluations; c: make
+    excited-3ssg, cut (three references at 48 x 32): two K1-fwd launches
+    (the flagship reference), four K1-fwd-ex ones for the excited
+    references besides the model's, the references row-orthogonal to
+    1e-10, target_state 3ssg; d: make excited-2ppu, cut (--m-abs 1, no
+    deflation): no ground K1 launch, target_state 2ppu; e: cli evaluate
+    artifacts/excited_2ssg.npz --contam-vs
+    artifacts/flagship_separable.npz: the int_* and contam_* fields equal
+    to the JAX CLI's to 1e-6, contamination < 1e-4, fit RMS within 0.01
+    mHa, one K1-fwd launch (the reference's), K1-fwd-ex for the rest. Each
+    run prints its wall time, steps/s, line-search evaluations a step and
+    peak device memory beside the card's name and power limit.
  The paths across families (every family on every objective):
  19. a: cli train --arch separable at make train's batch (100 000 points,
     float32, step schedule, 300 steps after a warm-up run): steps/s, one
@@ -161,9 +164,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
     flagship_separable.npz (float64), flagship.npz (float64),
     flagship_model.bin (float32, the default --dtype) and excited_2ssg.npz
     (float64), each config as cli analyze builds it: exactly 39 launches of
-    the forward kernel its model quotients take (K1-fwd, K2-fwd, K3; none
-    for the excited model) and nothing else; every array against the same
-    from the plain path on the host CPU (on a thread, 4 torch threads),
+    the forward kernel its model quotients take (K1-fwd, K2-fwd, K3;
+    K1-fwd-ex for the excited model) and nothing else; every array against
+    the same from the plain path on the host CPU (on a thread, 4 torch
+    threads),
     float64 to 1e-10 of its largest value, float32 to the bounds of
     ANALYZE_F32; the wall time of each part (surface, forces, probes, and
     drawing, which runs only where matplotlib imports: then the paper set
@@ -266,6 +270,19 @@ Phases (any failure exits non-zero; none is caught and passed over):
     K1): params and logged losses equal. Each prints its steps/s captured
     and eager from the same call, and the profiler's wall, busy time and
     idle share a step over ten steps of each.
+ K1's excited-state factor epilogue (the EX instantiations):
+ 25. ptxas registers and spills of the EX instantiations; at make
+    excited-4fpiu's batch (n_r 39, 64 x 32 dual grid: 284 310 points) the
+    shipped pi_4fpiu network in float64 and float32, and at one 96 x 96
+    quotient (R = 1) pi_3ppu, excited_3ssg, excited_2ssg_legacynode,
+    excited_3dsg, delta_4fdu and phi_4fpu (every factor, both sectors),
+    K1-fwd-ex against the plain version and K1-bwd-ex against autograd of
+    it (every weight, a, b and node head) at K1's bounds, two backward
+    launches bit for bit; CUDA-event times of both at the 4f pi_u batch
+    beside the ground launches on the same points and the bound; then the
+    4f pi_u cell's deflated Adam warmup (pi_2ppu, pi_3ppu), captured: one
+    K1-fwd-ex and one K1-bwd-ex a step and nothing else, no point through
+    the forward-Laplacian route.
 
 ``python3 chip_smoke.py --mesh N`` (a host with N >= 2 cards) runs phases
 1 and 2, then the --mesh N paths across the N cards (NCCL) against the same
@@ -288,6 +305,8 @@ Monte-Carlo trainer's (both families) and the Adam warmup's steps/s, the
 bench line's points/s (both families). Run it as parent, change, change,
 parent in one call to compare two commits.
 
+``python3 chip_smoke.py --k1-factors`` builds K1 and runs phase 25 alone.
+
 ``python3 chip_smoke.py --tracing`` measures what the port's tracing
 (``utils/profiling.py``) costs on the card and checks that it changes no
 step, as ``tracing_costs`` says, and prints one JSON line.
@@ -306,6 +325,7 @@ import dataclasses
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -658,20 +678,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_entries(log: str) -> list[dict]:
-    """One entry per kernel instantiation of an nvcc -Xptxas -v log: its
-    type and width (pg: a backward kernel's point-gradient instantiation),
-    registers, spill stores and loads (bytes), and ptxas's stack and spill
-    line."""
+# The bool template parameters (after the type and the width) of each
+# library's kernels, in order; the other libraries' kernels have none.
+KERNEL_FLAGS = {"separable_fwd": ("ex",), "separable_bwd": ("pg", "ex"),
+                "train_bwd": ("pg",)}
+
+
+def ptxas_entries(name: str, log: str) -> list[dict]:
+    """One entry per kernel instantiation of library ``name``'s nvcc
+    -Xptxas -v log: its type and width (pg: a backward kernel's
+    point-gradient instantiation; ex: K1's excited-state factor
+    instantiation; the flags as KERNEL_FLAGS names them), registers, spill
+    stores and loads (bytes), and ptxas's stack and spill line."""
     out, inst, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
                       r"'.*_kernelI(d|f|13__nv_bfloat16)Li(\d+)E"
-                      r"(?:Lb([01])E)?", line)
+                      r"((?:Lb[01]E)*)", line)
         if m:
+            flags = [f == "1" for f in re.findall(r"Lb([01])E", m.group(3))]
             inst = dict(dtype={"d": "float64", "f": "float32"}.get(
-                m.group(1), "bfloat16"), h=int(m.group(2)),
-                pg=m.group(3) == "1")
+                m.group(1), "bfloat16"), h=int(m.group(2)), pg=False,
+                ex=False)
+            inst.update(zip(KERNEL_FLAGS.get(name, ()), flags))
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -688,12 +717,13 @@ def ptxas_entries(log: str) -> list[dict]:
     return out
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """One line per kernel instantiation of an nvcc -Xptxas -v log (see
-    ptxas_entries)."""
-    return [f"{e['dtype']} H={e['h']}{' PG' if e['pg'] else ''}: "
+def ptxas_summary(name: str, log: str) -> list[str]:
+    """One line per kernel instantiation of library ``name``'s nvcc
+    -Xptxas -v log (see ptxas_entries)."""
+    return [f"{e['dtype']} H={e['h']}{' PG' if e['pg'] else ''}"
+            f"{' EX' if e['ex'] else ''}: "
             f"{e['registers']} registers; {e['spill']}"
-            for e in ptxas_entries(log)]
+            for e in ptxas_entries(name, log)]
 
 
 _PHASE_START = [None]
@@ -1904,10 +1934,26 @@ def excited_polish(label, flags, loss_name, card, work, ks=None):
             "wall": t1 - t0, "t_adam": t_adam, "peak": peak}
 
 
+def _excited_counts(counts: dict, ground: int, references: int) -> bool:
+    """Whether an excited polish's K1 launches are as its route has them:
+    ``ground`` ground launches (K1-fwd for ground-family references), and
+    through the factor epilogue the model's own evaluations (K1-fwd-ex
+    beside each K1-bwd-ex: the validation grid's forward has no backward)
+    besides ``references`` forward launches of excited references."""
+    got = _nonzero(counts)
+    return (got.get("separable_fwd", 0) == ground and
+            set(got) <= {"separable_fwd", "separable_fwd_ex",
+                         "separable_bwd_ex"} and
+            got.get("separable_bwd_ex", 0) > 0 and
+            got.get("separable_fwd_ex", 0) >= references +
+            got["separable_bwd_ex"])
+
+
 def excited_phase(dev, card: str) -> None:
-    """Phase 18: the excited-state families on the card. No kernel carries
-    their factors: their psi and lap psi take the forward-Laplacian pass on
-    CUDA tensors, and K1-fwd runs only for ground-family references."""
+    """Phase 18: the excited-state families on the card. K1 carries their
+    factors in its factor epilogue (the launch keys separable_fwd_ex and
+    separable_bwd_ex); K1's ground launches run for ground-family
+    references."""
     import numpy as np
     import torch
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
@@ -1956,12 +2002,15 @@ def excited_phase(dev, card: str) -> None:
             e_one[name] = (meta["target_state"], got[1])
     t_gold = time.time() - t0
     counts = dict(ks.launches)
-    print(f"68 quotients equal to the JAX package's to {worst:.3e} "
+    n_quot = sum(len(EXCITED_PROBE_R.get(name, STANDARD_PROBE_R))
+                 for name in JAX_EINT_EXCITED)
+    print(f"{n_quot} quotients equal to the JAX package's to {worst:.3e} "
           f"relative (bound 1e-10); K1 launches {counts}; {t_gold:.2f} s; "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
-    if any(counts.values()):
-        raise AssertionError(f"an excited quotient launched K1: {counts}")
+    if _nonzero(counts) != {"separable_fwd_ex": n_quot}:
+        raise AssertionError(f"the excited quotients' K1 launches: "
+                             f"{counts}")
     t0 = time.time()
     for name, (state, e) in e_one.items():
         lo, hi, strict = EXCITED_BANDS[name]
@@ -2007,7 +2056,7 @@ def excited_phase(dev, card: str) -> None:
               f"{run['meta']}")
         if not (np.isfinite(loss1) and loss1 < loss0):
             raise AssertionError(f"2ssg loss: {loss0} -> {loss1}")
-        if _nonzero(run["counts"]) != {"separable_fwd": 2}:
+        if not _excited_counts(run["counts"], 2, 0):
             raise AssertionError(f"2ssg K1 launches: {run['counts']}")
         if run["meta"].get("target_state") != "2ssg" or \
                 not run["res"]["deflated"]:
@@ -2062,7 +2111,7 @@ def excited_phase(dev, card: str) -> None:
             raise AssertionError(f"3ssg loss: {loss0} -> {loss1}")
         if cross > 1e-10:
             raise AssertionError(f"3ssg references: cross {cross}")
-        if _nonzero(run["counts"]) != {"separable_fwd": 2}:
+        if not _excited_counts(run["counts"], 2, 4):
             raise AssertionError(f"3ssg K1 launches: {run['counts']}")
         if run["meta"].get("target_state") != "3ssg":
             raise AssertionError(f"3ssg meta: {run['meta']}")
@@ -2086,7 +2135,7 @@ def excited_phase(dev, card: str) -> None:
         print(f"loss {loss0:.9f} -> {loss1:.9f}; meta {run['meta']}")
         if not (np.isfinite(loss1) and loss1 < loss0):
             raise AssertionError(f"2ppu loss: {loss0} -> {loss1}")
-        if any(run["counts"].values()):
+        if not _excited_counts(run["counts"], 0, 0):
             raise AssertionError(f"2ppu K1 launches: {run['counts']}")
         if run["meta"].get("target_state") != "2ppu" or \
                 run["meta"].get("m_abs") != 1:
@@ -2117,8 +2166,12 @@ def excited_phase(dev, card: str) -> None:
                 max(rel.values()) <= 1e-6,
             "contam_max_frac < 1e-4": res["contam_max_frac"] < 1e-4,
             "fit_rms_mHa <= 0.01": res["fit_rms_mHa"] <= 0.01,
-            # the flagship reference on the contamination grid, once
-            "one K1-fwd launch": _nonzero(counts) == {"separable_fwd": 1},
+            # the flagship reference on the contamination grid, once; the
+            # excited model's quotients through the factor epilogue
+            "one K1-fwd launch, K1-fwd-ex for the rest":
+                counts["separable_fwd"] == 1 and
+                set(_nonzero(counts)) == {"separable_fwd",
+                                          "separable_fwd_ex"},
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
@@ -2877,12 +2930,12 @@ def family_phase(dev, card: str) -> dict:
 # its defaults (spheroidal surface on 39 R, 60 force R, 9 Hellmann-Feynman
 # R, the 80^3 cubes of the probes) for these checkpoints, each in the dtype
 # cli analyze scores it in (--dtype float64, or the default float32), with
-# the forward kernel its model quotients launch (None: the plain fwdlap
-# path of the excited families)
+# the forward kernel its model quotients launch (K1's factor
+# instantiation for the excited families)
 ANALYZE_CKPTS = (("flagship_separable.npz", "float64", "separable_fwd"),
                  ("flagship.npz", "float64", "train_fwd"),
                  ("flagship_model.bin", "float32", "residual_fwd"),
-                 ("excited_2ssg.npz", "float64", None))
+                 ("excited_2ssg.npz", "float64", "separable_fwd_ex"))
 ANALYZE_N_R = 39
 # the card's arrays against the host CPU's, max |diff| / max |host| per
 # array: float64 1e-10; float32 (flagship_model.bin at the default --dtype)
@@ -4465,6 +4518,16 @@ def k1_times(root: str, card: str) -> None:
     t0 = time.time()
     _build.build(["separable_fwd", "separable_bwd"])
     print(f"K1 of {root} built in {time.time() - t0:.1f} s", flush=True)
+    # the ground instantiations' registers and spills (the factor ones
+    # apart): equal in two trees whose ground kernels compile alike
+    ptxas = {name: sorted(f"{e['dtype']} H={e['h']}"
+                          f"{' PG' if e['pg'] else ''}: {e['registers']} "
+                          f"registers, {e['spill_stores']} B spill stores, "
+                          f"{e['spill_loads']} B spill loads"
+                          for e in ptxas_entries(
+                              name, _build.log_path(name).read_text())
+                          if not e["ex"])
+             for name in ("separable_fwd", "separable_bwd")}
     src = os.path.join(HERE, "artifacts", "flagship_separable.npz")
     art, _ = checkpoint.load_params(src)
     art = art.get("params", art)
@@ -4480,7 +4543,7 @@ def k1_times(root: str, card: str) -> None:
         "bench": sample_batch(gen, cfg32, BENCH_N, device=dev),
         "MC": variational.sample_vbatch(gen, cfg32, MC_N_R, MC_N_PTS,
                                         antithetic=True, stratified=True)}
-    out = {"root": root, "card": card, "times": {}}
+    out = {"root": root, "card": card, "times": {}, "ptxas": ptxas}
     with torch.no_grad():
         for bname, batch in batches.items():
             for dt in ((torch.float32, torch.bfloat16, torch.float64)
@@ -4533,6 +4596,252 @@ def k1_times(root: str, card: str) -> None:
         float(energy.rayleigh_quotient_spheroidal(params64, cfg, r)).hex()
         for r in (0.2, 1.0, 2.0, 4.0)]
     print("k1_times: " + json.dumps(out), flush=True)
+
+
+# phase 25 (and --k1-factors): K1's excited-state factor instantiations at
+# make excited-4fpiu's batch (n_r 39, the 64 x 32 dual grid: 78 rows of
+# 3 645 = 284 310 points, float64 and float32), the 4f pi_u network
+# against the plain version; the other factor families at one make
+# evaluate quotient (96 x 96 at R = 1) in both types; then the cell's
+# deflated Adam step (against pi_2ppu and pi_3ppu) captured
+EXC4_N_XI, EXC4_N_ETA, EXC4_STEPS = 64, 32, 20
+# (artifact, what its factors are): every factor of the epilogue, alone
+# and together, in both sectors
+K1_FACTOR_CASES = (
+    ("pi_4fpiu", "angular node, m 1, wide alpha"),
+    ("pi_3ppu", "radial node, m 1"),
+    ("excited_3ssg", "two radial nodes"),
+    ("excited_2ssg_legacynode", "legacy radial node"),
+    ("excited_3dsg", "angular node"),
+    ("delta_4fdu", "m 2, ungerade"),
+    ("phi_4fpu", "m 3, ungerade"),
+)
+
+
+def _factor_case(name: str, dt, dev):
+    """(params, cfg, factors) of a shipped excited artifact in type dt, its
+    config as cli evaluate derives it."""
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    path = os.path.join(HERE, "artifacts", name + ".npz")
+    model, domain = excited_fields(checkpoint.load_meta(path))
+    cfg = config.Config(model=config.ModelConfig(**model),
+                        domain=config.DomainConfig(**domain),
+                        dtype=str(dt)[6:])
+    params = ansatz.from_jax_params(_load_npz_params(path), dtype=dt,
+                                    device=dev)
+    return params, cfg, ks.factors(params, cfg.model)
+
+
+def k1_factor_check(label, params, cfg, batch, gen, times: bool):
+    """K1's factor instantiations on ``batch`` against the plain version:
+    float64: psi and lap psi against the plain version at K1's bounds
+    (rtol 1e-12 and 1e-10, floors 1e-14 and 1e-12 of the larger of 1 and
+    the largest |value|), the backward against autograd of it (every
+    weight, a, b and each node head, normwise 1e-9). float32: both the
+    kernel and the plain version against the plain version in float64 on
+    the same inputs, the kernel within the larger of twice the plain
+    version's own error and k1_f32_bounds' 1e-7 and 1e-5 of the largest
+    |value| for psi and lap psi (normwise 1e-4 for the backward): on the 4f
+    pi_u network the plain version in float32 is itself 1.3e-5 off float64
+    in psi, above k1_f32_bounds' rtol. Two backward launches bit for bit; with
+    ``times`` the CUDA-event times of both launches and of the ground
+    launches on the same points (the factors dropped) beside the ground
+    network's bound. Returns the times and errors."""
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    mcfg = cfg.model
+    dt = batch.x.dtype
+    dt_name = str(dt)[6:]
+    fac = ks.factors(params, mcfg)
+    rr = batch.r[:, None].expand_as(batch.x).reshape(-1).contiguous()
+    pts = [t.reshape(-1).contiguous() for t in (batch.x, batch.y, batch.z)]
+    n = rr.numel()
+    with torch.no_grad():
+        a, b, *nodes = ks.separable_heads(params, mcfg, rr)
+    nodes = tuple(nodes) + (None,) * (3 - len(nodes))
+    ws = ks.kernel_weights(params, dt)
+    args = (a, b, *pts, rr)
+    kw = dict(p_sym=mcfg.inversion_symmetry, ry=mcfg.ry, rz=mcfg.rz)
+    kx = dict(kw, factors=fac, nodes=nodes)
+    psi_k, lap_k = ks.separable_fwd_cuda(ws, *args, **kx)
+    dpsi = torch.randn(n, generator=gen, device=psi_k.device, dtype=dt)
+    dlap = torch.randn(n, generator=gen, device=psi_k.device, dtype=dt)
+    names = K1_GRADS + [k for k, t in zip(("c1", "c2", "n0"), nodes)
+                        if t is not None]
+
+    def reference(wdt):
+        """The plain forward and autograd's cotangents in type wdt on the
+        inputs' values."""
+        up = [w.to(wdt).requires_grad_(True) for w in ws]
+        ab = [t.to(wdt).requires_grad_(True) for t in (a, b)]
+        nd = tuple(None if t is None else t.to(wdt).requires_grad_(True)
+                   for t in nodes)
+        pp, ll = ks.psi_lap_separable_plain(
+            up, *ab, *(t.to(wdt) for t in (*pts, rr)),
+            **dict(kw, factors=fac, nodes=nd))
+        leaves = up + ab + [t for t in nd if t is not None]
+        g = torch.autograd.grad((pp * dpsi.to(wdt)).sum()
+                                + (ll * dlap.to(wdt)).sum(), leaves)
+        return pp.detach(), ll.detach(), g
+
+    dws, da, db, dnd = ks.separable_bwd_cuda(ws, *args, dpsi, dlap, **kx)
+    dws2, da2, db2, dnd2 = ks.separable_bwd_cuda(ws, *args, dpsi, dlap,
+                                                 **kx)
+    torch.cuda.synchronize()
+    got = list(dws) + [da, db] + [t for t in dnd if t is not None]
+    again = list(dws2) + [da2, db2] + [t for t in dnd2 if t is not None]
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"K1-bwd-ex {label}: two launches differ")
+    if dt == torch.float64:
+        psi_p, lap_p, ref = reference(dt)
+        tol_psi = (1e-12, 1e-14 * max(1.0, float(psi_p.abs().max())))
+        tol_lap = (1e-10, 1e-12 * max(1.0, float(lap_p.abs().max())))
+        e_psi = check_close(f"K1-fwd-ex psi {label}", psi_k, psi_p,
+                            *tol_psi)
+        e_lap = check_close(f"K1-fwd-ex lap {label}", lap_k, lap_p,
+                            *tol_lap)
+        worst = max((check_normwise(f"K1-bwd-ex {nm} {label}", g, r_, 1e-9)
+                     for nm, g, r_ in zip(names, got, ref)),
+                    key=lambda e: e[1])
+        fwd = (f"psi max abs {e_psi[0]:.3e} rel {e_psi[1]:.3e}, lap max abs "
+               f"{e_lap[0]:.3e} rel {e_lap[1]:.3e}")
+        out = {"fwd_err": max(e_psi[0], e_lap[0]), "bwd_err": worst[0]}
+    else:
+        psi_p, lap_p, ref_p = reference(dt)
+        psi_t, lap_t, ref = reference(torch.float64)
+
+        def off(x, want):
+            return float((x.double() - want).abs().max()
+                         / want.abs().max())
+
+        fwd = []
+        for nm, k_err, p_err, floor in (
+                ("psi", off(psi_k, psi_t), off(psi_p, psi_t), 1e-7),
+                ("lap", off(lap_k, lap_t), off(lap_p, lap_t), 1e-5)):
+            if k_err > max(2.0 * p_err, floor):
+                raise AssertionError(
+                    f"K1-fwd-ex {nm} {label}: {k_err:.3e} off float64, the "
+                    f"plain version in float32 {p_err:.3e}")
+            fwd.append(f"{nm} {k_err:.3e} of max |value| off float64 (the "
+                       f"plain version in float32 {p_err:.3e})")
+        fwd = ", ".join(fwd)
+        worst = (0.0, 0.0)
+        for nm, g, rp, r_ in zip(names, got, ref_p, ref):
+            scale = float(r_.norm())
+            k_err = float((g.double() - r_).norm()) / scale
+            p_err = float((rp.double() - r_).norm()) / scale
+            if not k_err <= max(2.0 * p_err, 1e-4):
+                raise AssertionError(
+                    f"K1-bwd-ex {nm} {label}: {k_err:.3e} off float64, "
+                    f"the plain version in float32 {p_err:.3e}")
+            worst = max(worst, (k_err * scale, k_err), key=lambda e: e[1])
+        out = {"fwd_err": float((psi_k.double() - psi_t).abs().max()),
+               "bwd_err": worst[0]}
+    print(f"K1 factors {fac} {label}: fwd {fwd}; bwd worst normwise "
+          f"{worst[1]:.3e} (abs {worst[0]:.3e}); two launches bitwise equal",
+          flush=True)
+    if times:
+        with torch.no_grad():
+            t = {"fwd_ex": cuda_ms(lambda: ks.separable_fwd_cuda(
+                     ws, *args, **kx), label="K1-fwd-ex"),
+                 "bwd_ex": cuda_ms(lambda: ks.separable_bwd_cuda(
+                     ws, *args, dpsi, dlap, **kx), label="K1-bwd-ex"),
+                 "fwd": cuda_ms(lambda: ks.separable_fwd_cuda(
+                     ws, *args, **kw), label="K1-fwd"),
+                 "bwd": cuda_ms(lambda: ks.separable_bwd_cuda(
+                     ws, *args, dpsi, dlap, **kw), label="K1-bwd")}
+        for which in ("fwd", "bwd"):
+            t[which + "_bound"], t[which + "_bound_by"] = bound_ms(
+                n, ws[0].shape[1], dt_name, which)
+        print(f"{dt_name} n={n} {label}: K1-fwd-ex {t['fwd_ex']:.4f} ms, "
+              f"K1-bwd-ex {t['bwd_ex']:.4f} ms; ground launches on the same "
+              f"points {t['fwd']:.4f} / {t['bwd']:.4f} ms; bound (the ground "
+              f"network's operations) {t['fwd_bound']:.4f} / "
+              f"{t['bwd_bound']:.4f} ms {t['fwd_bound_by']}", flush=True)
+        out.update(t)
+    return out
+
+
+def k1_factor_phase(dev, card: str) -> dict:
+    """Phase 25: K1's excited-state factor epilogue on the card (the EX
+    instantiations: launch keys separable_fwd_ex and separable_bwd_ex), as
+    the comment above K1_FACTOR_CASES says; their ptxas registers and
+    spills beside the ground ones. Then the 4f pi_u cell's step: the
+    deflated quotient's Adam warmup, captured, at the cell's batch from
+    the shipped pi_4fpiu weights against pi_2ppu and pi_3ppu: one
+    separable_fwd_ex and one separable_bwd_ex a step, nothing else, no
+    point through the forward-Laplacian route, the loss finite. Returns
+    the 4f pi_u times."""
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import _build
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import routing
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        variational
+
+    phase(f"25 K1 factor epilogue (make excited-4fpiu's batch: n_r {N_R}, "
+          f"{EXC4_N_XI} x {EXC4_N_ETA} dual grid; float64 and float32; "
+          f"{card})")
+    for name in ("separable_fwd", "separable_bwd"):
+        for e in ptxas_entries(name, _build.log_path(name).read_text()):
+            if e["ex"]:
+                print(f"  {name} {e['dtype']} H={e['h']} EX: "
+                      f"{e['registers']} registers; {e['spill']}")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        for name, what in K1_FACTOR_CASES:
+            params, cfg, fac = _factor_case(name, dt, dev)
+            if name == "pi_4fpiu":
+                batch = variational.dual_grid_vbatch(
+                    cfg, N_R, EXC4_N_XI, EXC4_N_ETA, device=dev, dtype=dt)
+            else:
+                batch = variational.spheroidal_vbatch(
+                    cfg, n_r=1, n_xi=96, n_eta=96, r_values=[1.0],
+                    device=dev, dtype=dt)
+            res = k1_factor_check(f"{name} ({what}) {str(dt)[6:]} "
+                                  f"n={batch.x.numel()}", params, cfg, batch,
+                                  gen, times=name == "pi_4fpiu")
+            if name == "pi_4fpiu":
+                out[str(dt)[6:]] = res
+    # the cell's captured step
+    params, cfg, _ = _factor_case("pi_4fpiu", torch.float64, dev)
+    vb = variational.dual_grid_vbatch(cfg, N_R, EXC4_N_XI, EXC4_N_ETA,
+                                      device=dev)
+    refs = [_factor_case(n, torch.float64, dev)[0]
+            for n in ("pi_2ppu", "pi_3ppu")]
+    loss_fn = variational.polish_objective(cfg, vb, refs)
+    warm = variational.AdamWarmup(params, cfg, vb, 1500, 1.0,
+                                  loss_fn=loss_fn)
+    warm.advance()
+    torch.cuda.synchronize()
+    ks.reset_launches()
+    fw = dict(routing.fwdlap_points)
+    t0 = time.time()
+    for _ in range(EXC4_STEPS):
+        warm.advance()
+    loss = float(warm.loss)
+    wall = time.time() - t0
+    counts = _nonzero(ks.launches)
+    print(f"4fpiu deflated Adam warmup, {EXC4_STEPS} captured steps at "
+          f"{vb.x.numel()} points: {EXC4_STEPS / wall:.2f} steps/s; "
+          f"launches {counts}; forward-Laplacian points "
+          f"{routing.fwdlap_points} (before {fw}); loss {loss:.9f} ({card})",
+          flush=True)
+    if counts != {"separable_fwd_ex": EXC4_STEPS,
+                  "separable_bwd_ex": EXC4_STEPS} or \
+            routing.fwdlap_points != fw or not math.isfinite(loss):
+        raise AssertionError(f"25 4fpiu step: launches {counts}, "
+                             f"fwdlap {routing.fwdlap_points}, loss {loss}")
+    return out
 
 
 # --step-times: make train's configuration for STEP_TIMES_TRAIN steps in
@@ -5123,6 +5432,22 @@ def main() -> int:
     import torch
     argv = sys.argv[1:]
     k1_root = step_root = None
+    if argv == ["--k1-factors"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available; nothing to run",
+                  file=sys.stderr)
+            return 1
+        sys.path.insert(0, HERE)
+        from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+            _build
+        t0 = time.time()
+        _build.build(["separable_fwd", "separable_bwd"])
+        print(f"K1 built in {time.time() - t0:.1f} s", flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        k1_factor_phase(torch.device("cuda"), card_line())
+        phase()
+        return 0
     if argv == ["--tracing"]:
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available; nothing to run",
@@ -5138,7 +5463,8 @@ def main() -> int:
     elif argv and (len(argv) != 2 or argv[0] != "--mesh"
                    or not argv[1].isdigit() or int(argv[1]) < 2):
         print("usage: chip_smoke.py [--mesh N | --k1-times [ROOT] | "
-              "--step-times [ROOT] | --tracing]  (N >= 2 cards)",
+              "--step-times [ROOT] | --tracing | --k1-factors]  (N >= 2 "
+              "cards)",
               file=sys.stderr)
         return 2
     multi = (int(argv[1]) if argv and k1_root is None and step_root is None
@@ -5204,7 +5530,8 @@ def main() -> int:
     print(f"built {', '.join(_build.SOURCES)} in {time.time() - t0:.1f} s",
           flush=True)
     for name in _build.KERNELS:
-        for line in ptxas_summary(_build.log_path(name).read_text()):
+        for line in ptxas_summary(name,
+                                  _build.log_path(name).read_text()):
             print(f"  {name} {line}")
     # the bench line's ceiling chains (csrc/ceiling.cu), no TPU kernel's
     for line in _build.log_path("ceiling").read_text().splitlines():
@@ -5213,7 +5540,8 @@ def main() -> int:
             print(f"  ceiling {line.strip()}")
     # K3: no instantiation at H <= 16 may spill (float64, float32 and
     # bfloat16 at every width)
-    k3_ptxas = ptxas_entries(_build.log_path("residual_fwd").read_text())
+    k3_ptxas = ptxas_entries("residual_fwd",
+                             _build.log_path("residual_fwd").read_text())
     if len(k3_ptxas) != 3 * len(k3.SUPPORTED_HIDDEN):
         raise AssertionError(f"residual_fwd: {len(k3_ptxas)} instantiations "
                              "in the ptxas log")
@@ -5222,11 +5550,11 @@ def main() -> int:
     if spilled:
         raise AssertionError(f"K3 spills at H <= 16: {spilled}")
     # K1's float32 and bfloat16 builds (one thread a point): no training
-    # instantiation at H <= 16 may spill (the point-gradient ones and
-    # H = 32 are printed above)
+    # instantiation at H <= 16 may spill, the factor ones included (the
+    # point-gradient ones and H = 32 are printed above)
     k1_spilled = [
         (name, e) for name in ("separable_fwd", "separable_bwd")
-        for e in ptxas_entries(_build.log_path(name).read_text())
+        for e in ptxas_entries(name, _build.log_path(name).read_text())
         if e["dtype"] != "float64" and e["h"] <= 16 and not e["pg"]
         and e["spill_stores"] + e["spill_loads"] > 0]
     if k1_spilled:
@@ -5463,6 +5791,7 @@ def main() -> int:
         entry_points_phase(dev, card)
         bf16 = bf16_phase(dev, card)
         captured_phase(dev, card)
+        k1_factor_phase(dev, card)
     finally:
         shutil.rmtree(KEEP_DIR, ignore_errors=True)
     phase()

@@ -14,14 +14,14 @@ the Cartesian grids' x axis over the ranks of a mesh.
 
 psi and lap psi come from ``psi_lap_forward``, keyed by the params and the
 config as the JAX package's ``ansatz.psi_fwdlap`` is, and forward only:
-separable params go through K1 (``ops.pallas_separable``), reference-parity
+separable params go through K1 (``ops.pallas_separable``; the excited
+states' node and m_abs factors in its factor epilogue), reference-parity
 symmetric params through K3 (``ops.pallas_residual``), symmetric params with
 alpha/GZ heads through K2 (``ops.pallas_train``). On CUDA tensors every
 model quotient runs through a Hopper kernel, but for the models that
-``ansatz.kernel_unsupported_reason`` names: the excited-state separable
-models (node factors, m_abs), the minimal family and R-input models. No
-kernel carries them, in the JAX package or here, so they take the plain
-forward-Laplacian pass ``ansatz.psi_fwdlap`` on every device. The minimal
+``ansatz.kernel_unsupported_reason`` names: the minimal family and R-input
+models. No kernel carries them, in the JAX package or here, so they take
+the plain forward-Laplacian pass ``ansatz.psi_fwdlap`` on every device. The minimal
 family is told from the reference-parity model by the config alone (the
 two have the same params tree), so that check comes first.
 

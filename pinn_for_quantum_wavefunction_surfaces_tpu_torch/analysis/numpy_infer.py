@@ -134,7 +134,7 @@ def psi(params: dict, x, y, z, r, arch: str = "symmetric",
             out = out * (eta2 - _sigmoid(h))
         if m_abs:
             # pi/delta sectors: harmonic transverse factor Re[(y+iz)^m]
-            # (models/ansatz._transverse_harmonic)
+            # (models/ansatz.transverse_harmonic)
             re, im = y, z
             for _ in range(m_abs - 1):
                 re, im = re * y - im * z, re * z + im * y

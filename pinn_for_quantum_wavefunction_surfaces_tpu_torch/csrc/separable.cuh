@@ -560,6 +560,203 @@ __device__ __forceinline__ void point_adjoint(
   dR = dr + dRg;
 }
 
+// ---------------------------------------------------------------------------
+// The excited-state factor epilogue (the kernels' EX = true instantiations)
+//
+// psi = psi_B F with F = Q(p) A(eta^2) h(y, z): Q = (p - c1)(p - c2) over
+// the radial nodes (none, one or two), p = (r1 + r2)/2; A = eta^2 - n0 (the
+// angular node, or 1); h = Re[(y + i z)^m] (m = m_abs, or 1). c1, c2 and n0
+// are per-point inputs (row heads broadcast to the points). Then
+//   lap psi = F lap psi_B + 2 grad psi_B . grad F + psi_B lap F.
+// psi_B and F_s = Q A depend on the point through r1 and r2 alone, so a
+// gradient is kept as its coefficients (gs, gd) = (d/dr1 + d/dr2, d/dr1 -
+// d/dr2) on (u1 + u2)/2 and (u1 - u2)/2:
+//   f . g = (fs gs (1 + c12) + fd gd (1 - c12)) / 2,
+//   f . grad h = (fs ws + fd wd) / 2,  ws, wd = u1 . grad h +- u2 . grad h;
+// grad p . grad eta^2 = 0 (confocal coordinates) and lap h = 0. The plain
+// version is _factor_fwd, _factor_vjp and _grad_psi_b_vjp in
+// ops/pallas_separable.py, transliterated here.
+
+// The factors of a launch, from the wrappers' code radial | angular << 2 |
+// m << 3 (ops/pallas_separable.factor_code): the same for every point.
+struct Factors {
+  int rad, ang, m;
+};
+
+__device__ __forceinline__ Factors factors_of(int code) {
+  return Factors{code & 3, (code >> 2) & 1, code >> 3};
+}
+
+// The epilogue's values of one point: what its adjoint reads, then psi and
+// lap psi.
+template <typename T>
+struct Ex {
+  T he, sp, hc, mc;         // d eta^2/d r1, lap p, 1 + c12, 1 - c12
+  T n1, n2, q, q1, lq, aa;  // p - c1, p - c2, Q, dQ/dp, lap Q, A
+  T fsv, fs, fd, lfs;       // F_s, its coefficients (fs, fd), lap F_s
+  T h, ws, wd;              // h and its (ws, wd)
+  T bs, bd, gs, gd;         // grad psi_B = e (bs, bd) = (gs, gd)
+  T xh, lf, f, psi, lap;    // grad psi_B . grad h, lap F, F, the outputs
+};
+
+template <typename T>
+__device__ __forceinline__ void ex_forward(Factors fc, T y, T z, T R, T ry,
+                                           T rz, T c1, T c2, T n0, T l1,
+                                           T m1, const GZ<T>& g,
+                                           const Point<T>& p,
+                                           const Top<T>& s, Ex<T>& x) {
+  x.hc = T(1) + p.c12;
+  x.mc = T(1) - p.c12;
+  const T inv_r = T(1) / R;
+  x.he = (p.r1 - p.r2) * (T(0.5) * inv_r) * inv_r;
+  x.sp = p.i1 + p.i2;
+  const T ph = T(0.5) * (p.r1 + p.r2);
+  x.n1 = ph - c1;
+  x.n2 = ph - c2;
+  if (fc.rad == 0) {
+    x.q = T(1);
+    x.q1 = T(0);
+    x.lq = T(0);
+  } else if (fc.rad == 1) {
+    x.q = x.n1;
+    x.q1 = T(1);
+    x.lq = x.sp;
+  } else {
+    x.q = x.n1 * x.n2;
+    x.q1 = x.n1 + x.n2;
+    x.lq = x.hc + x.q1 * x.sp;  // Q'' |grad p|^2 + Q' lap p
+  }
+  if (fc.ang) {
+    x.aa = p.e0 - n0;
+    x.fsv = x.q * x.aa;
+    x.fs = x.aa * x.q1;
+    x.fd = T(2) * x.q * x.he;
+    x.lfs = x.aa * x.lq + x.q * p.el2;
+  } else {
+    x.aa = T(1);
+    x.fsv = x.q;
+    x.fs = x.q1;
+    x.fd = T(0);
+    x.lfs = x.lq;
+  }
+  if (fc.m) {
+    // Re, Im of (y + i z)^m; grad Re w^m = m (Re w^{m-1}, -Im w^{m-1})
+    T re = y, im = z;
+    for (int k = 1; k < fc.m; ++k) {
+      const T t = re * y - im * z;
+      im = re * z + im * y;
+      re = t;
+    }
+    T hy = T(1), hz = T(0);
+    if (fc.m > 1) {
+      T rp = y, ip = z;
+      for (int k = 2; k < fc.m; ++k) {
+        const T t = rp * y - ip * z;
+        ip = rp * z + ip * y;
+        rp = t;
+      }
+      hy = T(fc.m) * rp;
+      hz = -T(fc.m) * ip;
+    }
+    x.h = re;
+    const T w1 = ((y - ry) * hy + (z - rz) * hz) * p.i1;
+    const T w2 = ((y + ry) * hy + (z + rz) * hz) * p.i2;
+    x.ws = w1 + w2;
+    x.wd = w1 - w2;
+  } else {
+    x.h = T(1);
+    x.ws = T(0);
+    x.wd = T(0);
+  }
+  x.bs = (g.p1 + g.p2) - g.phi0 * s.d1 * l1 * p.t0;
+  x.bd = (g.p1 - g.p2) + T(2) * g.phi0 * s.d1 * m1 * x.he;
+  x.gs = s.e * x.bs;
+  x.gd = s.e * x.bd;
+  const T xs = T(0.5) * (x.gs * x.fs * x.hc + x.gd * x.fd * x.mc);
+  x.xh = T(0.5) * (x.gs * x.ws + x.gd * x.wd);
+  const T yh = T(0.5) * (x.fs * x.ws + x.fd * x.wd);
+  x.lf = x.h * x.lfs + T(2) * yh;
+  x.f = x.fsv * x.h;
+  x.psi = s.psi * x.f;
+  x.lap = x.f * s.lap + T(2) * (x.h * xs + x.fsv * x.xh) + s.psi * x.lf;
+}
+
+// Adjoint of ex_forward and of the top beneath it for cotangents (dpsi,
+// dlap): the epilogue gives the ground top's cotangents (top_adjoint's
+// inputs) and those of (gs, gd), whose additions through the bounded
+// correction and the GZ pair join top_adjoint's result; the nodes'
+// cotangents go to dc1, dc2, dn0 (0 where absent).
+template <typename T>
+__device__ __forceinline__ TopGrad<T> ex_adjoint(Factors fc, T a, T b, T l1,
+                                                 T m1, T dpsi, T dlap,
+                                                 const GZ<T>& g,
+                                                 const Point<T>& p,
+                                                 const Top<T>& s,
+                                                 const Ex<T>& x, T& dc1,
+                                                 T& dc2, T& dn0) {
+  const T dpsi_b = dpsi * x.f + dlap * x.lf;
+  const T dlap_b = dlap * x.f;
+  const T dgs = dlap * (x.h * x.fs * x.hc + x.fsv * x.ws);
+  const T dgd = dlap * (x.h * x.fd * x.mc + x.fsv * x.wd);
+  const T dfsv = x.h * (dpsi * s.psi + dlap * s.lap) + T(2) * dlap * x.xh;
+  const T dfs = dlap * (x.h * x.gs * x.hc + s.psi * x.ws);
+  const T dfd = dlap * (x.h * x.gd * x.mc + s.psi * x.wd);
+  const T dlfs = dlap * s.psi * x.h;
+  T dq, dq1;
+  dn0 = T(0);
+  if (fc.ang) {
+    dn0 = -(dfsv * x.q + dfs * x.q1 + dlfs * x.lq);
+    dq = dfsv * x.aa + dfd * T(2) * x.he + dlfs * p.el2;
+    dq1 = dfs * x.aa + dlfs * x.aa * x.sp;
+  } else {
+    dq = dfsv;
+    dq1 = dfs + dlfs * x.sp;
+  }
+  dc1 = T(0);
+  dc2 = T(0);
+  if (fc.rad == 1) {
+    dc1 = -dq;
+  } else if (fc.rad == 2) {
+    dc1 = -(dq * x.n2 + dq1);
+    dc2 = -(dq * x.n1 + dq1);
+  }
+  TopGrad<T> r = top_adjoint(a, b, l1, m1, dpsi_b, dlap_b, g, p, s);
+  // gs = e bs, gd = e bd through e, d1 (th), phi0, p1, p2, l1 and m1
+  const T c = cap<T>();
+  const T de = dgs * x.bs + dgd * x.bd;
+  const T k = T(2) * dgd * m1 * x.he - dgs * l1 * p.t0;
+  const T dphi0 = s.e * s.d1 * k;
+  const T dd1 = s.e * g.phi0 * k;
+  const T dl1 = -dgs * s.e * g.phi0 * s.d1 * p.t0;
+  const T dm1 = T(2) * dgd * s.e * g.phi0 * s.d1 * x.he;
+  const T dp1 = s.e * (dgs + dgd);
+  const T dp2 = s.e * (dgs - dgd);
+  const T dth = de * s.e * c - T(2) * s.th * dd1;
+  r.dq0 = r.dq0 + dth * s.d1 / c;
+  r.dl1 = r.dl1 + dl1;
+  r.dm1 = r.dm1 + dm1;
+  const T dfa = dphi0 - dp1 * a - dp2 * b;
+  const T dfb = dphi0 - dp1 * b - dp2 * a;
+  r.da = r.da + (-dp1 * g.fa - dp2 * g.fb - p.r1 * g.fa * dfa -
+                 p.r2 * g.fb * dfb);
+  r.db = r.db + (-dp1 * g.fb - dp2 * g.fa - p.r2 * g.fa * dfa -
+                 p.r1 * g.fb * dfb);
+  return r;
+}
+
+// The node inputs of point p where the factors read them (live points;
+// zero otherwise, and for the pad lanes).
+template <typename S, typename T>
+__device__ __forceinline__ void load_nodes(Factors fc, bool live, int p,
+                                           const S* __restrict__ c1,
+                                           const S* __restrict__ c2,
+                                           const S* __restrict__ n0, T& v1,
+                                           T& v2, T& v0) {
+  v1 = live && fc.rad > 0 ? kern::ld(c1[p]) : T(0);
+  v2 = live && fc.rad > 1 ? kern::ld(c2[p]) : T(0);
+  v0 = live && fc.ang ? kern::ld(n0[p]) : T(0);
+}
+
 }  // namespace sep
 
 // C entry points return cudaGetLastError() of their launch; this names it.

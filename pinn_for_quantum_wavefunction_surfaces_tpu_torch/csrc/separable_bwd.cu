@@ -91,6 +91,13 @@
 // (128 registers) its PG instantiations at H = 4, 8, 16 spill 120-428 B
 // (phase 2 of chip_smoke.py). The float32 thread does it in registers. In
 // both, the weight gradients, da and db keep the bits of PG = false.
+//
+// Excited states (EX = true; exclusive with PG): the top's adjoint becomes
+// the factor epilogue's (separable.cuh ex_adjoint), which hands the top's
+// own adjoint its cotangents and adds those of the top's gradient; the
+// node heads' cotangents dc1, dc2, dn0 are written per point beside da and
+// db (autograd sums them over each row into the heads). The MLP adjoints
+// and the weight-gradient sums are the ground kernel's.
 
 #include "separable.cuh"
 
@@ -129,18 +136,25 @@ __host__ __device__ constexpr int scalar_dw2_per_thread() {
 }
 
 // The float64 build (S = T = double): tiles of P points on the tensor
-// cores.
-template <typename S, int H, bool PG, typename T = kern::compute_t<S>>
+// cores. EX: the adjoint of the excited-state factor epilogue
+// (separable.cuh ex_adjoint) in the top's, its nodes' cotangents written
+// beside da and db.
+template <typename S, int H, bool PG, bool EX,
+          typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
     separable_bwd_kernel(const S* __restrict__ x, const S* __restrict__ y,
                          const S* __restrict__ z, const S* __restrict__ r,
                          const S* __restrict__ a, const S* __restrict__ b,
-                         const S* __restrict__ w, const S* __restrict__ dpsi,
+                         const S* __restrict__ c1, const S* __restrict__ c2,
+                         const S* __restrict__ n0, const S* __restrict__ w,
+                         const S* __restrict__ dpsi,
                          const S* __restrict__ dlap, S* __restrict__ da_out,
-                         S* __restrict__ db_out, T* __restrict__ partials,
-                         S* __restrict__ dx_out, S* __restrict__ dy_out,
-                         S* __restrict__ dz_out, S* __restrict__ dr_out,
-                         int n, T psym, T ry, T rz) {
+                         S* __restrict__ db_out, S* __restrict__ dc1_out,
+                         S* __restrict__ dc2_out, S* __restrict__ dn0_out,
+                         T* __restrict__ partials, S* __restrict__ dx_out,
+                         S* __restrict__ dy_out, S* __restrict__ dz_out,
+                         S* __restrict__ dr_out, int n, T psym, T ry, T rz,
+                         int code) {
   using kern::ld;
   using TL = Tile<H>;
   using L = Layout<H>;
@@ -222,9 +236,28 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 1 : 2)
       Top<T> top;
       top_forward(v[kL0 * TL::P], l1, v[kL2 * TL::P], v[kM0 * TL::P], m1,
                   v[kM2 * TL::P], g, pt, top);
-      const TopGrad<T> tg =
-          top_adjoint(av, bv, l1, m1, live ? ld(dpsi[p]) : T(0),
-                      live ? ld(dlap[p]) : T(0), g, pt, top);
+      TopGrad<T> tg;
+      if constexpr (EX) {
+        const Factors fc = factors_of(code);
+        T v1, v2, v0;
+        load_nodes(fc, live, p, c1, c2, n0, v1, v2, v0);
+        Ex<T> ex;
+        ex_forward(fc, live ? ld(y[p]) : one, live ? ld(z[p]) : one,
+                   live ? ld(r[p]) : one, ry, rz, v1, v2, v0, l1, m1, g, pt,
+                   top, ex);
+        T dc1, dc2, dn0;
+        tg = ex_adjoint(fc, av, bv, l1, m1, live ? ld(dpsi[p]) : T(0),
+                        live ? ld(dlap[p]) : T(0), g, pt, top, ex, dc1, dc2,
+                        dn0);
+        if (live) {
+          if (fc.rad > 0) dc1_out[p] = kern::st<S>(dc1);
+          if (fc.rad > 1) dc2_out[p] = kern::st<S>(dc2);
+          if (fc.ang) dn0_out[p] = kern::st<S>(dn0);
+        }
+      } else {
+        tg = top_adjoint(av, bv, l1, m1, live ? ld(dpsi[p]) : T(0),
+                         live ? ld(dlap[p]) : T(0), g, pt, top);
+      }
       if (live) {
         da_out[p] = kern::st<S>(tg.da);
         db_out[p] = kern::st<S>(tg.db);
@@ -448,18 +481,21 @@ constexpr int point_smem_elems() {
 
 // S: the tensors' storage type (float or __nv_bfloat16); the arithmetic and
 // the partials are float's.
-template <typename S, int H, bool PG>
+template <typename S, int H, bool PG, bool EX>
 __global__ void __launch_bounds__(kPointThreads, H > 16 ? 1 : 3)
     separable_bwd_point_kernel(
         const S* __restrict__ x, const S* __restrict__ y,
         const S* __restrict__ z, const S* __restrict__ r,
         const S* __restrict__ a, const S* __restrict__ b,
-        const S* __restrict__ w, const S* __restrict__ dpsi,
-        const S* __restrict__ dlap, S* __restrict__ da_out,
-        S* __restrict__ db_out, float* __restrict__ partials,
+        const S* __restrict__ c1, const S* __restrict__ c2,
+        const S* __restrict__ n0, const S* __restrict__ w,
+        const S* __restrict__ dpsi, const S* __restrict__ dlap,
+        S* __restrict__ da_out, S* __restrict__ db_out,
+        S* __restrict__ dc1_out, S* __restrict__ dc2_out,
+        S* __restrict__ dn0_out, float* __restrict__ partials,
         S* __restrict__ dx_out, S* __restrict__ dy_out,
         S* __restrict__ dz_out, S* __restrict__ dr_out, int n, float psym,
-        float ry, float rz) {
+        float ry, float rz, int code) {
   using kern::add_warp_sums;
   using kern::ld;
   using kern::load4;
@@ -519,8 +555,26 @@ __global__ void __launch_bounds__(kPointThreads, H > 16 ? 1 : 3)
     top_forward(o[0], o[1], o[2], o[3], o[4], o[5], g, pt, top);
     const float gpsi = live ? ld(dpsi[p]) : 0.0f;
     const float glap = live ? ld(dlap[p]) : 0.0f;
-    const TopGrad<float> tg =
-        top_adjoint(av, bv, o[1], o[4], gpsi, glap, g, pt, top);
+    TopGrad<float> tg;
+    if constexpr (EX) {
+      const Factors fc = factors_of(code);
+      float v1, v2, v0;
+      load_nodes(fc, live, p, c1, c2, n0, v1, v2, v0);
+      Ex<float> ex;
+      ex_forward(fc, live ? ld(y[p]) : 1.0f, live ? ld(z[p]) : 1.0f,
+                 live ? ld(r[p]) : 1.0f, ry, rz, v1, v2, v0, o[1], o[4], g,
+                 pt, top, ex);
+      float dc1, dc2, dn0;
+      tg = ex_adjoint(fc, av, bv, o[1], o[4], gpsi, glap, g, pt, top, ex,
+                      dc1, dc2, dn0);
+      if (live) {
+        if (fc.rad > 0) dc1_out[p] = kern::st<S>(dc1);
+        if (fc.rad > 1) dc2_out[p] = kern::st<S>(dc2);
+        if (fc.ang) dn0_out[p] = kern::st<S>(dn0);
+      }
+    } else {
+      tg = top_adjoint(av, bv, o[1], o[4], gpsi, glap, g, pt, top);
+    }
     if (live) {
       da_out[p] = kern::st<S>(tg.da);
       db_out[p] = kern::st<S>(tg.db);
@@ -722,94 +776,95 @@ __global__ void __launch_bounds__(kPointThreads, H > 16 ? 1 : 3)
 // ---------------------------------------------------------------------------
 // launch
 
-template <typename S, int H, bool PG>
+template <typename S, int H, bool PG, bool EX>
 cudaError_t prepare(size_t* smem) {
   if constexpr (tiled<S>()) {
     static_assert(2 * Dw2<H>::KS * H * H <= 2 * Tile<H>::ROWS * H,
                   "the dW2 staging fits the two tiles");
     *smem = sizeof(S) * smem_elems<S, H, PG>();
-    return cudaFuncSetAttribute(separable_bwd_kernel<S, H, PG>,
+    return cudaFuncSetAttribute(separable_bwd_kernel<S, H, PG, EX>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   } else {
     *smem = sizeof(float) * point_smem_elems<H>();
-    return cudaFuncSetAttribute(separable_bwd_point_kernel<S, H, PG>,
+    return cudaFuncSetAttribute(separable_bwd_point_kernel<S, H, PG, EX>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   }
 }
 
-template <typename S, int H, bool PG>
-cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
-                   const void* a, const void* b, const void* w,
-                   const void* dpsi, const void* dlap, void* da, void* db,
-                   void* partials, void* dx, void* dy, void* dz, void* dr,
-                   int n, int psym, int grid, double ry, double rz,
-                   cudaStream_t stream) {
+// The pointer arguments of a launch, in the entry points' order.
+struct Args {
+  const void *x, *y, *z, *r, *a, *b, *c1, *c2, *n0, *w, *dpsi, *dlap;
+  void *da, *db, *dc1, *dc2, *dn0, *partials, *dx, *dy, *dz, *dr;
+};
+
+template <typename S, int H, bool PG, bool EX>
+cudaError_t launch(const Args& g, int n, int psym, int grid, int code,
+                   double ry, double rz, cudaStream_t stream) {
   using T = kern::compute_t<S>;  // also the partials' type
   size_t smem;
-  cudaError_t err = prepare<S, H, PG>(&smem);
+  cudaError_t err = prepare<S, H, PG, EX>(&smem);
   if (err != cudaSuccess) return err;
-  const S* px = static_cast<const S*>(x);
-  const S* py = static_cast<const S*>(y);
-  const S* pz = static_cast<const S*>(z);
-  const S* pr = static_cast<const S*>(r);
-  const S* pa = static_cast<const S*>(a);
-  const S* pb = static_cast<const S*>(b);
-  const S* pw = static_cast<const S*>(w);
-  const S* pdpsi = static_cast<const S*>(dpsi);
-  const S* pdlap = static_cast<const S*>(dlap);
-  S* outs[6] = {static_cast<S*>(da), static_cast<S*>(db),
-                static_cast<S*>(dx), static_cast<S*>(dy),
-                static_cast<S*>(dz), static_cast<S*>(dr)};
-  T* ppart = static_cast<T*>(partials);
+  auto in = [](const void* v) { return static_cast<const S*>(v); };
+  auto out = [](void* v) { return static_cast<S*>(v); };
+  T* ppart = static_cast<T*>(g.partials);
   if constexpr (tiled<S>())
-    separable_bwd_kernel<S, H, PG><<<grid, kThreads, smem, stream>>>(
-        px, py, pz, pr, pa, pb, pw, pdpsi, pdlap, outs[0], outs[1], ppart,
-        outs[2], outs[3], outs[4], outs[5], n, T(psym), T(ry), T(rz));
+    separable_bwd_kernel<S, H, PG, EX><<<grid, kThreads, smem, stream>>>(
+        in(g.x), in(g.y), in(g.z), in(g.r), in(g.a), in(g.b), in(g.c1),
+        in(g.c2), in(g.n0), in(g.w), in(g.dpsi), in(g.dlap), out(g.da),
+        out(g.db), out(g.dc1), out(g.dc2), out(g.dn0), ppart, out(g.dx),
+        out(g.dy), out(g.dz), out(g.dr), n, T(psym), T(ry), T(rz), code);
   else
-    separable_bwd_point_kernel<S, H, PG>
+    separable_bwd_point_kernel<S, H, PG, EX>
         <<<grid, kPointThreads, smem, stream>>>(
-            px, py, pz, pr, pa, pb, pw, pdpsi, pdlap, outs[0], outs[1],
-            ppart, outs[2], outs[3], outs[4], outs[5], n, T(psym), T(ry),
-            T(rz));
+            in(g.x), in(g.y), in(g.z), in(g.r), in(g.a), in(g.b), in(g.c1),
+            in(g.c2), in(g.n0), in(g.w), in(g.dpsi), in(g.dlap), out(g.da),
+            out(g.db), out(g.dc1), out(g.dc2), out(g.dn0), ppart, out(g.dx),
+            out(g.dy), out(g.dz), out(g.dr), n, T(psym), T(ry), T(rz),
+            code);
   return cudaGetLastError();
 }
 
 template <typename S, int H, bool PG>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<S, H, PG>(&smem) != cudaSuccess) return -1;
+  if (prepare<S, H, PG, false>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   cudaError_t err;
   if constexpr (tiled<S>())
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, separable_bwd_kernel<S, H, PG>, kThreads, smem);
+        &blocks, separable_bwd_kernel<S, H, PG, false>, kThreads, smem);
   else
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, separable_bwd_point_kernel<S, H, PG>, kPointThreads, smem);
+        &blocks, separable_bwd_point_kernel<S, H, PG, false>, kPointThreads,
+        smem);
   if (err != cudaSuccess) return -1;
   *smem_bytes = static_cast<int>(smem);
   return blocks;
 }
 
+// pg: the point-gradient instantiations; code: the factor code (the EX
+// instantiations where nonzero). The two exclude each other.
 template <typename S>
-int dispatch(const void* x, const void* y, const void* z, const void* r,
-             const void* a, const void* b, const void* w, const void* dpsi,
-             const void* dlap, void* da, void* db, void* partials, void* dx,
-             void* dy, void* dz, void* dr, int n, int hidden, int psym,
-             int grid, int pg, double ry, double rz, void* stream) {
+int dispatch(const Args& g, int n, int hidden, int psym, int grid, int pg,
+             int code, double ry, double rz, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pg && (!dx || !dy || !dz || !dr))
+  if (pg && (!g.dx || !g.dy || !g.dz || !g.dr))
     return static_cast<int>(cudaErrorInvalidValue);
-#define SEP_BWD_CASE(HH)                                                     \
-  case HH:                                                                   \
-    return pg ? launch<S, HH, true>(x, y, z, r, a, b, w, dpsi, dlap, da, db, \
-                                    partials, dx, dy, dz, dr, n, psym, grid, \
-                                    ry, rz, s)                               \
-              : launch<S, HH, false>(x, y, z, r, a, b, w, dpsi, dlap, da,    \
-                                     db, partials, dx, dy, dz, dr, n, psym,  \
-                                     grid, ry, rz, s);
+  if (code < 0 || (pg && code) || (code & 3) == 3 ||
+      ((code & 3) > 0 && (!g.c1 || !g.dc1)) ||
+      ((code & 3) > 1 && (!g.c2 || !g.dc2)) ||
+      (((code >> 2) & 1) && (!g.n0 || !g.dn0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define SEP_BWD_CASE(HH)                                                    \
+  case HH:                                                                  \
+    return pg     ? launch<S, HH, true, false>(g, n, psym, grid, code, ry,  \
+                                               rz, s)                       \
+           : code ? launch<S, HH, false, true>(g, n, psym, grid, code, ry,  \
+                                               rz, s)                       \
+                  : launch<S, HH, false, false>(g, n, psym, grid, code, ry, \
+                                                rz, s);
   switch (hidden) {
     SEP_BWD_CASE(4)
     SEP_BWD_CASE(8)
@@ -845,47 +900,28 @@ int occupancy_at(int hidden, int type, int* smem_bytes) {
 
 }  // namespace
 
-// dx, dy, dz, dr: the point gradients, written when pg != 0 (the PG = true
-// instantiations); null otherwise.
-extern "C" int separable_bwd_f64(const void* x, const void* y, const void* z,
-                                 const void* r, const void* a, const void* b,
-                                 const void* w, const void* dpsi,
-                                 const void* dlap, void* da, void* db,
-                                 void* partials, void* dx, void* dy, void* dz,
-                                 void* dr, int n, int hidden, int psym,
-                                 int grid, int pg, double ry, double rz,
-                                 void* stream) {
-  return dispatch<double>(x, y, z, r, a, b, w, dpsi, dlap, da, db, partials,
-                          dx, dy, dz, dr, n, hidden, psym, grid, pg, ry, rz,
-                          stream);
-}
-
-extern "C" int separable_bwd_f32(const void* x, const void* y, const void* z,
-                                 const void* r, const void* a, const void* b,
-                                 const void* w, const void* dpsi,
-                                 const void* dlap, void* da, void* db,
-                                 void* partials, void* dx, void* dy, void* dz,
-                                 void* dr, int n, int hidden, int psym,
-                                 int grid, int pg, double ry, double rz,
-                                 void* stream) {
-  return dispatch<float>(x, y, z, r, a, b, w, dpsi, dlap, da, db, partials, dx,
-                         dy, dz, dr, n, hidden, psym, grid, pg, ry, rz,
-                         stream);
-}
-
-// partials: float32 rows, as in the float32 build
-extern "C" int separable_bwd_bf16(const void* x, const void* y, const void* z,
-                                  const void* r, const void* a, const void* b,
-                                  const void* w, const void* dpsi,
-                                  const void* dlap, void* da, void* db,
-                                  void* partials, void* dx, void* dy,
-                                  void* dz, void* dr, int n, int hidden,
-                                  int psym, int grid, int pg, double ry,
-                                  double rz, void* stream) {
-  return dispatch<__nv_bfloat16>(x, y, z, r, a, b, w, dpsi, dlap, da, db,
-                                 partials, dx, dy, dz, dr, n, hidden, psym,
-                                 grid, pg, ry, rz, stream);
-}
+// c1, c2, n0: the excited-state nodes a point, dc1, dc2, dn0 their
+// cotangents (read and written where the factor code names their factor;
+// null otherwise); dx, dy, dz, dr: the point gradients, written when pg !=
+// 0 (the PG = true instantiations); null otherwise. partials: the compute
+// type's rows (float32 for bfloat16).
+#define SEP_BWD_ENTRY(NAME, S)                                                \
+  extern "C" int NAME(const void* x, const void* y, const void* z,            \
+                      const void* r, const void* a, const void* b,            \
+                      const void* c1, const void* c2, const void* n0,         \
+                      const void* w, const void* dpsi, const void* dlap,      \
+                      void* da, void* db, void* dc1, void* dc2, void* dn0,    \
+                      void* partials, void* dx, void* dy, void* dz, void* dr, \
+                      int n, int hidden, int psym, int grid, int pg,          \
+                      int code, double ry, double rz, void* stream) {         \
+    const Args g{x,  y,  z,   r,   a,   b,        c1, c2, n0, w,  dpsi,      \
+                 dlap, da, db, dc1, dc2, dn0, partials, dx, dy, dz, dr};     \
+    return dispatch<S>(g, n, hidden, psym, grid, pg, code, ry, rz, stream);   \
+  }
+SEP_BWD_ENTRY(separable_bwd_f64, double)
+SEP_BWD_ENTRY(separable_bwd_f32, float)
+SEP_BWD_ENTRY(separable_bwd_bf16, __nv_bfloat16)
+#undef SEP_BWD_ENTRY
 
 // Points a block takes at a time in the build of type code `type`
 // (kern::TypeCode; bfloat16 as float32) at this width (the wrapper's

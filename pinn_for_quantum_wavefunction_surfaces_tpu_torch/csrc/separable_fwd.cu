@@ -44,6 +44,14 @@
 //   The points, heads and weights are loaded into float and psi and lap psi
 //   rounded once to bfloat16 as they are stored (common.cuh ld, st): half
 //   the float32 build's bytes, the same operations.
+// Excited states (EX = true, a compile-time flag; EX = false is the ground
+// family's code as it was): after the top, the factor epilogue
+// (separable.cuh ex_forward) multiplies psi by the radial nodes, the
+// angular node and the transverse harmonic that the launch's factor code
+// names, and forms lap psi by the product rule from the top's gradient
+// coefficients. It runs on the scalar lanes (float64) or the point's
+// thread, reading the per-point node heads c1, c2, n0; about a hundred
+// operations a point, a few per cent of the kernel's time.
 // Lanes past n evaluate the finite pad point and store nothing.
 
 #include "separable.cuh"
@@ -57,14 +65,18 @@ __host__ __device__ constexpr int smem_elems() {
   return 2 * Tile<H>::WSP + 2 * Tile<H>::ROWS * H + kFwdSlots * Tile<H>::P;
 }
 
-// The float64 build (S = T = double): one tile of P points a block.
-template <typename S, int H, typename T = kern::compute_t<S>>
+// The float64 build (S = T = double): one tile of P points a block. EX:
+// the excited-state factor epilogue (separable.cuh ex_forward) after the
+// top, reading the nodes c1, c2, n0 that the launch's factor code names.
+template <typename S, int H, bool EX, typename T = kern::compute_t<S>>
 __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
     separable_fwd_kernel(const S* __restrict__ x, const S* __restrict__ y,
                          const S* __restrict__ z, const S* __restrict__ r,
                          const S* __restrict__ a, const S* __restrict__ b,
-                         const S* __restrict__ w, S* __restrict__ psi,
-                         S* __restrict__ lap, int n, T psym, T ry, T rz) {
+                         const S* __restrict__ c1, const S* __restrict__ c2,
+                         const S* __restrict__ n0, const S* __restrict__ w,
+                         S* __restrict__ psi, S* __restrict__ lap, int n,
+                         T psym, T ry, T rz, int code) {
   using kern::ld;
   using TL = Tile<H>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -112,9 +124,23 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
       Top<T> s;
       top_forward(v[kL0 * TL::P], v[kL1 * TL::P], v[kL2 * TL::P],
                   v[kM0 * TL::P], v[kM1 * TL::P], v[kM2 * TL::P], g, pt, s);
-      if (live) {
-        psi[p] = kern::st<S>(s.psi);
-        lap[p] = kern::st<S>(s.lap);
+      if constexpr (EX) {
+        const Factors fc = factors_of(code);
+        T v1, v2, v0;
+        load_nodes(fc, live, p, c1, c2, n0, v1, v2, v0);
+        Ex<T> ex;
+        ex_forward(fc, live ? ld(y[p]) : one, live ? ld(z[p]) : one,
+                   live ? ld(r[p]) : one, ry, rz, v1, v2, v0,
+                   v[kL1 * TL::P], v[kM1 * TL::P], g, pt, s, ex);
+        if (live) {
+          psi[p] = kern::st<S>(ex.psi);
+          lap[p] = kern::st<S>(ex.lap);
+        }
+      } else {
+        if (live) {
+          psi[p] = kern::st<S>(s.psi);
+          lap[p] = kern::st<S>(s.lap);
+        }
       }
     }
   }
@@ -125,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, H > 16 ? 2 : 3)
 // n_tiles): with no loop over tiles the compiler keeps no weights in
 // registers across one, and the kernel needs 116 registers at H = 16 where
 // a grid-stride loop needed 128 and spilled.
-template <typename S, int H>
+template <typename S, int H, bool EX>
 __global__ void __launch_bounds__(kPointThreads, H > 16 ? 2 : 4)
     separable_fwd_point_kernel(const S* __restrict__ x,
                                const S* __restrict__ y,
@@ -133,9 +159,12 @@ __global__ void __launch_bounds__(kPointThreads, H > 16 ? 2 : 4)
                                const S* __restrict__ r,
                                const S* __restrict__ a,
                                const S* __restrict__ b,
+                               const S* __restrict__ c1,
+                               const S* __restrict__ c2,
+                               const S* __restrict__ n0,
                                const S* __restrict__ w, S* __restrict__ psi,
                                S* __restrict__ lap, int n, float psym,
-                               float ry, float rz) {
+                               float ry, float rz, int code) {
   using kern::ld;
   __shared__ __align__(16) float sw[2 * Tile<H>::WSP];
   load_weights<float, H, kPointThreads>(w, sw);
@@ -155,19 +184,33 @@ __global__ void __launch_bounds__(kPointThreads, H > 16 ? 2 : 4)
                               nullptr, m0, m1, m2);
   Top<float> s;
   top_forward(l0, l1, l2, m0, m1, m2, g, pt, s);
-  if (live) {
-    psi[p] = kern::st<S>(s.psi);
-    lap[p] = kern::st<S>(s.lap);
+  if constexpr (EX) {
+    const Factors fc = factors_of(code);
+    float v1, v2, v0;
+    load_nodes(fc, live, p, c1, c2, n0, v1, v2, v0);
+    Ex<float> ex;
+    ex_forward(fc, live ? ld(y[p]) : 1.0f, live ? ld(z[p]) : 1.0f,
+               live ? ld(r[p]) : 1.0f, ry, rz, v1, v2, v0, l1, m1, g, pt, s,
+               ex);
+    if (live) {
+      psi[p] = kern::st<S>(ex.psi);
+      lap[p] = kern::st<S>(ex.lap);
+    }
+  } else {
+    if (live) {
+      psi[p] = kern::st<S>(s.psi);
+      lap[p] = kern::st<S>(s.lap);
+    }
   }
 }
 
 // Shared memory (bytes) of a launch beyond the static, set as the kernel's
 // limit.
-template <typename S, int H>
+template <typename S, int H, bool EX>
 cudaError_t prepare(size_t* smem) {
   if constexpr (tiled<S>()) {
     *smem = sizeof(S) * smem_elems<S, H>();
-    return cudaFuncSetAttribute(separable_fwd_kernel<S, H>,
+    return cudaFuncSetAttribute(separable_fwd_kernel<S, H, EX>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));
   } else {
@@ -176,14 +219,15 @@ cudaError_t prepare(size_t* smem) {
   }
 }
 
-template <typename S, int H>
+template <typename S, int H, bool EX>
 cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
-                   const void* a, const void* b, const void* w, void* psi,
-                   void* lap, int n, int psym, int grid, double ry, double rz,
-                   cudaStream_t stream) {
+                   const void* a, const void* b, const void* c1,
+                   const void* c2, const void* n0, const void* w, void* psi,
+                   void* lap, int n, int psym, int grid, int code, double ry,
+                   double rz, cudaStream_t stream) {
   using T = kern::compute_t<S>;
   size_t smem;
-  cudaError_t err = prepare<S, H>(&smem);
+  cudaError_t err = prepare<S, H, EX>(&smem);
   if (err != cudaSuccess) return err;
   const S* px = static_cast<const S*>(x);
   const S* py = static_cast<const S*>(y);
@@ -191,32 +235,36 @@ cudaError_t launch(const void* x, const void* y, const void* z, const void* r,
   const S* pr = static_cast<const S*>(r);
   const S* pa = static_cast<const S*>(a);
   const S* pb = static_cast<const S*>(b);
+  const S* pc1 = static_cast<const S*>(c1);
+  const S* pc2 = static_cast<const S*>(c2);
+  const S* pn0 = static_cast<const S*>(n0);
   const S* pw = static_cast<const S*>(w);
   if constexpr (tiled<S>())
-    separable_fwd_kernel<S, H><<<grid, kThreads, smem, stream>>>(
-        px, py, pz, pr, pa, pb, pw, static_cast<S*>(psi),
-        static_cast<S*>(lap), n, T(psym), T(ry), T(rz));
+    separable_fwd_kernel<S, H, EX><<<grid, kThreads, smem, stream>>>(
+        px, py, pz, pr, pa, pb, pc1, pc2, pn0, pw, static_cast<S*>(psi),
+        static_cast<S*>(lap), n, T(psym), T(ry), T(rz), code);
   else
-    separable_fwd_point_kernel<S, H><<<grid, kPointThreads, 0, stream>>>(
-        px, py, pz, pr, pa, pb, pw, static_cast<S*>(psi),
-        static_cast<S*>(lap), n, T(psym), T(ry), T(rz));
+    separable_fwd_point_kernel<S, H, EX><<<grid, kPointThreads, 0, stream>>>(
+        px, py, pz, pr, pa, pb, pc1, pc2, pn0, pw, static_cast<S*>(psi),
+        static_cast<S*>(lap), n, T(psym), T(ry), T(rz), code);
   return cudaGetLastError();
 }
 
 // Resident blocks per SM and shared memory per block (bytes, static and
-// dynamic).
+// dynamic) of the ground instantiation.
 template <typename S, int H>
 int occupancy(int* smem_bytes) {
   size_t smem;
-  if (prepare<S, H>(&smem) != cudaSuccess) return -1;
+  if (prepare<S, H, false>(&smem) != cudaSuccess) return -1;
   int blocks = -1;
   cudaError_t err;
   if constexpr (tiled<S>()) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, separable_fwd_kernel<S, H>, kThreads, smem);
+        &blocks, separable_fwd_kernel<S, H, false>, kThreads, smem);
   } else {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, separable_fwd_point_kernel<S, H>, kPointThreads, smem);
+        &blocks, separable_fwd_point_kernel<S, H, false>, kPointThreads,
+        smem);
     smem = sizeof(float) * 2 * Tile<H>::WSP;
   }
   if (err != cudaSuccess) return -1;
@@ -224,16 +272,23 @@ int occupancy(int* smem_bytes) {
   return blocks;
 }
 
+// code: the factor code (0: the ground instantiations, EX = false).
 template <typename S>
 int dispatch(const void* x, const void* y, const void* z, const void* r,
-             const void* a, const void* b, const void* w, void* psi, void* lap,
-             int n, int hidden, int psym, int grid, double ry, double rz,
+             const void* a, const void* b, const void* c1, const void* c2,
+             const void* n0, const void* w, void* psi, void* lap, int n,
+             int hidden, int psym, int grid, int code, double ry, double rz,
              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SEP_FWD_CASE(HH)                                                   \
-  case HH:                                                                 \
-    return launch<S, HH>(x, y, z, r, a, b, w, psi, lap, n, psym, grid, ry, \
-                         rz, s);
+  if (code < 0 || ((code & 3) > 0 && !c1) || ((code & 3) > 1 && !c2) ||
+      (((code >> 2) & 1) && !n0) || (code & 3) == 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define SEP_FWD_CASE(HH)                                                      \
+  case HH:                                                                    \
+    return code ? launch<S, HH, true>(x, y, z, r, a, b, c1, c2, n0, w, psi,   \
+                                      lap, n, psym, grid, code, ry, rz, s)    \
+                : launch<S, HH, false>(x, y, z, r, a, b, c1, c2, n0, w, psi,  \
+                                       lap, n, psym, grid, code, ry, rz, s);
   switch (hidden) {
     SEP_FWD_CASE(4)
     SEP_FWD_CASE(8)
@@ -247,32 +302,22 @@ int dispatch(const void* x, const void* y, const void* z, const void* r,
 
 }  // namespace
 
-extern "C" int separable_fwd_f64(const void* x, const void* y, const void* z,
-                                 const void* r, const void* a, const void* b,
-                                 const void* w, void* psi, void* lap, int n,
-                                 int hidden, int psym, int grid, double ry,
-                                 double rz, void* stream) {
-  return dispatch<double>(x, y, z, r, a, b, w, psi, lap, n, hidden, psym, grid,
-                          ry, rz, stream);
-}
-
-extern "C" int separable_fwd_f32(const void* x, const void* y, const void* z,
-                                 const void* r, const void* a, const void* b,
-                                 const void* w, void* psi, void* lap, int n,
-                                 int hidden, int psym, int grid, double ry,
-                                 double rz, void* stream) {
-  return dispatch<float>(x, y, z, r, a, b, w, psi, lap, n, hidden, psym, grid,
-                         ry, rz, stream);
-}
-
-extern "C" int separable_fwd_bf16(const void* x, const void* y, const void* z,
-                                  const void* r, const void* a, const void* b,
-                                  const void* w, void* psi, void* lap, int n,
-                                  int hidden, int psym, int grid, double ry,
-                                  double rz, void* stream) {
-  return dispatch<__nv_bfloat16>(x, y, z, r, a, b, w, psi, lap, n, hidden,
-                                 psym, grid, ry, rz, stream);
-}
+// c1, c2, n0: the excited-state nodes a point (read where the factor code
+// names their factor; null otherwise).
+#define SEP_FWD_ENTRY(NAME, S)                                                 \
+  extern "C" int NAME(const void* x, const void* y, const void* z,             \
+                      const void* r, const void* a, const void* b,             \
+                      const void* c1, const void* c2, const void* n0,          \
+                      const void* w, void* psi, void* lap, int n, int hidden,  \
+                      int psym, int grid, int code, double ry, double rz,      \
+                      void* stream) {                                          \
+    return dispatch<S>(x, y, z, r, a, b, c1, c2, n0, w, psi, lap, n, hidden,   \
+                       psym, grid, code, ry, rz, stream);                      \
+  }
+SEP_FWD_ENTRY(separable_fwd_f64, double)
+SEP_FWD_ENTRY(separable_fwd_f32, float)
+SEP_FWD_ENTRY(separable_fwd_bf16, __nv_bfloat16)
+#undef SEP_FWD_ENTRY
 
 // Points a block takes at a time in the build of type code `type`
 // (kern::TypeCode; bfloat16 as float32) at this width (the wrapper's
@@ -293,9 +338,6 @@ extern "C" int separable_fwd_points_per_tile(int hidden, int type) {
 #undef SEP_FWD_TILE
 }
 
-// Resident blocks per SM of the instantiation of type code `type`
-// (kern::TypeCode) at this width, and its shared memory per block in
-// *smem_bytes; -1 on error.
 extern "C" int separable_fwd_occupancy(int hidden, int type, int* smem_bytes) {
 #define SEP_FWD_OCC(HH)                                                   \
   case HH:                                                                \

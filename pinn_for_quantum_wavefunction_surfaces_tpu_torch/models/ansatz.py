@@ -323,7 +323,9 @@ def node_eta0sq(params: dict, r: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(_head(params, "enode", r))
 
 
-def _has_radial_node(params: dict) -> bool:
+def has_radial_node(params: dict) -> bool:
+    """Whether the params carry a radial node head (legacy ``node*`` or
+    ``rnode*``)."""
     return "node1" in params or "rnode1" in params
 
 
@@ -334,27 +336,21 @@ LOG_CORR_CAP = 3.0
 
 def kernel_unsupported_reason(params: dict, mcfg: ModelConfig) -> str | None:
     """Why no kernel of the port carries this model, or None. K1
-    (ops/pallas_separable.py) carries the separable family without the
-    m_abs transverse factor (keyed by the config) and without node factors
-    (keyed by the params; "rnodeb*" comes only with "rnode*"); K2
-    (ops/pallas_train.py) carries the symmetric family with a 2-input
-    ``h1``, not the minimal family (keyed by the config: its params have
-    the symmetric tree) nor R-input models (keyed by the weight shape). The
-    JAX package's ``losses.pallas_unsupported_reason`` and the refusals of
-    its ``pallas_train.psi_lap_train``, keyed the same way. Such models
-    take the forward-Laplacian path (``psi_fwdlap``) on every device."""
+    (ops/pallas_separable.py) carries the whole separable family: its
+    excited-state factors (the radial and angular nodes, keyed by the
+    params; the m_abs transverse factor, keyed by the config) run in the
+    kernels' factor epilogue. K2 (ops/pallas_train.py) carries the
+    symmetric family with a 2-input ``h1``, not the minimal family (keyed by
+    the config: its params have the symmetric tree) nor R-input models
+    (keyed by the weight shape). The minimal and R-input models take the
+    forward-Laplacian path (``psi_fwdlap``) on every device. The JAX
+    package's ``losses.pallas_unsupported_reason`` also names the separable
+    models with factors: its Pallas kernel has no such epilogue."""
     if "lam1" not in params:
         if mcfg.arch == "minimal":
             return "no kernel implements the minimal family"
         if params["h1"]["w"].shape[0] != 2:
             return "no kernel implements R-input (r_input) models"
-        return None
-    if mcfg.m_abs:
-        return ("the fused separable kernel does not implement the m_abs "
-                "transverse factor (pi/delta states)")
-    if _has_radial_node(params) or "enode1" in params:
-        return ("the fused separable kernel does not implement the xi_node "
-                "/ eta_node factors (excited states)")
     return None
 
 
@@ -388,7 +384,7 @@ def _psi_separable(params: dict, mcfg: ModelConfig, x, y, z, r):
     c = LOG_CORR_CAP
     log_corr = c * torch.tanh((lam[..., 0] + mu[..., 0]) / c)
     out = phi * torch.exp(log_corr)
-    if _has_radial_node(params):
+    if has_radial_node(params):
         # one simple zero on the xi = xi0(R) ellipsoid
         out = out * (p_half - r * node_xi0(params, r))
         if "rnodeb1" in params:
@@ -398,25 +394,26 @@ def _psi_separable(params: dict, mcfg: ModelConfig, x, y, z, r):
         # angular nodes at eta = +-eta0(R); eta^2 is even under inversion
         out = out * (eta2 - node_eta0sq(params, r))
     if mcfg.m_abs:
-        out = out * _transverse_harmonic(mcfg, y, z)[0]
+        out = out * transverse_harmonic(mcfg.m_abs, y, z)[0]
     return out, energy(params, r)
 
 
-def _transverse_harmonic(mcfg: ModelConfig, y, z):
-    """Re[(y + i z)^m], m = m_abs, the transverse factor of an |m| state
-    (molecular axis along x): y for pi, y^2 - z^2 for delta. Inversion-odd
-    iff m is odd. Returns (value, d/dy, d/dz); its laplacian is zero (a
-    harmonic polynomial)."""
+def transverse_harmonic(m: int, y, z):
+    """Re[(y + i z)^m], the transverse factor of an |m| state (molecular
+    axis along x): y for pi, y^2 - z^2 for delta. Inversion-odd iff m is
+    odd. Returns (value, d/dy, d/dz); its laplacian is zero (a harmonic
+    polynomial). K1's plain versions and its factor epilogue use the same
+    recurrences (ops/pallas_separable.py, csrc/separable.cuh)."""
     re, im = y, z
-    for _ in range(mcfg.m_abs - 1):
+    for _ in range(m - 1):
         re, im = re * y - im * z, re * z + im * y
     # grad Re w^m = m (Re w^{m-1}, -Im w^{m-1})
-    if mcfg.m_abs == 1:
+    if m == 1:
         return re, torch.ones_like(y), torch.zeros_like(z)
     rp, ip = y, z
-    for _ in range(mcfg.m_abs - 2):
+    for _ in range(m - 2):
         rp, ip = rp * y - ip * z, rp * z + ip * y
-    return re, mcfg.m_abs * rp, -mcfg.m_abs * ip
+    return re, m * rp, -m * ip
 
 
 def _envelopes(mcfg: ModelConfig, x, y, z, r, mirror_x=False, alpha=None):
@@ -526,7 +523,7 @@ def _psi_separable_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
     bounded = fwdlap.scale(
         fwdlap.tanh(fwdlap.scale(fwdlap.add(lam, mu), 1.0 / c)), c)
     out = fwdlap.mul(phi, fwdlap.exp(bounded))
-    if _has_radial_node(params):
+    if has_radial_node(params):
         q = fwdlap.add(p_half,
                        fwdlap.const(-(r * node_xi0(params, r))[..., None]))
         out = fwdlap.mul(out, q)
@@ -541,7 +538,7 @@ def _psi_separable_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
         out = fwdlap.mul(out, q)
     if mcfg.m_abs:
         # harmonic: the gradient is closed-form and the laplacian zero
-        h, gy, gz = _transverse_harmonic(mcfg, y, z)
+        h, gy, gz = transverse_harmonic(mcfg.m_abs, y, z)
         zero = torch.zeros_like(h)
         hs = fwdlap.Spatial(h[..., None],
                             torch.stack([zero, gy, gz], dim=-1)[..., None],
@@ -611,10 +608,10 @@ def psi_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
     """Fused pass returning (Spatial(psi), E): psi, grad psi and lap psi in
     one forward traversal, for every family: the path, on every device, of
     the models that ``kernel_unsupported_reason`` keeps off the kernels
-    (excited separable states, the minimal family, R-input models) and the
-    plain reference of the others, whose training path is
-    ops.pallas_separable.psi_lap_train_separable (separable) or
-    ops.pallas_train.psi_lap_train (symmetric)."""
+    (the minimal family, R-input models) and the plain reference of the
+    others, whose training path is
+    ops.pallas_separable.psi_lap_train_separable (separable, excited states
+    included) or ops.pallas_train.psi_lap_train (symmetric)."""
     if "lam1" in params:
         return _psi_separable_fwdlap(params, mcfg, x, y, z, r)
     return _psi_symmetric_fwdlap(params, mcfg, x, y, z, r)

@@ -81,10 +81,13 @@ def plain_as_built(plain, *args, **kw):
     bfloat16 tensors (the points, after the weights) the plain version's
     float32 arithmetic on their values, each output rounded once to
     bfloat16 (as the bfloat16 builds do, csrc/common.cuh); on float32 and
-    float64 tensors the plain version itself."""
+    float64 tensors the plain version itself. Tensors among the keywords
+    (the excited-state nodes) are widened as the points are."""
     if args[1].dtype != torch.bfloat16:
         return plain(*args, **kw)
-    out = plain(*_map_tensors(lambda t: t.float(), args), **kw)
+    out = plain(*_map_tensors(lambda t: t.float(), args),
+                **{k: _map_tensors(lambda t: t.float(), v)
+                   for k, v in kw.items()})
     return _map_tensors(lambda t: t.to(torch.bfloat16), out)
 
 

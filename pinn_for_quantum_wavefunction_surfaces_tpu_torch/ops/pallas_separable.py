@@ -35,6 +35,7 @@ in registers (``csrc/separable.cuh``). ``points_per_tile`` and
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 
 import torch
 
@@ -42,12 +43,14 @@ from ..models import ansatz
 from ..models.ansatz import LOG_CORR_CAP
 from . import _cuda
 
-# launch counts of the CUDA kernels, K1-bwd's point-gradient instantiation
-# and each bfloat16 build (``_bf16``) apart (plain integers: a run can show
+# launch counts of the CUDA kernels, K1-bwd's point-gradient instantiation,
+# the excited-state factor instantiations (``_ex``) and each bfloat16 build
+# (``_bf16``) apart (plain integers: a run can show
 # that its path went through the kernels). Only the CUDA wrappers add to
 # them.
 launches = {k + sfx: 0 for sfx in ("", "_bf16")
-            for k in ("separable_fwd", "separable_bwd", "separable_bwd_pg")}
+            for k in ("separable_fwd", "separable_bwd", "separable_bwd_pg",
+                      "separable_fwd_ex", "separable_bwd_ex")}
 
 SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 
@@ -175,19 +178,162 @@ def _top(l_tr, m_tr, phi0, phil, p1, p2, feats):
                               e, kk)
 
 
+def _factor_fwd(factors, nodes, y, z, r, ry, rz, r1, r2, i1, i2, c12, feats,
+                l1, m1, gz, top):
+    """The excited-state factor epilogue (csrc/separable.cuh ex_forward):
+    psi = psi_B F and lap psi = F lap psi_B + 2 grad psi_B . grad F +
+    psi_B lap F for F = Q(p) A(eta^2) h(y, z), given the top of psi_B.
+
+    ``factors`` = (radial nodes 0-2, angular node 0/1, m); ``nodes`` =
+    (c1, c2, n0): Q = (p - c1)(p - c2) over the radial nodes, p = (r1 +
+    r2)/2; A = eta^2 - n0; h = Re[(y + i z)^m]. psi_B and F depend on the
+    point through r1 and r2 only (h apart), so a gradient is kept as its
+    coefficients (gs, gd) = (d/dr1 + d/dr2, d/dr1 - d/dr2) on (u1 + u2)/2
+    and (u1 - u2)/2: f . g = (fs gs (1 + c12) + fd gd (1 - c12)) / 2 and
+    f . grad h = (fs ws + fd wd) / 2, ws, wd = u1 . grad h +- u2 . grad h.
+    grad p . grad eta^2 = 0 (confocal coordinates). Returns (psi, lap,
+    saved) with what the adjoint reads."""
+    n_rad, ang, m = factors
+    c1, c2, n0 = nodes
+    t0, tl, gtt, e0, el2, gee, kt, ke = feats
+    fa, fb, sa, sb, phi0, p1, p2, phil = gz
+    psi_b, lap_b, st = top
+    d1, e = st[4], st[11]
+    hc, mc = 1.0 + c12, 1.0 - c12
+    inv_r = 1.0 / r
+    he = (r1 - r2) * (0.5 * inv_r) * inv_r     # d eta^2 / d r1
+    sp = i1 + i2                               # lap p
+    p = 0.5 * (r1 + r2)
+    zero = torch.zeros_like(r)
+    if n_rad == 0:
+        n1 = n2 = q = q1 = None
+        lq = zero
+    elif n_rad == 1:
+        n1, n2 = p - c1, None
+        q, q1, lq = n1, 1.0, sp
+    else:
+        n1, n2 = p - c1, p - c2
+        q, q1 = n1 * n2, n1 + n2
+        lq = hc + q1 * sp                      # Q'' |grad p|^2 + Q' lap p
+    if ang:
+        aa = e0 - n0
+        qv = 1.0 if q is None else q
+        fsv = qv * aa
+        fs = zero if q1 is None else aa * q1
+        fd = 2.0 * qv * he
+        lfs = aa * lq + qv * el2
+    else:
+        aa = None
+        fsv = 1.0 if q is None else q
+        fs = zero if q1 is None else q1 + zero
+        fd = zero
+        lfs = lq
+    if m:
+        h, hy, hz = ansatz.transverse_harmonic(m, y, z)
+        w1 = ((y - ry) * hy + (z - rz) * hz) * i1
+        w2 = ((y + ry) * hy + (z + rz) * hz) * i2
+        ws, wd = w1 + w2, w1 - w2
+    else:
+        h, ws, wd = 1.0, zero, zero
+    bs = (p1 + p2) - phi0 * d1 * l1 * t0
+    bd = (p1 - p2) + 2.0 * phi0 * d1 * m1 * he
+    gs, gd = e * bs, e * bd
+    xs = 0.5 * (gs * fs * hc + gd * fd * mc)   # grad psi_B . grad F_s
+    xh = 0.5 * (gs * ws + gd * wd)             # grad psi_B . grad h
+    yh = 0.5 * (fs * ws + fd * wd)             # grad F_s . grad h
+    lf = h * lfs + 2.0 * yh                    # lap F
+    f = fsv * h
+    psi = psi_b * f
+    lap = f * lap_b + 2.0 * (h * xs + fsv * xh) + psi_b * lf
+    saved = SimpleNamespace(
+        factors=factors, he=he, sp=sp, hc=hc, mc=mc, n1=n1, n2=n2, q=q, q1=q1,
+        lq=lq, aa=aa, fsv=fsv, fs=fs, fd=fd, h=h, ws=ws, wd=wd, bs=bs, bd=bd,
+        gs=gs, gd=gd, xh=xh, lf=lf, f=f)
+    return psi, lap, saved
+
+
+def _factor_vjp(saved, el2, psi_b, lap_b, dpsi, dlap):
+    """Adjoint of _factor_fwd's epilogue for (dpsi, dlap): the cotangents
+    (dpsi_B, dlap_B) of the ground top, (dgs, dgd) of grad psi_B, and those
+    of the nodes (dc1, dc2, dn0; None where absent)."""
+    v = saved
+    n_rad, ang, _ = v.factors
+    dpsi_b = dpsi * v.f + dlap * v.lf
+    dlap_b = dlap * v.f
+    dgs = dlap * (v.h * v.fs * v.hc + v.fsv * v.ws)
+    dgd = dlap * (v.h * v.fd * v.mc + v.fsv * v.wd)
+    dfsv = v.h * (dpsi * psi_b + dlap * lap_b) + 2.0 * dlap * v.xh
+    dfs = dlap * (v.h * v.gs * v.hc + psi_b * v.ws)
+    dfd = dlap * (v.h * v.gd * v.mc + psi_b * v.wd)
+    dlfs = dlap * psi_b * v.h
+    dc1 = dc2 = dn0 = None
+    if ang:
+        qv = 1.0 if v.q is None else v.q
+        q1v = 0.0 if v.q1 is None else v.q1
+        dn0 = -(dfsv * qv + dfs * q1v + dlfs * v.lq)
+        dq = dfsv * v.aa + dfd * 2.0 * v.he + dlfs * el2
+        dq1 = dfs * v.aa + dlfs * v.aa * v.sp
+    else:
+        dq, dq1 = dfsv, dfs + dlfs * v.sp
+    if n_rad == 1:
+        dc1 = -dq
+    elif n_rad == 2:
+        dc1 = -(dq * v.n2 + dq1)
+        dc2 = -(dq * v.n1 + dq1)
+    return dpsi_b, dlap_b, dgs, dgd, (dc1, dc2, dn0)
+
+
+def _grad_psi_b_vjp(saved, a, b, r1, r2, l1, m1, t0, gz, st, dgs, dgd):
+    """Adjoint of grad psi_B's coefficients gs = e bs, gd = e bd (bs = p1
+    + p2 - phi0 d1 l1 t0, bd = p1 - p2 + 2 phi0 d1 m1 he) through the
+    bounded correction and the GZ pair: their additions (dq0, dl1, dm1,
+    da, db) to the ground top's cotangents."""
+    he, bs, bd = saved.he, saved.bs, saved.bd
+    fa, fb, sa, sb, phi0, p1, p2, phil = gz
+    th, d1, e = st[3], st[4], st[11]
+    c = LOG_CORR_CAP
+    de = dgs * bs + dgd * bd
+    k = 2.0 * dgd * m1 * he - dgs * l1 * t0
+    dphi0 = e * d1 * k
+    dd1 = e * phi0 * k
+    dl1 = -dgs * e * phi0 * d1 * t0
+    dm1 = 2.0 * dgd * e * phi0 * d1 * he
+    dp1 = e * (dgs + dgd)
+    dp2 = e * (dgs - dgd)
+    dth = de * e * c - 2.0 * th * dd1
+    dq0 = dth * d1 / c
+    dfa = dphi0 - dp1 * a - dp2 * b
+    dfb = dphi0 - dp1 * b - dp2 * a
+    da = -dp1 * fa - dp2 * fb - r1 * fa * dfa - r2 * fb * dfb
+    db = -dp1 * fb - dp2 * fa - r2 * fa * dfa - r1 * fb * dfb
+    return dq0, dl1, dm1, da, db
+
+
+NO_FACTORS = (0, 0, 0)
+NO_NODES = (None, None, None)
+
+
 def psi_lap_separable_plain(weights, a, b, x, y, z, r, *, p_sym: int = 1,
-                            ry: float = 0.0, rz: float = 0.0):
+                            ry: float = 0.0, rz: float = 0.0,
+                            factors=NO_FACTORS, nodes=NO_NODES):
     """(psi, lap psi) per point, plain tensor ops. weights: the 12 tensors
-    in ``weight_shapes`` order; a, b, x, y, z, r: (n,)."""
+    in ``weight_shapes`` order; a, b, x, y, z, r: (n,). ``factors`` (radial
+    nodes, angular node, m) and the per-point ``nodes`` (c1, c2, n0) add
+    the excited-state factors (_factor_fwd); the default is none."""
     l_w, m_w = weights[:6], weights[6:]
     r1, r2, i1, i2, c12 = _geometry(x, y, z, r, ry, rz)
     feats = _features(r, r1, r2, i1, i2, c12)
     cf = 0.25 * r
     l_tr, _ = _mlp_fwd(feats[0], cf, *l_w)
     m_tr, _ = _mlp_fwd(feats[3], cf, *m_w)
-    _, _, _, _, phi0, p1, p2, phil = _gz(a, b, float(p_sym), r1, r2, i1, i2,
-                                         c12)
-    psi, lap, _ = _top(l_tr, m_tr, phi0, phil, p1, p2, feats)
+    gz = _gz(a, b, float(p_sym), r1, r2, i1, i2, c12)
+    _, _, _, _, phi0, p1, p2, phil = gz
+    psi, lap, st = _top(l_tr, m_tr, phi0, phil, p1, p2, feats)
+    if tuple(factors) == NO_FACTORS:
+        return psi, lap
+    psi, lap, _ = _factor_fwd(factors, nodes, y, z, r, ry, rz, r1, r2, i1,
+                              i2, c12, feats, l_tr[1], m_tr[1], gz,
+                              (psi, lap, st))
     return psi, lap
 
 
@@ -237,13 +383,23 @@ def _mlp_vjp(s, cf, w1, w2, ow, act, dout):
 
 def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
                                 p_sym: int = 1, ry: float = 0.0,
-                                rz: float = 0.0, point_grads: bool = False):
+                                rz: float = 0.0, point_grads: bool = False,
+                                factors=NO_FACTORS, nodes=NO_NODES):
     """Cotangents (12 weight grads, da, db) of psi_lap_separable_plain for
     output cotangents (dpsi, dlap). With ``point_grads`` also those of the
     points, (..., dx, dy, dz, dr): the adjoint carried past the MLPs
     through the features, the GZ pair and the geometry, as the kernel's
     point_adjoint (csrc/separable.cuh) does. Otherwise the points are
-    constants (the training path stops their gradients)."""
+    constants (the training path stops their gradients). With ``factors``
+    also those of the nodes, (..., (dc1, dc2, dn0)), None where absent: the
+    epilogue's adjoint gives the ground top's cotangents and those of grad
+    psi_B, whose additions join the ground adjoint before the MLPs' (as the
+    kernel's ex_adjoint does). No point gradients with factors."""
+    ex = tuple(factors) != NO_FACTORS
+    if ex and point_grads:
+        raise NotImplementedError(
+            "point gradients of the excited-state factors: no recipe takes "
+            "them; such models take ansatz.psi_fwdlap")
     l_w, m_w = weights[:6], weights[6:]
     p = float(p_sym)
     c = LOG_CORR_CAP
@@ -253,10 +409,17 @@ def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
     cf = 0.25 * r
     l_tr, l_act = _mlp_fwd(t0, cf, *l_w)
     m_tr, m_act = _mlp_fwd(e0, cf, *m_w)
-    fa, fb, sa, sb, phi0, p1, p2, phil = _gz(a, b, p, r1, r2, i1, i2, c12)
-    _, _, st = _top(l_tr, m_tr, phi0, phil, p1, p2, feats)
+    gz = _gz(a, b, p, r1, r2, i1, i2, c12)
+    fa, fb, sa, sb, phi0, p1, p2, phil = gz
+    psi_b, lap_b, st = _top(l_tr, m_tr, phi0, phil, p1, p2, feats)
     q0, qq, ql, th, d1, d2, bl, wv, gpt, gpe, xv, e, kk = st
     l1, m1 = l_tr[1], m_tr[1]
+    if ex:
+        _, _, saved = _factor_fwd(factors, nodes, y, z, r, ry, rz, r1, r2,
+                                  i1, i2, c12, feats, l1, m1, gz,
+                                  (psi_b, lap_b, st))
+        dpsi, dlap, dgs, dgd, dnodes = _factor_vjp(saved, el2, psi_b, lap_b,
+                                                   dpsi, dlap)
 
     # psi = phi0 e, lap = e kk, kk = phil + phi0 wv + 2 d1 xv
     de = dpsi * phi0 + dlap * kk
@@ -303,12 +466,19 @@ def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
     db = (-dp1 * fb - dp2 * fa
           + dphil * (fa * (s_b - 2.0 * i2) + fb * (s_b - 2.0 * i1))
           - r2 * fa * dfa - r1 * fb * dfb)
+    if ex:
+        dq0_x, dl1_x, dm1_x, da_x, db_x = _grad_psi_b_vjp(
+            saved, a, b, r1, r2, l1, m1, t0, gz, st, dgs, dgd)
+        dq0, dl1, dm1 = dq0 + dq0_x, dl1 + dl1_x, dm1 + dm1_x
+        da, db = da + da_x, db + db_x
 
     dl, dzl = _mlp_vjp(t0, cf, l_w[0], l_w[2], l_w[4], l_act,
                        (dq0, dl1, dl2))
     dm, dzm = _mlp_vjp(e0, cf, m_w[0], m_w[2], m_w[4], m_act,
                        (dq0, dm1, dm2))
     grads = (tuple(dl) + tuple(dm), da, db)
+    if ex:
+        return grads + (dnodes,)
     if not point_grads:
         return grads
 
@@ -402,12 +572,12 @@ def grid_blocks(n: int, hidden: int, dtype) -> int:
 
 
 def _lib(name: str):
-    """The typed library of K1-fwd (its extra int: the tiles) or K1-bwd
-    (the grid and the point-gradient flag), its tiles checked against
-    points_per_tile once."""
+    """The typed library of K1-fwd (its extra ints: the tiles and the
+    factor code) or K1-bwd (the grid, the point-gradient flag and the
+    factor code), its tiles checked against points_per_tile once."""
     fwd = name == "separable_fwd"
-    return _cuda.tiled_lib(name, 9 if fwd else 16, "separable",
-                           points_per_tile, n_extra_int=1 if fwd else 2)
+    return _cuda.tiled_lib(name, 12 if fwd else 22, "separable",
+                           points_per_tile, n_extra_int=2 if fwd else 3)
 
 
 def occupancy(name: str, hidden: int, dtype,
@@ -419,40 +589,73 @@ def occupancy(name: str, hidden: int, dtype,
     return _cuda.occupancy(_lib(name), hidden, dtype, point_grads)
 
 
+def factor_code(factors) -> int:
+    """The kernels' int of a factor triple (radial nodes, angular node, m):
+    radial | angular << 2 | m << 3; 0 selects the ground instantiations."""
+    n_rad, ang, m = factors
+    return int(n_rad) | int(ang) << 2 | int(m) << 3
+
+
+def _node_inputs(factors, nodes, hidden: int, ref):
+    """The node arrays the kernel reads, contiguous (None, the null pointer,
+    where the factor is absent), checked against the point array ``ref``."""
+    n_rad, ang, _ = factors
+    want = (n_rad >= 1, n_rad >= 2, bool(ang))
+    if want != tuple(t is not None for t in nodes):
+        raise ValueError(f"nodes {tuple(t is not None for t in nodes)} do "
+                         f"not match factors {tuple(factors)}")
+    out = [None if t is None else t.contiguous() for t in nodes]
+    _cuda.check_inputs(hidden, (), (), [ref] + [t for t in out if t is not
+                                                 None])
+    return out
+
+
 def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
-                       ry: float = 0.0, rz: float = 0.0):
+                       ry: float = 0.0, rz: float = 0.0,
+                       factors=NO_FACTORS, nodes=NO_NODES):
     """K1 forward on the card: (psi, lap) for CUDA tensors (float32,
-    float64, or bfloat16 through the bfloat16 build)."""
+    float64, or bfloat16 through the bfloat16 build). With ``factors`` the
+    instantiations with the excited-state epilogue, reading the per-point
+    ``nodes`` (c1, c2, n0)."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
     _cuda.check_inputs(hidden, weights, weight_shapes(hidden), pts)
     pts = [t.contiguous() for t in pts]
+    code = factor_code(factors)
+    nds = _node_inputs(factors, nodes, hidden, pts[0])
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
     lib = _lib("separable_fwd")
     dtype = pts[0].dtype
     _cuda.launch(lib, dtype, pts[0].device,
-                 (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
-                 ry, rz, extra_ints=(max(1, n_tiles(n, hidden, dtype)),))
-    launches[_cuda.launch_key("separable_fwd", dtype)] += 1
+                 (*pts, *nds, _cuda.pack(weights), psi, lap), n, hidden,
+                 p_sym, ry, rz,
+                 extra_ints=(max(1, n_tiles(n, hidden, dtype)), code))
+    launches[_cuda.launch_key(
+        "separable_fwd_ex" if code else "separable_fwd", dtype)] += 1
     return psi, lap
 
 
 def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
                        p_sym: int = 1, ry: float = 0.0, rz: float = 0.0,
-                       point_grads: bool = False):
+                       point_grads: bool = False, factors=NO_FACTORS,
+                       nodes=NO_NODES):
     """K1 backward on the card: (12 weight grads, da, db), and with
     ``point_grads`` also (dx, dy, dz, dr) from the kernel's point-gradient
-    instantiation. Each block writes one row of partial weight gradients,
-    summed in a fixed order (no atomics); the rows are summed here —
-    repeatable bit for bit. For bfloat16 tensors the rows are float32 and
-    their sums are rounded once to bfloat16."""
+    instantiation, or with ``factors`` (never both: the library refuses
+    the pair) also the nodes' (dc1, dc2, dn0), None where absent, from the
+    epilogue's. Each block writes one row of
+    partial weight gradients, summed in a fixed order (no atomics); the
+    rows are summed here — repeatable bit for bit. For bfloat16 tensors the
+    rows are float32 and their sums are rounded once to bfloat16."""
     hidden = weights[0].shape[1]
     pts = (x, y, z, r, a, b)
     shapes = weight_shapes(hidden)
     _cuda.check_inputs(hidden, weights, shapes, pts + (dpsi, dlap))
     pts = [t.contiguous() for t in pts]
+    code = factor_code(factors)
+    nds = _node_inputs(factors, nodes, hidden, pts[0])
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
     lib = _lib("separable_bwd")
@@ -464,16 +667,21 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
                            device=pts[0].device)
     da = torch.empty_like(pts[0])
     db = torch.empty_like(pts[0])
+    dnds = tuple(None if t is None else torch.empty_like(pts[0])
+                 for t in nds)
     dpts = tuple(torch.empty_like(pts[0]) if point_grads else None
                  for _ in range(4))
     _cuda.launch(lib, pts[0].dtype, pts[0].device,
-                 (*pts, _cuda.pack(weights), dpsi, dlap, da, db, partials,
-                  *dpts), n, hidden, p_sym, ry, rz,
-                 extra_ints=(grid, int(point_grads)))
-    launches[_cuda.launch_key(
-        "separable_bwd_pg" if point_grads else "separable_bwd", dtype)] += 1
+                 (*pts, *nds, _cuda.pack(weights), dpsi, dlap, da, db,
+                  *dnds, partials, *dpts), n, hidden, p_sym, ry, rz,
+                 extra_ints=(grid, int(point_grads), code))
+    key = ("separable_bwd_pg" if point_grads else
+           "separable_bwd_ex" if code else "separable_bwd")
+    launches[_cuda.launch_key(key, dtype)] += 1
     dws = tuple(g.reshape(s) for g, s in zip(
         torch.split(_cuda.sum_partials(partials, dtype), sizes), shapes))
+    if code:
+        return dws, da, db, dnds
     return (dws, da, db) + (dpts if point_grads else ())
 
 
@@ -482,17 +690,20 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
 
 
 class SeparableKernel(torch.autograd.Function):
-    """(psi, lap) = K1(a, b, x, y, z, r; weights) with its hand-written
-    backward. cfg = (p_sym, ry, rz, point_grads). Gradients flow to the 12
-    weights and to a, b; to the points x, y, z, r only with point_grads
-    (otherwise they are constants)."""
+    """(psi, lap) = K1(a, b, c1, c2, n0, x, y, z, r; weights) with its
+    hand-written backward. cfg = (p_sym, ry, rz, point_grads, factors);
+    the nodes c1, c2, n0 are None where ``factors`` has no such factor.
+    Gradients flow to the 12 weights, to a, b and the nodes; to the points
+    x, y, z, r only with point_grads (otherwise they are constants)."""
 
     @staticmethod
-    def forward(ctx, cfg, a, b, x, y, z, r, *weights):
-        p_sym, ry, rz, _ = cfg
+    def forward(ctx, cfg, a, b, c1, c2, n0, x, y, z, r, *weights):
+        p_sym, ry, rz, _, factors = cfg
         ctx.cfg = cfg
-        ctx.save_for_backward(a, b, x, y, z, r, *weights)
+        ctx.save_for_backward(a, b, c1, c2, n0, x, y, z, r, *weights)
         kw = dict(p_sym=p_sym, ry=ry, rz=rz)
+        if tuple(factors) != NO_FACTORS:
+            kw.update(factors=factors, nodes=(c1, c2, n0))
         if a.is_cuda:
             return separable_fwd_cuda(weights, a, b, x, y, z, r, **kw)
         return _cuda.plain_as_built(psi_lap_separable_plain, weights, a, b,
@@ -500,17 +711,25 @@ class SeparableKernel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dpsi, dlap):
-        a, b, x, y, z, r, *weights = ctx.saved_tensors
-        p_sym, ry, rz, point_grads = ctx.cfg
+        a, b, c1, c2, n0, x, y, z, r, *weights = ctx.saved_tensors
+        p_sym, ry, rz, point_grads, factors = ctx.cfg
         kw = dict(p_sym=p_sym, ry=ry, rz=rz, point_grads=point_grads)
+        ex = tuple(factors) != NO_FACTORS
+        if ex:
+            kw.update(factors=factors, nodes=(c1, c2, n0))
         if a.is_cuda:
             out = separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap,
                                      **kw)
         else:
             out = _cuda.plain_as_built(psi_lap_separable_vjp_plain, weights,
                                        a, b, x, y, z, r, dpsi, dlap, **kw)
+        if ex:
+            dws, da, db, dnodes = out
+            return (None, da, db, *dnodes, None, None, None, None) + \
+                tuple(dws)
         dws, da, db, *dpts = out
-        return (None, da, db, *(dpts or (None,) * 4)) + tuple(dws)
+        return (None, da, db, None, None, None,
+                *(dpts or (None,) * 4)) + tuple(dws)
 
 
 def kernel_weights(params: dict, dtype) -> tuple:
@@ -523,9 +742,9 @@ def kernel_weights(params: dict, dtype) -> tuple:
 
 def _refuse(params: dict, mcfg) -> None:
     """Raises NotImplementedError, on every device, for params that K1 does
-    not carry: the symmetric family's, and the models that
-    ``ansatz.kernel_unsupported_reason`` names (node factors, m_abs), whose
-    factors the kernel and its plain versions would drop."""
+    not carry: the symmetric family's. Every separable model passes
+    ``ansatz.kernel_unsupported_reason``; its excited-state factors run in
+    the kernels' epilogue (``factors``)."""
     if "lam1" not in params:
         raise NotImplementedError(
             "not separable params: the symmetric family's kernel is "
@@ -536,41 +755,66 @@ def _refuse(params: dict, mcfg) -> None:
             f"{reason}: such models take ansatz.psi_fwdlap")
 
 
+def factors(params: dict, mcfg) -> tuple:
+    """(radial nodes 0-2, angular node 0/1, m) of a separable model: the
+    node factors keyed by the params (legacy ``node*`` or ``rnode*``, then
+    ``rnodeb*``; ``enode*``), the transverse factor by the config's
+    ``m_abs``. (0, 0, 0) is the ground family."""
+    radial = ansatz.has_radial_node(params) + ("rnodeb1" in params)
+    return int(radial), int("enode1" in params), int(mcfg.m_abs)
+
+
 def separable_heads(params: dict, mcfg, r) -> tuple:
     """(alpha, b) at the R values ``r``: the R-only heads that K1 reads at
-    each point, differentiable in the params."""
+    each point, differentiable in the params. A model with node factors
+    adds its node heads (c1, c2, n0) = (R xi0(R), R xi0(R) + gap(R),
+    eta0^2(R)), None where it lacks the factor."""
     a = ansatz.orbital_exponent(params, r)
-    return a, ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a)
+    heads = (a, ansatz.gz_exponent(params, r, mcfg.inversion_symmetry, a))
+    n_rad, ang, _ = factors(params, mcfg)
+    if not (n_rad or ang):
+        return heads
+    c1 = r * ansatz.node_xi0(params, r) if n_rad else None
+    c2 = (r * ansatz.node_xi0(params, r) + ansatz.node_gap2(params, r)
+          if n_rad == 2 else None)
+    n0 = ansatz.node_eta0sq(params, r) if ang else None
+    return heads + (c1, c2, n0)
 
 
 def separable_psi_lap(params: dict, mcfg, heads, x, y, z, r,
                       point_grads: bool = False):
     """(psi, lap) of flat points through SeparableKernel, given the heads
     ``separable_heads`` at each point. Gradients flow to the weights and
-    through the heads; to x, y, z and r only with ``point_grads``."""
+    through the heads; to x, y, z and r only with ``point_grads``, which a
+    model with excited-state factors does not take."""
     _refuse(params, mcfg)
+    fac = factors(params, mcfg)
+    if point_grads and fac != NO_FACTORS:
+        raise NotImplementedError(
+            "point gradients of the excited-state factors: no recipe takes "
+            "them; such models take ansatz.psi_fwdlap")
     dtype = x.dtype
     if not point_grads:
         x, y, z, r = (t.detach() for t in (x, y, z, r))
     cfg = (int(mcfg.inversion_symmetry), float(mcfg.ry), float(mcfg.rz),
-           bool(point_grads))
-    return SeparableKernel.apply(cfg, *(h.to(dtype) for h in heads),
-                                 x, y, z, r, *kernel_weights(params, dtype))
+           bool(point_grads), fac)
+    a, b, *nodes = (None if h is None else h.to(dtype) for h in heads)
+    nodes = tuple(nodes) + (None,) * (3 - len(nodes))
+    return SeparableKernel.apply(cfg, a, b, *nodes, x, y, z, r,
+                                 *kernel_weights(params, dtype))
 
 
 def psi_lap_train_separable(params: dict, mcfg, x, y, z, r,
                             point_grads: bool = False):
     """(psi, lap, E) through the fused separable kernel. The R-only heads
-    (E, alpha, b) run at every point and differentiate in torch autograd;
-    the spatial network runs in the kernel through SeparableKernel, so
+    (E, alpha, b, and the node heads of an excited state) run at every
+    point and differentiate in torch autograd; the spatial network and the
+    excited-state factors run in the kernel through SeparableKernel, so
     autograd of any loss composes exactly. By default the point
     coordinates are constants (training treats the batch as data); with
     ``point_grads`` gradients flow to x, y, z and r too, r's through the
-    kernel and the heads.
-
-    Raises NotImplementedError, on every device, for the models that
-    ``ansatz.kernel_unsupported_reason`` names (node factors, m_abs): the
-    kernel and its plain versions would drop their factors."""
+    kernel and the heads (ground models only: with factors it raises
+    NotImplementedError)."""
     _refuse(params, mcfg)
     e = ansatz.energy(params, r)
     heads = separable_heads(params, mcfg, r)

@@ -2,20 +2,21 @@
 
 Decided from the params and the config before any launch, as the JAX
 package's ``loss_fn`` dispatches: the models that
-``ansatz.kernel_unsupported_reason`` names (the excited separable states,
-the minimal family, R-input models) through the forward-Laplacian pass
-``ansatz.psi_fwdlap`` on every device, separable params through K1
-(``ops.pallas_separable``), 2-input symmetric params through K2
-(``ops.pallas_train``). The trainers' losses and the scoring quotients all
+``ansatz.kernel_unsupported_reason`` names (the minimal family, R-input
+models) through the forward-Laplacian pass ``ansatz.psi_fwdlap`` on every
+device, separable params through K1 (``ops.pallas_separable``; the excited
+states' node and transverse factors in its factor epilogue), 2-input
+symmetric params through K2 (``ops.pallas_train``). The trainers' losses and the scoring quotients all
 come here; scoring alone sends reference-parity symmetric params to K3
 first (``analysis.energy.psi_lap_forward``).
 
 Two entries. ``psi_lap`` takes flat points, each with its own R, and
 evaluates the R-only heads at every point. ``psi_lap_rows`` takes rows of
 points that share one R a row (the quotient's batches) and evaluates the
-heads once a row, broadcasting their values to the points; it leaves E(R)
-out, which the quotient evaluates on the rows itself. The models that no
-kernel carries take ``ansatz.psi_fwdlap`` at every point from both.
+heads once a row (K1's node heads too), broadcasting their values to the
+points; it leaves E(R) out, which the quotient evaluates on the rows
+itself. The models that no kernel carries take ``ansatz.psi_fwdlap`` at
+every point from both.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ def _per_point(v, n_pts: int):
 def psi_lap_rows(params: dict, mcfg, x, y, z, r):
     """Flat (psi, lap psi) of the (n_r, n_pts) points ``x``, ``y``, ``z``
     whose row i lies at R = ``r[i]``, differentiable in the params; no E.
-    The kernels' R-only heads (alpha, b, and K2's gate) run on the n_r
-    values of ``r``, and so do their backward passes. The models that no
+    The kernels' R-only heads (alpha, b, K1's node heads and K2's gate)
+    run on the n_r values of ``r``, and so do their backward passes. The models that no
     kernel carries take ``ansatz.psi_fwdlap`` at every point, their
     network reading R."""
     n_r, n_pts = x.shape
@@ -73,5 +74,6 @@ def psi_lap_rows(params: dict, mcfg, x, y, z, r):
     head_evals["rows"] += n_r
     heads, kernel = ((separable_heads, separable_psi_lap) if "lam1" in params
                      else (train_heads, train_psi_lap))
-    per_point = tuple(_per_point(h, n_pts) for h in heads(params, mcfg, r))
+    per_point = tuple(None if h is None else _per_point(h, n_pts)
+                      for h in heads(params, mcfg, r))
     return kernel(params, mcfg, per_point, x, y, z, r_pts)

@@ -34,10 +34,18 @@ A graph holds the marks of the tracing state it was captured under: when
 the state differs at a call, the graph is released and captured again, once,
 so the steps of one process run without marks while tracing is off and with
 them while it is on.
+
+Python's cyclic collector is paused while a graph is captured: a trainer
+and its ``StepGraph`` form a cycle, so an earlier trainer's graph is freed
+by a collection, and one run inside a capture would destroy that graph
+there, which ends the capture (``cudaErrorStreamCaptureInvalidated``).
+torch's ``cuda.graph`` no longer collects before it captures.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable
 
 import torch
@@ -50,6 +58,19 @@ from ..utils import profiling
 COUNTERS = (pallas_separable.launches, pallas_train.launches,
             pallas_residual.launches, routing.head_evals,
             routing.fwdlap_points)
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """No cyclic collection inside the block (the collector as it was
+    after)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def keep(static, value):
@@ -149,11 +170,11 @@ class StepGraph:
 
     def record(self):
         """One call of ``fn`` captured as a CUDA graph on the side stream,
-        with the generators registered. Capturing runs nothing: the replay
-        that follows is the step."""
+        with the generators registered and the cyclic collector paused.
+        Capturing runs nothing: the replay that follows is the step."""
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=self.stream):
+        with gc_paused(), torch.cuda.graph(graph, stream=self.stream):
             self._run()
         return graph

@@ -13,9 +13,9 @@ get the global loss. psi, lap psi and E come from ``ops.routing.psi_lap``,
 keyed by the params and the config as the JAX package's ``loss_fn``
 dispatches: separable params through K1, 2-input symmetric params through
 K2, so that on the card every loss launches a forward kernel and every
-gradient a backward kernel; the models no kernel carries (the minimal
-family, R-input models, the excited states) through the forward-Laplacian
-pass.
+gradient a backward kernel (the excited separable states through K1's
+factor epilogue); the models no kernel carries (the minimal family,
+R-input models) through the forward-Laplacian pass.
 """
 
 from __future__ import annotations

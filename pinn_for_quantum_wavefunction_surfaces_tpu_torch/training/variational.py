@@ -17,12 +17,13 @@ their mean plus an MSE term fitting the E(R) head. Three trainers:
 psi and lap psi come from ``ops.routing.psi_lap_rows``, keyed by the params
 and the config, the kernels' R-only heads evaluated once an R row:
 separable params through the fused kernel K1
-(ops/pallas_separable.py), 2-input symmetric params through K2
-(ops/pallas_train.py), so that on the card every loss evaluation launches
-a forward kernel and every gradient a backward kernel; the models no
-kernel carries (node factors, m_abs, the minimal family, R-input models)
-through the forward-Laplacian pass ``ansatz.psi_fwdlap``, as in the JAX
-package. The JAX package's quotient takes the forward-Laplacian pass for
+(ops/pallas_separable.py; the excited states' node and m_abs factors in
+its factor epilogue, where the JAX package takes the forward-Laplacian
+pass), 2-input symmetric params through K2 (ops/pallas_train.py), so that
+on the card every loss evaluation launches a forward kernel and every
+gradient a backward kernel; the models no kernel carries (the minimal
+family, R-input models) through the forward-Laplacian pass
+``ansatz.psi_fwdlap``, as in the JAX package. The JAX package's quotient takes the forward-Laplacian pass for
 symmetric params; K2 computes the same function.
 
 Excited states that are not the lowest of their sector are reached by

@@ -579,6 +579,6 @@ def test_chip_smoke_bfloat16_constants():
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
            "loads\n"
            "ptxas info    : Used 160 registers, used 1 barriers\n")
-    (entry,) = chip_smoke.ptxas_entries(log)
+    (entry,) = chip_smoke.ptxas_entries("train_fwd", log)
     assert (entry["dtype"], entry["h"], entry["pg"], entry["registers"]) \
         == ("bfloat16", 16, False, 160)

@@ -1,6 +1,6 @@
 """Excited sigma states in the port against the JAX package: the radial and
 angular node factors of the separable family (tests/test_excited.py's
-families), the kernel guard that keeps them off K1, penalty deflation
+families), their route through K1's factor epilogue, penalty deflation
 against frozen references, the 17 shipped excited artifacts' goldens, and
 ``cli variational --deflate`` / ``cli evaluate --contam-vs``.
 
@@ -211,50 +211,52 @@ def spy_on(monkeypatch, module, names, calls):
 
 
 ROUTING_CASES = {
-    "ground": (dict(), "psi_lap_train_separable"),
-    "rnode": (dict(xi_node=True), "psi_fwdlap"),
-    "eta_node": (dict(eta_node=True), "psi_fwdlap"),
-    "m_abs": (dict(m_abs=1), "psi_fwdlap"),
+    "ground": dict(),
+    "rnode": dict(xi_node=True),
+    "eta_node": dict(eta_node=True),
+    "m_abs": dict(m_abs=1),
 }
 
 
 @pytest.mark.parametrize("case", list(ROUTING_CASES))
 def test_kernel_guard_and_routing(case, monkeypatch):
-    """The guard is keyed as the JAX package's pallas_unsupported_reason
-    (m_abs by the config, node factors by the params). Guarded models
-    raise on the K1 wrapper, on the CPU as on the card; psi_lap_forward,
-    quotient_loss and reference_state_on_batch send them to psi_fwdlap and
-    ground params to the K1 wrapper (the quotients' rows to its kernel
-    part, the heads once a row); so does the deflated loss."""
-    factors, want = ROUTING_CASES[case]
-    mcfg, tm, params = excited_model(hidden=4, **factors)
+    """The port's guard passes every separable model: K1 carries the node
+    and transverse factors in its factor epilogue, where the JAX package's
+    pallas_unsupported_reason (m_abs by the config, node factors by the
+    params) keeps them off its Pallas kernel, a deliberate difference.
+    psi_lap_forward and reference_state_on_batch send every separable model
+    to the K1 wrapper, quotient_loss and the deflated loss to its kernel
+    part (the quotients' rows, the heads once a row), and none to
+    psi_fwdlap; the values equal the forward-Laplacian pass's."""
+    mcfg, tm, params = excited_model(hidden=4, **ROUTING_CASES[case])
     tp = tans.from_jax_params(params, device="cpu")
-    guarded = jlosses.pallas_unsupported_reason(params, mcfg) is not None
-    assert (tans.kernel_unsupported_reason(tp, tm) is not None) == guarded
-    assert guarded == (want == "psi_fwdlap")
+    jax_guarded = jlosses.pallas_unsupported_reason(params, mcfg) is not None
+    assert jax_guarded == (case != "ground")
+    assert tans.kernel_unsupported_reason(tp, tm) is None
     x, y, z, r = as_t(*points48(8))
-    if guarded:
-        with pytest.raises(NotImplementedError, match="psi_fwdlap"):
-            tps.psi_lap_train_separable(tp, tm, x, y, z, r)
     calls = []
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
     spy_on(monkeypatch, trt, ["psi_lap_train_separable",
                               "separable_psi_lap"], calls)
     psi, lap = ten.psi_lap_forward(tp, tm, x, y, z, r)
-    assert calls == [want] and psi.shape == lap.shape == x.shape
+    assert calls == ["psi_lap_train_separable"]
+    assert psi.shape == lap.shape == x.shape
+    calls.clear()
+    s, _ = tans.psi_fwdlap(tp, tm, x, y, z, r)
+    close(psi.numpy(), s.v[..., 0].numpy(), 1e-12, 1e-14)
+    close(lap.numpy(), s.l[..., 0].numpy(), 1e-10, 1e-12)
     tc = tcfg.Config(model=tm, dtype="float64")
     vb = tvar.spheroidal_vbatch(tc, n_r=2, n_xi=6, n_eta=4, device="cpu")
     # the quotients' rows: K1 with its heads once a row
-    rows = "separable_psi_lap" if want != "psi_fwdlap" else want
     calls.clear()
     tvar.quotient_loss(tp, tc, vb)
-    assert calls == [rows]
+    assert calls == ["separable_psi_lap"]
     calls.clear()
     psi0, hpsi0 = tvar.reference_state_on_batch(tp, tc, vb)
-    assert calls == [want] and not psi0.requires_grad
+    assert calls == ["psi_lap_train_separable"] and not psi0.requires_grad
     calls.clear()
     tvar.quotient_loss_deflated(tp, tc, vb, psi0, hpsi0)
-    assert calls == [rows]
+    assert calls == ["separable_psi_lap"]
 
 
 # the references of make excited-3ssg, in its order: k of them target the

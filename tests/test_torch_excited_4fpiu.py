@@ -8,7 +8,8 @@ H 16 as the configuration has it.
 - psi and lap psi of the 4f pi_u family (transverse factor y, angular node,
   wide alpha) and of both reference families (2p pi_u; 3p pi_u, a radial
   node), on seeded weights and as shipped, through the quotient's route
-  (``routing.psi_lap_rows``: the forward-Laplacian pass): within 1e-12 of
+  (``routing.psi_lap_rows``: K1's CPU path with its factor epilogue, the
+  heads once a row): within 1e-12 of
   the largest |value| (psi and lap psi vanish on the nodes, so a pointwise
   relative tolerance is no test there);
 - the deflated objective (``variational.polish_objective`` against the two
@@ -25,10 +26,10 @@ H 16 as the configuration has it.
   correct;
 - the tracing: a deflated step's phases are forward, deflate, backward and
   update in that order, the flagship's step has no deflate phase;
-  ``routing.fwdlap_points`` counts rows x points a deflated step (a
-  captured step's replays too) and nothing a K1 step, which counts its
-  rows in ``head_evals`` as before; ``pinn.references`` spans the
-  references' rows;
+  ``routing.fwdlap_points`` counts nothing a step, deflated or not (the
+  excited family takes K1), and ``head_evals`` counts its rows, a
+  captured step's replays too; ``pinn.references`` spans the references'
+  rows, which go through K1 at every point (the flat entry);
 - ``polish_spheroidal`` through ``polish_objective`` takes the same steps,
   bit for bit, as the objective wired by hand, with and without
   references.
@@ -129,7 +130,7 @@ CASES = [(f, None) for f in FAMILIES] + [(f, i) for f, i in SHIPPED.items()]
 def test_psi_and_lap_match_the_reference(family, ref):
     cfg = config(**FAMILIES[family])
     params = seeded(cfg) if ref is None else shipped()[ref]
-    assert tans.kernel_unsupported_reason(params, cfg.model) is not None
+    assert tans.kernel_unsupported_reason(params, cfg.model) is None
     vb = batch(cfg)
     psi, lap = port_rows(params, cfg, vb)
     want_psi, want_lap = excited.psi_lap(params, *flat_points(vb),
@@ -338,37 +339,31 @@ def test_fwdlap_points_count_a_step_and_its_replays(deflate):
     n_r, n_pts = vb.x.shape
     fw, heads = dict(trt.fwdlap_points), dict(trt.head_evals)
     warm.advance()
-    assert trt.fwdlap_points["psi_lap"] == fw["psi_lap"]
-    if deflate:
-        assert trt.fwdlap_points["psi_lap_rows"] == \
-            fw["psi_lap_rows"] + n_r * n_pts
-        assert trt.head_evals == heads
-    else:
-        assert trt.fwdlap_points == fw
-        assert trt.head_evals["rows"] == heads["rows"] + n_r
+    assert trt.fwdlap_points == fw
+    assert trt.head_evals == {"rows": heads["rows"] + n_r,
+                              "points": heads["points"]}
     # captured: one eager step, a capture, then replays of nothing
     warm._step = Recording(warm._eval_and_update, capture=True)
     fw, heads = dict(trt.fwdlap_points), dict(trt.head_evals)
     for _ in range(4):
         warm.advance()
-    assert trt.fwdlap_points["psi_lap_rows"] == \
-        fw["psi_lap_rows"] + (4 * n_r * n_pts if deflate else 0)
-    assert trt.head_evals["rows"] == heads["rows"] + (0 if deflate
-                                                      else 4 * n_r)
+    assert trt.fwdlap_points == fw
+    assert trt.head_evals["rows"] == heads["rows"] + 4 * n_r
 
 
 def test_the_references_rows_are_counted_and_spanned(tracing_off):
     cfg = config()
     vb = batch(cfg)
-    fw = dict(trt.fwdlap_points)
+    fw, heads = dict(trt.fwdlap_points), dict(trt.head_evals)
     profiling.enable(True)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tvar.polish_objective(cfg, vb, shipped())
     names = [e.name for e in prof.events()
              if e.name.startswith(profiling.SPAN)]
     assert names == ["pinn.references"]
-    # both references (kernel-less: the transverse factor) at every point
-    assert trt.fwdlap_points["psi_lap"] == fw["psi_lap"] + 2 * vb.x.numel()
+    # both references through K1's factor epilogue, heads at every point
+    assert trt.fwdlap_points == fw
+    assert trt.head_evals["points"] == heads["points"] + 2 * vb.x.numel()
 
 
 def hand_wired(params, cfg, deflate, n_r, n_xi, n_eta, adam, lbfgs):

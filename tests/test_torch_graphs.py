@@ -9,7 +9,8 @@ CUDA graph capture needs of them, and what the capture helper does
 - ``StepGraph``: the first call eager, the second captures and replays,
   every later call replays; the launch counts gain the capture's launches
   once a replay (a stub graph); a capture that raises propagates, with no
-  eager step in its place; ``captures`` decides the route.
+  eager step in its place; a capture runs with the cyclic collector
+  paused; ``captures`` decides the route.
 - A run whose captures are stubs that replay the recorded step on the CPU
   equals the eager run bit for bit (``train``, ``finetune``,
   ``train_variational``, ``_adam_minimize``), with one replay a step after
@@ -23,7 +24,9 @@ CUDA graph capture needs of them, and what the capture helper does
 
 torch runs on one thread (see test_torch_excited.py)."""
 
+import contextlib
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -223,6 +226,36 @@ def test_step_graph_raises_a_failed_capture_and_runs_nothing_eager():
         with pytest.raises(RuntimeError, match="capturing"):
             step()
     assert calls == [1] and step.graph is None
+
+
+def test_step_graph_captures_with_the_cyclic_collector_paused(monkeypatch):
+    # an earlier trainer's graph freed by a collection inside a capture
+    # would end the capture on the card; record() pauses the collector
+    seen = []
+
+    class Graph:
+        def register_generator_state(self, gen):
+            pass
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None):
+        seen.append(("enter", gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    step = graphs.StepGraph(lambda: seen.append(("fn", gc.isenabled())),
+                            capture=True, counters=())
+    step._stream = object()
+    assert gc.isenabled()
+    assert isinstance(step.record(), Graph)
+    assert seen == [("enter", False), ("fn", False)] and gc.isenabled()
+    gc.disable()
+    try:
+        step.record()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 def test_step_graph_without_capture_runs_every_call_eagerly():

@@ -180,16 +180,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="hidden=5"):
         tps.separable_fwd_cuda(ws5, a5, b5, *as_t(*pts))
     assert tps.launches == {k + sfx: 0 for sfx in ("", "_bf16") for k in (
-        "separable_fwd", "separable_bwd", "separable_bwd_pg")}
+        "separable_fwd", "separable_bwd", "separable_bwd_pg",
+        "separable_fwd_ex", "separable_bwd_ex")}
 
 
 @pytest.mark.parametrize("family", ["xi_node", "eta_node", "m_abs",
                                     "symmetric"])
 def test_unported_families_raise(family):
-    """The separable kernel refuses the node factors and m_abs on every
-    device (it would drop their factors), and the symmetric family (here an
-    R-input model) never goes through it; their fwdlap path and init run in
-    the port."""
+    """The separable kernel carries the node factors and m_abs (its factor
+    epilogue) and refuses only their point gradients, which no recipe
+    takes, on every device; the symmetric family (here an R-input model)
+    never goes through it. The families' fwdlap path and init run in the
+    port, and K1's CPU path equals the fwdlap pass."""
     kw = {"xi_node": dict(xi_node=True), "eta_node": dict(eta_node=True),
           "m_abs": dict(m_abs=1), "symmetric": dict(r_input=True)}[family]
     arch = "symmetric" if family == "symmetric" else "separable"
@@ -199,10 +201,24 @@ def test_unported_families_raise(family):
     tm = tcfg.ModelConfig(arch=arch, hidden=4, **kw)
     tp = tans.from_jax_params(params, device="cpu")
     x = torch.ones(8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tps.psi_lap_train_separable(tp, tm, x, x, x, x)
     s, _ = tans.psi_fwdlap(tp, tm, x, x, x, x)
     assert bool(torch.isfinite(s.l).all())
+    if family == "symmetric":
+        with pytest.raises(NotImplementedError):
+            tps.psi_lap_train_separable(tp, tm, x, x, x, x)
+    else:
+        with pytest.raises(NotImplementedError, match="psi_fwdlap"):
+            tps.psi_lap_train_separable(tp, tm, x, x, x, x,
+                                        point_grads=True)
+        pts = as_t(*points(32))
+        psi, lap, _ = tps.psi_lap_train_separable(tp, tm, *pts)
+        s, _ = tans.psi_fwdlap(tp, tm, *pts)
+        np.testing.assert_allclose(psi.detach().numpy(),
+                                   s.v[..., 0].detach().numpy(), rtol=1e-12,
+                                   atol=1e-14)
+        np.testing.assert_allclose(lap.detach().numpy(),
+                                   s.l[..., 0].detach().numpy(), rtol=1e-10,
+                                   atol=1e-12)
     assert sorted(tans.init_params(tm, seed=0, device="cpu")) == \
         sorted(params)
 

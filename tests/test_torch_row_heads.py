@@ -24,6 +24,8 @@ from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config as tcfg
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
     ansatz as tans
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+    pallas_separable as tps
+from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
     routing as trt
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
     variational as tvar
@@ -147,22 +149,41 @@ def test_rows_equal_the_flat_composition(family, p_sym, dtype, monkeypatch):
 
 
 def test_excited_separable_takes_the_forward_laplacian_pass(monkeypatch):
-    """A radial-node state: no kernel carries it, so the quotient's rows go
-    through ansatz.psi_fwdlap at every point, R an input of its network."""
+    """A radial-node state: K1 carries it (its factor epilogue), so the
+    quotient's rows go through K1's kernel part with the heads, the node
+    head among them, once a row, and no point through ansatz.psi_fwdlap:
+    bit for bit K1's plain path with the rows' heads broadcast, and within
+    1e-12 of the forward-Laplacian pass, the plain reference."""
     cfg, params = model("separable", 1, "float64", xi_node=True)
-    assert tans.kernel_unsupported_reason(params, cfg.model) is not None
+    assert tans.kernel_unsupported_reason(params, cfg.model) is None
     vb = batch(cfg)
     calls = []
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
     spy_on(monkeypatch, trt, ["separable_psi_lap", "train_psi_lap",
                               "psi_lap_train_separable"], calls)
     before = dict(trt.head_evals)
+    fw = dict(trt.fwdlap_points)
     psi, hpsi = tvar._psi_hpsi_rows(params, cfg, vb)
-    assert calls == ["psi_fwdlap"]
-    assert trt.head_evals == before
+    assert calls == ["separable_psi_lap"]
+    assert trt.head_evals == {"rows": before["rows"] + vb.r.numel(),
+                              "points": before["points"]}
+    assert trt.fwdlap_points == fw
     n_r, n_pts = vb.x.shape
     rr = vb.r[:, None].expand(n_r, n_pts).reshape(-1)
-    s, _ = tans.psi_fwdlap(params, cfg.model, vb.x.reshape(-1),
-                           vb.y.reshape(-1), vb.z.reshape(-1), rr)
+    flat = [t.reshape(-1) for t in (vb.x, vb.y, vb.z)]
+    # bit for bit the plain K1 path with the rows' heads broadcast
+    a, b, *nodes = (None if h is None else
+                    h[:, None].expand(n_r, n_pts).reshape(-1)
+                    for h in tps.separable_heads(params, cfg.model, vb.r))
+    with torch.no_grad():
+        k_psi, k_lap = tps.psi_lap_separable_plain(
+            tps.kernel_weights(params, vb.x.dtype), a, b, *flat, rr,
+            p_sym=cfg.model.inversion_symmetry,
+            factors=tps.factors(params, cfg.model), nodes=tuple(nodes))
+    k_psi, k_hpsi = tvar._hpsi(cfg, vb, k_psi, k_lap)
+    assert torch.equal(psi, k_psi) and torch.equal(hpsi, k_hpsi)
+    # and the forward-Laplacian pass, the plain reference
+    s, _ = tans.psi_fwdlap(params, cfg.model, *flat, rr)
     want_psi, want_hpsi = tvar._hpsi(cfg, vb, s.v[..., 0], s.l[..., 0])
-    assert torch.equal(psi, want_psi) and torch.equal(hpsi, want_hpsi)
+    assert_close(psi, want_psi, 1e-12, "psi")
+    assert_close(hpsi, want_hpsi, 1e-12, "hpsi")
