@@ -5497,7 +5497,7 @@ def main() -> int:
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
         ansatz
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
-        _build
+        _build, _cuda
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
         pallas_residual as k3
     from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
@@ -5560,27 +5560,26 @@ def main() -> int:
     if k1_spilled:
         raise AssertionError(f"K1 float32/bfloat16 spills at H <= 16: "
                              f"{k1_spilled}")
-    for mod, name, pg in ((ks, "separable_fwd", False),
-                          (ks, "separable_bwd", False),
-                          (ks, "separable_bwd", True),
-                          (kt, "train_fwd", False), (kt, "train_bwd", False),
-                          (kt, "train_bwd", True)):
+    for name, pg in (("separable_fwd", False), ("separable_bwd", False),
+                     ("separable_bwd", True), ("train_fwd", False),
+                     ("train_bwd", False), ("train_bwd", True)):
         for dt in (torch.float64, torch.float32, torch.bfloat16):
-            threads = mod.threads(dt)
-            for h in mod.SUPPORTED_HIDDEN:
-                blocks, smem = mod.occupancy(name, h, dt, pg)
+            threads = _cuda.threads(dt)
+            for h in _cuda.SUPPORTED_HIDDEN:
+                blocks, smem = _cuda.occupancy(name, h, dt, pg)
                 print(f"  {name}{' PG' if pg else ''} {str(dt)[6:]} H={h}: "
                       f"{smem} B shared memory a block of {threads} "
                       f"threads, {blocks} resident blocks per SM "
                       f"({blocks * threads // 32} warps)")
     for dt in (torch.float64, torch.float32, torch.bfloat16):
-        for h in k3.SUPPORTED_HIDDEN:
+        for h in _cuda.SUPPORTED_HIDDEN:
             for hg in K3_GATE_WIDTHS:
-                blocks, smem = k3.occupancy(h, hg, dt)
+                blocks, smem = _cuda.occupancy("residual_fwd", h, dt,
+                                               hidden_gate=hg)
                 print(f"  residual_fwd {str(dt)[6:]} H={h} Hg={hg}: {smem} B "
-                      f"shared memory a block of {k3.threads(dt)} threads, "
-                      f"{blocks} resident blocks per SM "
-                      f"({blocks * k3.threads(dt) // 32} warps)")
+                      f"shared memory a block of {_cuda.threads(dt)} "
+                      f"threads, {blocks} resident blocks per SM "
+                      f"({blocks * _cuda.threads(dt) // 32} warps)")
     sys.stdout.flush()
 
     if multi:

@@ -12,18 +12,10 @@ on three grids: the uniform n^3 Simpson grid of the reference
 (``rayleigh_quotient_spheroidal``); ``rayleigh_quotient_sharded`` splits
 the Cartesian grids' x axis over the ranks of a mesh.
 
-psi and lap psi come from ``psi_lap_forward``, keyed by the params and the
-config as the JAX package's ``ansatz.psi_fwdlap`` is, and forward only:
-separable params go through K1 (``ops.pallas_separable``; the excited
-states' node and m_abs factors in its factor epilogue), reference-parity
-symmetric params through K3 (``ops.pallas_residual``), symmetric params with
-alpha/GZ heads through K2 (``ops.pallas_train``). On CUDA tensors every
-model quotient runs through a Hopper kernel, but for the models that
-``ansatz.kernel_unsupported_reason`` names: the minimal family and R-input
-models. No kernel carries them, in the JAX package or here, so they take
-the plain forward-Laplacian pass ``ansatz.psi_fwdlap`` on every device. The minimal
-family is told from the reference-parity model by the config alone (the
-two have the same params tree), so that check comes first.
+psi and lap psi come from ``ops.routing.psi_lap_forward``, forward only,
+keyed by the params and the config as the JAX package's
+``ansatz.psi_fwdlap`` is: ``routing.kernel_of`` decides which kernel, if
+any, carries the model.
 
 The Cartesian grids are evaluated in groups of whole x-slabs, up to
 ``CHUNK_POINTS`` points a launch (the 80^3 grid in one), and summed in the
@@ -42,24 +34,10 @@ import torch
 from ..config import Config
 from ..models import ansatz
 from ..ops import operators, quadrature, routing
-from ..ops.pallas_residual import is_reference_parity, psi_lap_pallas
 
 # points a kernel launch of the Cartesian grids takes at most: whole
 # x-slabs up to this count (80^3 = 512 000 in one launch; 250^3 in four)
 CHUNK_POINTS = 1 << 22
-
-
-def psi_lap_forward(params: dict, mcfg, x, y, z, r):
-    """(psi, lap psi) of flat point arrays, forward only: reference-parity
-    symmetric params (no alpha/beta heads) that the kernel guard passes ->
-    K3, the rest along ``routing.psi_lap`` (the guarded models through
-    ``ansatz.psi_fwdlap``, separable -> K1-fwd, symmetric with GZ or
-    alpha -> K2-fwd)."""
-    with torch.no_grad():
-        if ansatz.kernel_unsupported_reason(params, mcfg) is None and \
-                is_reference_parity(params):
-            return psi_lap_pallas(params, mcfg, x, y, z, r)
-        return routing.psi_lap(params, mcfg, x, y, z, r)[:2]
 
 
 def lcao_fwdlap(mcfg, x, y, z, r):
@@ -84,7 +62,7 @@ def _psi_hpsi(params, cfg: Config, x, y, z, r, which: str):
     if which == "lcao":
         psi, lap = lcao_fwdlap(cfg.model, x, y, z, r)
     elif which == "model":
-        psi, lap = psi_lap_forward(params, cfg.model, x, y, z, r)
+        psi, lap = routing.psi_lap_forward(params, cfg.model, x, y, z, r)
     else:
         raise ValueError(f"unknown quotient {which!r}: 'model' or 'lcao'")
     return psi, operators.hamiltonian_values(cfg.model, x, y, z, r, psi, lap)

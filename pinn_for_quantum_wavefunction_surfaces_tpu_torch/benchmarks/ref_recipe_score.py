@@ -8,7 +8,7 @@ ODE oracle on the 96 x 96 prolate-spheroidal grid (``analysis.energy
 .surface(..., lcao=False, grid="spheroidal")``, float64) and prints one
 JSON line per seed with the JAX script's keys. The checkpoints hold
 reference-parity params, so on the card every model quotient runs through
-K3 (``csrc/residual_fwd.cu``, ``energy.psi_lap_forward``).
+K3 (``csrc/residual_fwd.cu``, ``routing.psi_lap_forward``).
 
     python -m pinn_for_quantum_wavefunction_surfaces_tpu_torch.benchmarks.\\
 ref_recipe_score [--device cpu]

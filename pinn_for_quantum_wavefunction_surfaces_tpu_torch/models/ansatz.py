@@ -334,26 +334,6 @@ def has_radial_node(params: dict) -> bool:
 LOG_CORR_CAP = 3.0
 
 
-def kernel_unsupported_reason(params: dict, mcfg: ModelConfig) -> str | None:
-    """Why no kernel of the port carries this model, or None. K1
-    (ops/pallas_separable.py) carries the whole separable family: its
-    excited-state factors (the radial and angular nodes, keyed by the
-    params; the m_abs transverse factor, keyed by the config) run in the
-    kernels' factor epilogue. K2 (ops/pallas_train.py) carries the
-    symmetric family with a 2-input ``h1``, not the minimal family (keyed by
-    the config: its params have the symmetric tree) nor R-input models
-    (keyed by the weight shape). The minimal and R-input models take the
-    forward-Laplacian path (``psi_fwdlap``) on every device. The JAX
-    package's ``losses.pallas_unsupported_reason`` also names the separable
-    models with factors: its Pallas kernel has no such epilogue."""
-    if "lam1" not in params:
-        if mcfg.arch == "minimal":
-            return "no kernel implements the minimal family"
-        if params["h1"]["w"].shape[0] != 2:
-            return "no kernel implements R-input (r_input) models"
-    return None
-
-
 # ---------------------------------------------------------------------------
 # Forward passes
 
@@ -402,8 +382,9 @@ def transverse_harmonic(m: int, y, z):
     """Re[(y + i z)^m], the transverse factor of an |m| state (molecular
     axis along x): y for pi, y^2 - z^2 for delta. Inversion-odd iff m is
     odd. Returns (value, d/dy, d/dz); its laplacian is zero (a harmonic
-    polynomial). K1's plain versions and its factor epilogue use the same
-    recurrences (ops/pallas_separable.py, csrc/separable.cuh)."""
+    polynomial). The separable kernel's plain versions and its factor
+    epilogue use the same recurrences (ops/pallas_separable.py,
+    csrc/separable.cuh)."""
     re, im = y, z
     for _ in range(m - 1):
         re, im = re * y - im * z, re * z + im * y
@@ -607,11 +588,8 @@ def _psi_symmetric_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
 def psi_fwdlap(params: dict, mcfg: ModelConfig, x, y, z, r):
     """Fused pass returning (Spatial(psi), E): psi, grad psi and lap psi in
     one forward traversal, for every family: the path, on every device, of
-    the models that ``kernel_unsupported_reason`` keeps off the kernels
-    (the minimal family, R-input models) and the plain reference of the
-    others, whose training path is
-    ops.pallas_separable.psi_lap_train_separable (separable, excited states
-    included) or ops.pallas_train.psi_lap_train (symmetric)."""
+    the models that no kernel carries, and the plain reference of the
+    others (``ops.routing.kernel_of`` decides which are which)."""
     if "lam1" in params:
         return _psi_separable_fwdlap(params, mcfg, x, y, z, r)
     return _psi_symmetric_fwdlap(params, mcfg, x, y, z, r)

@@ -1,5 +1,10 @@
-"""What the CUDA kernel wrappers share: input checks, pointers, weight
-packing and the typed ctypes entry points of a built library.
+"""What the CUDA kernel wrappers of K1, K2 and K3 share: the dispatch
+between a kernel and its plain version (``as_built``), input checks,
+pointers, weight packing, the typed ctypes entry points of a built library,
+the launch layout (threads, tiles, grids, occupancy) and the backward
+launches' rows of partial weight gradients. Each wrapper keeps what is its
+own: weight shapes and packing, ``points_per_tile``, the plain versions,
+the argument lists of its entry points and its ``launches`` counts.
 
 Each kernel library (``ops/_build.py``) exports ``<name>_f32``,
 ``<name>_f64`` and ``<name>_bf16`` with a plain C interface (device
@@ -25,6 +30,38 @@ MAX_POINTS = 2 ** 31 - 1024   # point index blockIdx.x * blockDim.x + tid
 # code of the libraries' queries (csrc/common.cuh kern::TypeCode)
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 TYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+# The kernels' work layout by type: float64 blocks of 256 threads walk
+# tiles (their H x H products on the tensor cores); float32 blocks of 128
+# threads take one point a thread, and bfloat16 runs the float32 kernels on
+# bfloat16 tensors. Each wrapper's ``points_per_tile(hidden, dtype)`` says
+# how many points a tile holds. A backward kernel's grid is capped at the
+# resident blocks per SM its __launch_bounds__ asks for times the H100's
+# 132 SMs, so one wave.
+GRID_BLOCKS_PER_SM = {torch.float64: 2, torch.float32: 3, torch.bfloat16: 3}
+N_SM = 132
+
+
+def threads(dtype) -> int:
+    """Threads a block of any kernel: 256 on float64 tiles, 128 in float32
+    and bfloat16."""
+    return 256 if dtype == torch.float64 else 128
+
+
+def n_tiles(n: int, per: int) -> int:
+    """Tiles of ``per`` points (the wrapper's ``points_per_tile``) that
+    hold n points; the last one is padded."""
+    return -(-n // per)
+
+
+def grid_blocks(n: int, per: int, dtype) -> int:
+    """Blocks of a backward launch on tiles of ``per`` points: one a tile,
+    at most GRID_BLOCKS_PER_SM * N_SM; each block walks the tiles blockIdx,
+    blockIdx + grid, ... in order. The count depends on n, the tile and the
+    dtype alone, so the rows of partial weight gradients (one a block),
+    their order, and so the bits do too. A forward kernel sums nothing
+    across points and takes one block a tile."""
+    return max(1, min(n_tiles(n, per), GRID_BLOCKS_PER_SM[dtype] * N_SM))
 
 
 def check_inputs(hidden, ws, shapes, pts):
@@ -75,14 +112,18 @@ def _map_tensors(fn, obj):
     return obj
 
 
-def plain_as_built(plain, *args, **kw):
-    """``plain(*args, **kw)`` in the type semantics of the kernel build
-    that takes these tensors, the CPU route of a kernel wrapper: on
-    bfloat16 tensors (the points, after the weights) the plain version's
-    float32 arithmetic on their values, each output rounded once to
-    bfloat16 (as the bfloat16 builds do, csrc/common.cuh); on float32 and
-    float64 tensors the plain version itself. Tensors among the keywords
-    (the excited-state nodes) are widened as the points are."""
+def as_built(cuda, plain, *args, **kw):
+    """A kernel wrapper's dispatch on the device of its tensors (the
+    points, after the weights): ``cuda(*args, **kw)`` launches the kernel
+    on CUDA tensors (or raises); on CPU tensors ``plain(*args, **kw)`` runs
+    in the type semantics of the kernel build that would take them. On
+    bfloat16 tensors that is the plain version's float32 arithmetic on
+    their values, each output rounded once to bfloat16 (as the bfloat16
+    builds do, csrc/common.cuh); on float32 and float64 tensors the plain
+    version itself. Tensors among the keywords (the excited-state nodes)
+    are widened as the points are. There is no fallback between the two."""
+    if args[1].is_cuda:
+        return cuda(*args, **kw)
     if args[1].dtype != torch.bfloat16:
         return plain(*args, **kw)
     out = plain(*_map_tensors(lambda t: t.float(), args),
@@ -104,6 +145,25 @@ def sum_partials(partials, dtype) -> torch.Tensor:
     return partials.sum(0).to(dtype)
 
 
+def partial_rows(grid: int, shapes, like) -> torch.Tensor:
+    """The rows of partial weight gradients a backward launch of ``grid``
+    blocks writes, one a block (no atomics), each holding the weights of
+    ``shapes`` flat in order, in ``partials_dtype`` on the device of the
+    point array ``like``."""
+    size = sum(int(torch.Size(s).numel()) for s in shapes)
+    return torch.empty((grid, size), dtype=partials_dtype(like.dtype),
+                       device=like.device)
+
+
+def weight_grads(partials, shapes, dtype) -> tuple:
+    """The weight gradients of ``partial_rows`` after the launch:
+    ``sum_partials`` of the rows, split and reshaped to ``shapes`` —
+    repeatable bit for bit."""
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    return tuple(g.reshape(s) for g, s in zip(
+        torch.split(sum_partials(partials, dtype), sizes), shapes))
+
+
 def ptr(t):
     """A tensor's device pointer; None is the null pointer (an output the
     kernel does not write)."""
@@ -117,11 +177,10 @@ def pack(ws):
 
 
 def typed_lib(name: str, n_ptr: int, error_prefix: str,
-              extra: tuple = (), n_extra_int: int = 0) -> ctypes.CDLL:
+              n_extra_int: int = 0) -> ctypes.CDLL:
     """The library of kernel ``name`` with the argument types of its three
     entry points set: ``n_ptr`` pointers, (n, hidden, psym) ints and
-    ``n_extra_int`` more, (ry, rz) doubles and the stream. ``extra`` names
-    int-returning functions of no arguments."""
+    ``n_extra_int`` more, (ry, rz) doubles and the stream."""
     lib = _build.load(name)
     if not getattr(lib, "_port_typed", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -133,9 +192,6 @@ def typed_lib(name: str, n_ptr: int, error_prefix: str,
         err = getattr(lib, f"{error_prefix}_error_string")
         err.argtypes = [ci]
         err.restype = ctypes.c_char_p
-        for fname in extra:
-            getattr(lib, fname).argtypes = []
-            getattr(lib, fname).restype = ci
         lib._port_name, lib._port_error = name, err
         lib._port_typed = True
     return lib
@@ -146,19 +202,12 @@ def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
     """``typed_lib`` of a kernel that works in tiles, its
     ``<name>_points_per_tile(hidden, type code)`` checked once against the
     wrapper's ``points_per_tile(hidden, dtype)`` at every width and type
-    (the wrapper sizes grids and partials from it), and the argument types
-    of ``<name>_occupancy(hidden, type code, int* smem_bytes)`` set, and of
-    ``<name>_pg_occupancy`` (the point-gradient instantiations of a
-    backward kernel) where the library has it."""
+    (the wrapper sizes grids and partials from it)."""
     lib = typed_lib(name, n_ptr, error_prefix, n_extra_int=n_extra_int)
     if not getattr(lib, "_tiles_checked", False):
         ci = ctypes.c_int
         tile = getattr(lib, f"{name}_points_per_tile")
         tile.argtypes, tile.restype = [ci, ci], ci
-        for fname in (f"{name}_occupancy", f"{name}_pg_occupancy"):
-            if hasattr(lib, fname):
-                occ = getattr(lib, fname)
-                occ.argtypes, occ.restype = [ci, ci, ctypes.POINTER(ci)], ci
         for h in SUPPORTED_HIDDEN:
             for dt in TYPE_CODE:
                 got = tile(h, TYPE_CODE[dt])
@@ -170,18 +219,25 @@ def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
     return lib
 
 
-def occupancy(lib, hidden: int, dtype,
-              point_grads: bool = False) -> tuple[int, int]:
-    """(resident blocks per SM, shared memory bytes per block) of a
-    ``tiled_lib``'s kernel (or its point-gradient instantiation) at this
-    width and dtype, from cudaOccupancyMaxActiveBlocksPerMultiprocessor on
-    the current card."""
-    name = lib._port_name + ("_pg" if point_grads else "")
-    smem = ctypes.c_int(0)
-    blocks = getattr(lib, f"{name}_occupancy")(
-        hidden, TYPE_CODE[dtype], ctypes.byref(smem))
+def occupancy(name: str, hidden: int, dtype, point_grads: bool = False,
+              hidden_gate: int | None = None) -> tuple[int, int]:
+    """(resident blocks per SM, shared memory bytes per block) of kernel
+    ``name`` at this width and dtype, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card:
+    ``<name>_occupancy(hidden, type code, int* smem)`` of its library,
+    ``<name>_pg_occupancy`` for the point-gradient instantiation of a
+    backward kernel, and for K3 (``residual_fwd``) its gate width
+    ``hidden_gate`` after the hidden one."""
+    fname = f"{name}_pg_occupancy" if point_grads else f"{name}_occupancy"
+    fn = getattr(_build.load(name), fname)
+    ints = (hidden,) + (() if hidden_gate is None else (hidden_gate,))
+    ci = ctypes.c_int
+    fn.argtypes = [ci] * (len(ints) + 1) + [ctypes.POINTER(ci)]
+    fn.restype = ci
+    smem = ci(0)
+    blocks = fn(*ints, TYPE_CODE[dtype], ctypes.byref(smem))
     if blocks < 0:
-        raise RuntimeError(f"{name}: occupancy query failed at H={hidden}")
+        raise RuntimeError(f"{fname}: the query failed at {ints}")
     return blocks, smem.value
 
 

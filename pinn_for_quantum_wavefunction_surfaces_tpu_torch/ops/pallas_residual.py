@@ -23,15 +23,15 @@ Two implementations of one arithmetic live here:
   cores, float32 one thread a point, bfloat16 the float32 kernel on
   bfloat16 tensors.
 
-``psi_lap_pallas`` dispatches on the device of its points: CUDA tensors
-launch the kernel (or the call raises), CPU tensors take the plain version.
-There is no fallback between the two, and no backward: inputs that would
-need a gradient are refused.
+``psi_lap_pallas`` dispatches on the device of its points
+(``_cuda.as_built``): CUDA tensors launch the kernel (or the call raises),
+CPU tensors take the plain version. There is no fallback between the two,
+and no backward: inputs that would need a gradient are refused.
+``routing.kernel_of`` decides which models come here: forward-only calls
+on the reference-parity model.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -46,7 +46,7 @@ SUPPORTED_HIDDEN = _cuda.SUPPORTED_HIDDEN
 # the gate's 3 Hg + 1 weights join the kernel's shared memory (6.2 KB in
 # float64 at 256): the float64 tile kernel opts in past the 48 KB a block
 # gets by default, and its occupancy at H = 16 falls from 4 to 3 blocks an
-# SM past some Hg (occupancy() reports it)
+# SM past some Hg (``_cuda.occupancy`` reports it)
 MAX_HIDDEN_GATE = 256
 
 
@@ -97,65 +97,23 @@ def residual_fwd_cuda(weights, x, y, z, r, *, p_sym: int = 1,
     pts = [t.contiguous() for t in pts]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    _cuda.launch(_lib(), pts[0].dtype, pts[0].device,
+    lib = _cuda.typed_lib("residual_fwd", 7, "train", n_extra_int=1)
+    _cuda.launch(lib, pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), pts[0].shape[0],
                  hidden, p_sym, ry, rz, extra_ints=(hidden_gate,))
     launches[_cuda.launch_key("residual_fwd", pts[0].dtype)] += 1
     return psi, lap
 
 
-def _lib():
-    """The typed library of K3, with the argument types of
-    ``residual_fwd_occupancy(hidden, hidden_gate, type code, int* smem)``
-    set."""
-    lib = _cuda.typed_lib("residual_fwd", 7, "train", n_extra_int=1)
-    occ = lib.residual_fwd_occupancy
-    if occ.argtypes is None:
-        ci = ctypes.c_int
-        occ.argtypes, occ.restype = [ci, ci, ci, ctypes.POINTER(ci)], ci
-    return lib
-
-
-def threads(dtype) -> int:
-    """Threads a block of K3: 256 on float64 tiles, 128 in float32 and
-    bfloat16."""
-    return 256 if dtype == torch.float64 else 128
-
-
-def occupancy(hidden: int, hidden_gate: int, dtype) -> tuple[int, int]:
-    """(resident blocks per SM, shared memory bytes per block) of K3 at
-    these widths and dtype on the current card."""
-    smem = ctypes.c_int(0)
-    blocks = _lib().residual_fwd_occupancy(
-        hidden, hidden_gate, _cuda.TYPE_CODE[dtype], ctypes.byref(smem))
-    if blocks < 0:
-        raise RuntimeError(f"residual_fwd: occupancy query failed at "
-                           f"H={hidden}, Hg={hidden_gate}")
-    return blocks, smem.value
-
-
-def is_reference_parity(params: dict) -> bool:
-    """Params of the model K3 implements: symmetric (h1.w with 2 rows, so
-    no R input) with neither the alpha(R) nor the GZ b(R) head."""
-    return ("h1" in params and params["h1"]["w"].shape[0] == 2
-            and not any(k in params for k in ("alpha1", "beta1")))
-
-
 def psi_lap_pallas(params: dict, mcfg, x, y, z, r):
     """(psi, lap psi) of flat point arrays through K3 (forward only).
 
-    Raises NotImplementedError for other architectures and for models with
-    alpha/GZ heads or an R input, as the JAX kernel does; raises ValueError
-    for inputs that require grad while autograd records (K3 has no
-    backward)."""
-    if mcfg.arch != "symmetric":
-        raise NotImplementedError("the K3 kernel covers the symmetric "
-                                  "architecture")
-    if not is_reference_parity(params):
-        raise NotImplementedError(
-            "the K3 kernel implements the reference-parity model (fixed "
-            "exponents, 2-feature base); alpha/GZ models go through "
-            "ops.pallas_train.psi_lap_train")
+    Raises NotImplementedError for the params that ``routing.kernel_of``
+    does not give K3 (other families, models with alpha/GZ heads or an R
+    input), as the JAX kernel does; raises ValueError for inputs that
+    require grad while autograd records (K3 has no backward)."""
+    from .routing import require    # routing imports this module
+    require(params, mcfg, "K3")
     ws = kernel_weights(params, mcfg, x.dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, y, z, r) + ws):
@@ -164,6 +122,5 @@ def psi_lap_pallas(params: dict, mcfg, x, y, z, r):
                          "torch.no_grad()")
     kw = dict(p_sym=int(mcfg.inversion_symmetry), ry=float(mcfg.ry),
               rz=float(mcfg.rz))
-    if x.is_cuda:
-        return residual_fwd_cuda(ws, x, y, z, r, **kw)
-    return _cuda.plain_as_built(psi_lap_residual_plain, ws, x, y, z, r, **kw)
+    return _cuda.as_built(residual_fwd_cuda, psi_lap_residual_plain, ws, x,
+                          y, z, r, **kw)

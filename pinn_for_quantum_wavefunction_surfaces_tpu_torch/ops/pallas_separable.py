@@ -17,8 +17,9 @@ Three implementations of one arithmetic live here:
   kernels (CUDA C++ for sm_90a, built by ``ops/_build.py``).
 
 ``SeparableKernel`` (a ``torch.autograd.Function``) dispatches on the device
-of its inputs: CUDA tensors launch the kernels (or the call raises), CPU
-tensors take the plain versions. There is no fallback between the two.
+of its inputs (``_cuda.as_built``): CUDA tensors launch the kernels (or the
+call raises), CPU tensors take the plain versions. There is no fallback
+between the two. ``routing.kernel_of`` decides which models come here.
 
 The formulation. Every spatial gradient in the family lies in span{u1, u2}
 (the unit vectors from the two nuclei), so a gradient is kept as its two
@@ -29,8 +30,8 @@ of scalars besides the two MLPs. The kernels hold those scalars per point
 in registers. The float64 build keeps the MLPs' [3 points, H] triples as
 tiles in shared memory, whose H x H products run on the float64 tensor
 cores; the float32 and bfloat16 builds run one thread a point, its triples
-in registers (``csrc/separable.cuh``). ``points_per_tile`` and
-``grid_blocks`` size the launches by type.
+in registers (``csrc/separable.cuh``). ``points_per_tile`` sizes the
+launches by type (``_cuda.n_tiles``, ``_cuda.grid_blocks``).
 """
 
 from __future__ import annotations
@@ -534,41 +535,16 @@ def psi_lap_separable_vjp_plain(weights, a, b, x, y, z, r, dpsi, dlap, *,
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/separable_fwd.cu, csrc/separable_bwd.cu)
 
-# The kernels' work layout (csrc/separable.cuh), by type: the float64
-# build's blocks of 256 threads take tiles of 256 // min(8, H) points (min(8,
-# H) threads a point); the float32 and bfloat16 builds' blocks of 128
-# threads take 128 points, one a thread.
-# K1-bwd's grid has at most this many blocks per SM of an H100 (132 SMs):
-# the resident blocks its __launch_bounds__ asks for, so one wave.
-GRID_BLOCKS_PER_SM = {torch.float64: 2, torch.float32: 3, torch.bfloat16: 3}
-N_SM = 132
-
-
-def threads(dtype) -> int:
-    """Threads a block of either kernel."""
-    return 256 if dtype == torch.float64 else 128
+# The kernels' work layout (csrc/separable.cuh): the float64 build's blocks
+# take tiles of 256 // min(8, H) points (min(8, H) threads a point); the
+# float32 and bfloat16 builds' blocks take 128 points, one a thread.
 
 
 def points_per_tile(hidden: int, dtype) -> int:
     """Points a block evaluates at a time."""
     if dtype == torch.float64:
-        return threads(dtype) // min(8, hidden)
-    return threads(dtype)
-
-
-def n_tiles(n: int, hidden: int, dtype) -> int:
-    """Tiles of n points; the last one is padded."""
-    return -(-n // points_per_tile(hidden, dtype))
-
-
-def grid_blocks(n: int, hidden: int, dtype) -> int:
-    """Blocks of a K1-bwd launch: one a tile, at most GRID_BLOCKS_PER_SM *
-    N_SM; each block walks the tiles blockIdx, blockIdx + grid, ... in
-    order. The count depends on n, H and the dtype alone, so the rows of
-    partial weight gradients (one a block), their order, and so the bits do
-    too. K1-fwd sums nothing across points and takes one block a tile."""
-    return max(1, min(n_tiles(n, hidden, dtype),
-                      GRID_BLOCKS_PER_SM[dtype] * N_SM))
+        return _cuda.threads(dtype) // min(8, hidden)
+    return _cuda.threads(dtype)
 
 
 def _lib(name: str):
@@ -578,15 +554,6 @@ def _lib(name: str):
     fwd = name == "separable_fwd"
     return _cuda.tiled_lib(name, 12 if fwd else 22, "separable",
                            points_per_tile, n_extra_int=2 if fwd else 3)
-
-
-def occupancy(name: str, hidden: int, dtype,
-              point_grads: bool = False) -> tuple[int, int]:
-    """(resident blocks per SM, shared memory bytes per block) of kernel
-    ``name`` ("separable_fwd" or "separable_bwd", and of the latter's
-    point-gradient instantiation) at this width and dtype on the current
-    card."""
-    return _cuda.occupancy(_lib(name), hidden, dtype, point_grads)
 
 
 def factor_code(factors) -> int:
@@ -626,12 +593,11 @@ def separable_fwd_cuda(weights, a, b, x, y, z, r, *, p_sym: int = 1,
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    lib = _lib("separable_fwd")
     dtype = pts[0].dtype
-    _cuda.launch(lib, dtype, pts[0].device,
+    tiles = _cuda.n_tiles(n, points_per_tile(hidden, dtype))
+    _cuda.launch(_lib("separable_fwd"), dtype, pts[0].device,
                  (*pts, *nds, _cuda.pack(weights), psi, lap), n, hidden,
-                 p_sym, ry, rz,
-                 extra_ints=(max(1, n_tiles(n, hidden, dtype)), code))
+                 p_sym, ry, rz, extra_ints=(max(1, tiles), code))
     launches[_cuda.launch_key(
         "separable_fwd_ex" if code else "separable_fwd", dtype)] += 1
     return psi, lap
@@ -658,28 +624,23 @@ def separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap, *,
     nds = _node_inputs(factors, nodes, hidden, pts[0])
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
-    lib = _lib("separable_bwd")
     dtype = pts[0].dtype
-    grid = grid_blocks(n, hidden, dtype)
-    sizes = [int(torch.Size(s).numel()) for s in shapes]
-    partials = torch.empty((grid, sum(sizes)),
-                           dtype=_cuda.partials_dtype(dtype),
-                           device=pts[0].device)
+    grid = _cuda.grid_blocks(n, points_per_tile(hidden, dtype), dtype)
+    partials = _cuda.partial_rows(grid, shapes, pts[0])
     da = torch.empty_like(pts[0])
     db = torch.empty_like(pts[0])
     dnds = tuple(None if t is None else torch.empty_like(pts[0])
                  for t in nds)
     dpts = tuple(torch.empty_like(pts[0]) if point_grads else None
                  for _ in range(4))
-    _cuda.launch(lib, pts[0].dtype, pts[0].device,
+    _cuda.launch(_lib("separable_bwd"), dtype, pts[0].device,
                  (*pts, *nds, _cuda.pack(weights), dpsi, dlap, da, db,
                   *dnds, partials, *dpts), n, hidden, p_sym, ry, rz,
                  extra_ints=(grid, int(point_grads), code))
     key = ("separable_bwd_pg" if point_grads else
            "separable_bwd_ex" if code else "separable_bwd")
     launches[_cuda.launch_key(key, dtype)] += 1
-    dws = tuple(g.reshape(s) for g, s in zip(
-        torch.split(_cuda.sum_partials(partials, dtype), sizes), shapes))
+    dws = _cuda.weight_grads(partials, shapes, dtype)
     if code:
         return dws, da, db, dnds
     return (dws, da, db) + (dpts if point_grads else ())
@@ -704,10 +665,8 @@ class SeparableKernel(torch.autograd.Function):
         kw = dict(p_sym=p_sym, ry=ry, rz=rz)
         if tuple(factors) != NO_FACTORS:
             kw.update(factors=factors, nodes=(c1, c2, n0))
-        if a.is_cuda:
-            return separable_fwd_cuda(weights, a, b, x, y, z, r, **kw)
-        return _cuda.plain_as_built(psi_lap_separable_plain, weights, a, b,
-                                    x, y, z, r, **kw)
+        return _cuda.as_built(separable_fwd_cuda, psi_lap_separable_plain,
+                              weights, a, b, x, y, z, r, **kw)
 
     @staticmethod
     def backward(ctx, dpsi, dlap):
@@ -717,12 +676,8 @@ class SeparableKernel(torch.autograd.Function):
         ex = tuple(factors) != NO_FACTORS
         if ex:
             kw.update(factors=factors, nodes=(c1, c2, n0))
-        if a.is_cuda:
-            out = separable_bwd_cuda(weights, a, b, x, y, z, r, dpsi, dlap,
-                                     **kw)
-        else:
-            out = _cuda.plain_as_built(psi_lap_separable_vjp_plain, weights,
-                                       a, b, x, y, z, r, dpsi, dlap, **kw)
+        out = _cuda.as_built(separable_bwd_cuda, psi_lap_separable_vjp_plain,
+                             weights, a, b, x, y, z, r, dpsi, dlap, **kw)
         if ex:
             dws, da, db, dnodes = out
             return (None, da, db, *dnodes, None, None, None, None) + \
@@ -738,21 +693,6 @@ def kernel_weights(params: dict, dtype) -> tuple:
     return tuple(params[k][f].reshape(
         (1, -1) if f == "b" else params[k][f].shape).to(dtype)
         for k, f in _W_NAMES)
-
-
-def _refuse(params: dict, mcfg) -> None:
-    """Raises NotImplementedError, on every device, for params that K1 does
-    not carry: the symmetric family's. Every separable model passes
-    ``ansatz.kernel_unsupported_reason``; its excited-state factors run in
-    the kernels' epilogue (``factors``)."""
-    if "lam1" not in params:
-        raise NotImplementedError(
-            "not separable params: the symmetric family's kernel is "
-            "ops.pallas_train.psi_lap_train")
-    reason = ansatz.kernel_unsupported_reason(params, mcfg)
-    if reason is not None:
-        raise NotImplementedError(
-            f"{reason}: such models take ansatz.psi_fwdlap")
 
 
 def factors(params: dict, mcfg) -> tuple:
@@ -786,13 +726,14 @@ def separable_psi_lap(params: dict, mcfg, heads, x, y, z, r,
     """(psi, lap) of flat points through SeparableKernel, given the heads
     ``separable_heads`` at each point. Gradients flow to the weights and
     through the heads; to x, y, z and r only with ``point_grads``, which a
-    model with excited-state factors does not take."""
-    _refuse(params, mcfg)
+    model with excited-state factors does not take. The params are those
+    that ``routing.kernel_of`` gives K1: the entries ask it first."""
     fac = factors(params, mcfg)
     if point_grads and fac != NO_FACTORS:
         raise NotImplementedError(
-            "point gradients of the excited-state factors: no recipe takes "
-            "them; such models take ansatz.psi_fwdlap")
+            "point gradients of the excited-state factors: K1 has no such "
+            "instantiation and no recipe takes them; autograd of "
+            "ansatz.psi_fwdlap gives them")
     dtype = x.dtype
     if not point_grads:
         x, y, z, r = (t.detach() for t in (x, y, z, r))
@@ -814,8 +755,14 @@ def psi_lap_train_separable(params: dict, mcfg, x, y, z, r,
     coordinates are constants (training treats the batch as data); with
     ``point_grads`` gradients flow to x, y, z and r too, r's through the
     kernel and the heads (ground models only: with factors it raises
-    NotImplementedError)."""
-    _refuse(params, mcfg)
+    NotImplementedError).
+
+    Raises NotImplementedError, on every device, for the params that
+    ``routing.kernel_of`` does not give K1 (the symmetric and minimal
+    families): the kernel and its plain versions would compute another
+    psi."""
+    from .routing import require    # routing imports this module
+    require(params, mcfg, "K1")
     e = ansatz.energy(params, r)
     heads = separable_heads(params, mcfg, r)
     psi, lap = separable_psi_lap(params, mcfg, heads, x, y, z, r, point_grads)

@@ -21,8 +21,9 @@ Three implementations of one arithmetic live here:
   and ``csrc/train_tile.cuh`` for the float64 tiles on the tensor cores).
 
 ``TrainKernel`` (a ``torch.autograd.Function``) dispatches on the device of
-its inputs: CUDA tensors launch the kernels (or the call raises), CPU
-tensors take the plain versions. There is no fallback between the two.
+its inputs (``_cuda.as_built``): CUDA tensors launch the kernels (or the
+call raises), CPU tensors take the plain versions. There is no fallback
+between the two. ``routing.kernel_of`` decides which models come here.
 
 The formulation. A branch's spatial gradients all lie in span{u1, u2}, the
 unit vectors from its two nuclei (the gradient of e^{-a r} is -a e^{-a r}
@@ -290,14 +291,9 @@ def psi_lap_train_vjp_plain(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
 # CUDA kernels (csrc/train_fwd.cu, csrc/train_bwd.cu)
 
 
-# The kernels' work layout. Float64 (csrc/train_tile.cuh): blocks of 256
-# threads walk tiles of 32 points (16 at H = 32). Float32: one thread a
-# point, 128 points a block; bfloat16 as float32 (the float32 kernels on
-# bfloat16 tensors). K2-fwd takes one block a tile; K2-bwd's grid is capped
-# at the resident blocks per SM its __launch_bounds__ asks for times the
-# H100's 132 SMs, so one wave.
-GRID_BLOCKS_PER_SM = {torch.float64: 2, torch.float32: 3, torch.bfloat16: 3}
-N_SM = 132
+# The kernels' work layout: float64 (csrc/train_tile.cuh) tiles of 32
+# points (16 at H = 32); float32 and bfloat16 one thread a point, 128 points
+# a block. K2-fwd takes one block a tile.
 
 
 def points_per_tile(hidden: int, dtype=torch.float64) -> int:
@@ -307,21 +303,6 @@ def points_per_tile(hidden: int, dtype=torch.float64) -> int:
     return 128
 
 
-def n_tiles(n: int, hidden: int, dtype=torch.float64) -> int:
-    """Tiles of n points; the last one is padded."""
-    return -(-n // points_per_tile(hidden, dtype))
-
-
-def grid_blocks(n: int, hidden: int, dtype=torch.float64) -> int:
-    """Blocks of a K2-bwd launch: one a tile, at most GRID_BLOCKS_PER_SM *
-    N_SM; each block walks the tiles blockIdx, blockIdx + grid, ... in
-    order. The count depends on n, H and the dtype alone, so the rows of
-    partial weight gradients (one a block), their order, and so the bits do
-    too."""
-    return max(1, min(n_tiles(n, hidden, dtype),
-                      GRID_BLOCKS_PER_SM[dtype] * N_SM))
-
-
 def _lib(name: str):
     """The typed library of K2-fwd or K2-bwd (its extra ints: the grid and
     the point-gradient flag), its tiles checked against points_per_tile
@@ -329,20 +310,6 @@ def _lib(name: str):
     fwd = name == "train_fwd"
     return _cuda.tiled_lib(name, 10 if fwd else 18, "train", points_per_tile,
                            n_extra_int=0 if fwd else 2)
-
-
-def occupancy(name: str, hidden: int, dtype,
-              point_grads: bool = False) -> tuple[int, int]:
-    """(resident blocks per SM, shared memory bytes per block) of kernel
-    ``name`` ("train_fwd" or "train_bwd", and of the latter's
-    point-gradient instantiation) at this width and dtype on the current
-    card."""
-    return _cuda.occupancy(_lib(name), hidden, dtype, point_grads)
-
-
-def threads(dtype) -> int:
-    """Threads a block of either kernel."""
-    return 256 if dtype == torch.float64 else 128
 
 
 def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
@@ -356,8 +323,7 @@ def train_fwd_cuda(weights, a, b, g, x, y, z, r, *, p_sym: int = 1,
     n = pts[0].shape[0]
     psi = torch.empty_like(pts[0])
     lap = torch.empty_like(pts[0])
-    lib = _lib("train_fwd")
-    _cuda.launch(lib, pts[0].dtype, pts[0].device,
+    _cuda.launch(_lib("train_fwd"), pts[0].dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), psi, lap), n, hidden, p_sym,
                  ry, rz)
     launches[_cuda.launch_key("train_fwd", pts[0].dtype)] += 1
@@ -381,23 +347,18 @@ def train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap, *,
     dpsi, dlap = dpsi.contiguous(), dlap.contiguous()
     n = pts[0].shape[0]
     dtype = pts[0].dtype
-    lib = _lib("train_bwd")
-    grid = grid_blocks(n, hidden, dtype)
-    sizes = [int(torch.Size(s).numel()) for s in shapes]
-    partials = torch.empty((grid, sum(sizes)),
-                           dtype=_cuda.partials_dtype(dtype),
-                           device=pts[0].device)
+    grid = _cuda.grid_blocks(n, points_per_tile(hidden, dtype), dtype)
+    partials = _cuda.partial_rows(grid, shapes, pts[0])
     da, db, dg = (torch.empty_like(pts[0]) for _ in range(3))
     dpts = tuple(torch.empty_like(pts[0]) if point_grads else None
                  for _ in range(4))
-    _cuda.launch(lib, dtype, pts[0].device,
+    _cuda.launch(_lib("train_bwd"), dtype, pts[0].device,
                  (*pts, _cuda.pack(weights), dpsi, dlap, da, db, dg,
                   partials, *dpts), n, hidden, p_sym, ry, rz,
                  extra_ints=(grid, int(point_grads)))
     launches[_cuda.launch_key(
         "train_bwd_pg" if point_grads else "train_bwd", dtype)] += 1
-    dws = tuple(t.reshape(s) for t, s in zip(
-        torch.split(_cuda.sum_partials(partials, dtype), sizes), shapes))
+    dws = _cuda.weight_grads(partials, shapes, dtype)
     return (dws, da, db, dg) + (dpts if point_grads else ())
 
 
@@ -417,23 +378,17 @@ class TrainKernel(torch.autograd.Function):
         ctx.cfg = cfg
         ctx.save_for_backward(a, b, g, x, y, z, r, *weights)
         kw = dict(p_sym=p_sym, ry=ry, rz=rz)
-        if a.is_cuda:
-            return train_fwd_cuda(weights, a, b, g, x, y, z, r, **kw)
-        return _cuda.plain_as_built(psi_lap_train_plain, weights, a, b, g, x,
-                                    y, z, r, **kw)
+        return _cuda.as_built(train_fwd_cuda, psi_lap_train_plain, weights,
+                              a, b, g, x, y, z, r, **kw)
 
     @staticmethod
     def backward(ctx, dpsi, dlap):
         a, b, g, x, y, z, r, *weights = ctx.saved_tensors
         p_sym, ry, rz, point_grads = ctx.cfg
         kw = dict(p_sym=p_sym, ry=ry, rz=rz, point_grads=point_grads)
-        if a.is_cuda:
-            out = train_bwd_cuda(weights, a, b, g, x, y, z, r, dpsi, dlap,
-                                 **kw)
-        else:
-            out = _cuda.plain_as_built(psi_lap_train_vjp_plain, weights, a,
-                                       b, g, x, y, z, r, dpsi, dlap, **kw)
-        dws, da, db, dg, *dpts = out
+        dws, da, db, dg, *dpts = _cuda.as_built(
+            train_bwd_cuda, psi_lap_train_vjp_plain, weights, a, b, g, x, y,
+            z, r, dpsi, dlap, **kw)
         return (None, da, db, dg, *(dpts or (None,) * 4)) + tuple(dws)
 
 
@@ -452,22 +407,6 @@ def kernel_weights(params: dict, mcfg, dtype) -> tuple:
             out["w"].to(dtype), ob)
 
 
-def _refuse(params: dict, mcfg) -> None:
-    """Raises NotImplementedError, on every device, for params that K2 does
-    not carry: separable params, and the models that
-    ``ansatz.kernel_unsupported_reason`` names (the minimal family, R-input
-    models), for which the kernel and its plain versions would compute
-    another psi."""
-    if "lam1" in params:
-        raise NotImplementedError(
-            "separable params: their kernel is "
-            "ops.pallas_separable.psi_lap_train_separable")
-    reason = ansatz.kernel_unsupported_reason(params, mcfg)
-    if reason is not None:
-        raise NotImplementedError(
-            f"{reason}: such models take ansatz.psi_fwdlap")
-
-
 def train_heads(params: dict, mcfg, r) -> tuple:
     """(alpha, b, gate) at the R values ``r``: the R-only heads that K2
     reads at each point, differentiable in the params."""
@@ -482,8 +421,9 @@ def train_psi_lap(params: dict, mcfg, heads, x, y, z, r,
                   point_grads: bool = False):
     """(psi, lap) of flat points through TrainKernel, given the heads
     ``train_heads`` at each point. Gradients flow to the weights and
-    through the heads; to x, y, z and r only with ``point_grads``."""
-    _refuse(params, mcfg)
+    through the heads; to x, y, z and r only with ``point_grads``. The
+    params are those that ``routing.kernel_of`` gives K2: the entries ask
+    it first."""
     dtype = x.dtype
     if not point_grads:
         x, y, z, r = (t.detach() for t in (x, y, z, r))
@@ -504,11 +444,12 @@ def psi_lap_train(params: dict, mcfg, x, y, z, r,
     (force-through-batch analyses), r's through the kernel and the heads.
 
     Covers fixed exponents, trainable alpha(R) and Guillemin-Zener b(R).
-    Raises NotImplementedError, on every device, for separable params and
-    for the models that ``ansatz.kernel_unsupported_reason`` names (the
-    minimal family, R-input models): the kernel and its plain versions
-    would compute another psi."""
-    _refuse(params, mcfg)
+    Raises NotImplementedError, on every device, for the params that
+    ``routing.kernel_of`` does not give K2 (separable params, the minimal
+    family, R-input models): the kernel and its plain versions would
+    compute another psi."""
+    from .routing import require    # routing imports this module
+    require(params, mcfg, "K2")
     e = ansatz.energy(params, r)
     psi, lap = train_psi_lap(params, mcfg, train_heads(params, mcfg, r),
                              x, y, z, r, point_grads)

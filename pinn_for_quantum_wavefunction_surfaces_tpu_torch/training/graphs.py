@@ -21,11 +21,11 @@ eager on the CPU, which only the tests ask for, and under a mesh, whose
 NCCL all-reduces stay eager for now. A capture or replay error raises:
 nothing falls back to the eager step.
 
-The kernel wrappers count their launches in Python (``ops/_cuda.launch_key``),
-and the routes their head evaluations (``ops/routing.head_evals``) and the
-points they send to the forward-Laplacian pass (``ops/routing.fwdlap_points``);
-a replay passes through none of them: what a capture records is taken off
-the counts, and added back once per replay, so the counts stay exact.
+The kernel path counts in Python (``ops/routing.COUNTERS``): the kernel
+wrappers their launches, the routes their head evaluations and the points
+they send to the forward-Laplacian pass. A replay passes through none of
+them: what a capture records is taken off the counts, and added back once
+per replay, so the counts stay exact.
 
 Tracing (``utils/profiling.py``): each call that runs ``fn`` as Python (the
 eager call, a capture, every call of an eager step) records the phase marks
@@ -50,14 +50,8 @@ from typing import Callable
 
 import torch
 
-from ..ops import pallas_residual, pallas_separable, pallas_train, routing
+from ..ops import routing
 from ..utils import profiling
-
-# the kernel wrappers' launch counts, the routes' head evaluations and
-# their forward-Laplacian points
-COUNTERS = (pallas_separable.launches, pallas_train.launches,
-            pallas_residual.launches, routing.head_evals,
-            routing.fwdlap_points)
 
 
 @contextlib.contextmanager
@@ -105,7 +99,7 @@ class StepGraph:
     ``torch.Generator``s that ``fn`` draws from."""
 
     def __init__(self, fn: Callable[[], None], capture: bool,
-                 generators=(), counters=COUNTERS):
+                 generators=(), counters=routing.COUNTERS):
         self.fn, self.capture = fn, capture
         self.generators = tuple(g for g in generators if g is not None)
         self.counters = counters

@@ -14,23 +14,23 @@ their mean plus an MSE term fitting the E(R) head. Three trainers:
   params;
 - ``polish_lbfgs``: L-BFGS on one fixed importance sample.
 
-psi and lap psi come from ``ops.routing.psi_lap_rows``, keyed by the params
-and the config, the kernels' R-only heads evaluated once an R row:
-separable params through the fused kernel K1
-(ops/pallas_separable.py; the excited states' node and m_abs factors in
-its factor epilogue, where the JAX package takes the forward-Laplacian
-pass), 2-input symmetric params through K2 (ops/pallas_train.py), so that
-on the card every loss evaluation launches a forward kernel and every
-gradient a backward kernel; the models no kernel carries (the minimal
-family, R-input models) through the forward-Laplacian pass
-``ansatz.psi_fwdlap``, as in the JAX package. The JAX package's quotient takes the forward-Laplacian pass for
-symmetric params; K2 computes the same function.
+psi and lap psi come from ``ops.routing.psi_lap_rows``, the kernels' R-only
+heads evaluated once an R row. ``routing.kernel_of`` decides the route:
+separable params, the excited states' node and m_abs factors included,
+through K1, 2-input symmetric params through K2, so that on the card every
+loss evaluation launches a forward kernel and every gradient a backward
+kernel; the minimal family and R-input models through the
+forward-Laplacian pass ``ansatz.psi_fwdlap``, as in the JAX package. The
+JAX package's quotient takes the forward-Laplacian pass for symmetric
+params and for excited separable ones; the kernels compute the same
+function.
 
 Excited states that are not the lowest of their sector are reached by
 penalty deflation (``quotient_loss_deflated``) against frozen reference
 states, whose rows are constants of the optimisation computed forward only
-(``reference_states_on_batch``, through ``energy.psi_lap_forward``: a
-ground-family reference is one K1-fwd launch a grid on the card).
+(``reference_states_on_batch``, through ``routing.psi_lap_forward``: a
+separable reference, ground or excited, is one K1-fwd launch a grid on
+the card).
 
 With a mesh (``parallel.mesh``) the spheroidal polish shards its R rows
 over the ranks (``polish_spheroidal(mesh=)``).
@@ -55,7 +55,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..analysis import energy
 from ..config import Config
 from ..device import resolve_device, resolve_dtype
 from ..models import ansatz
@@ -198,12 +197,12 @@ def reference_state_on_batch(params0: dict, cfg: Config, vb: VBatch):
     """(psi0, hpsi0) of a frozen reference state on the batch's rows: the
     constant inputs of quotient_loss_deflated, computed forward only (no
     gradient flows through them). Evaluated under ``cfg``'s model (the
-    target's: its parity and m_abs) through ``energy.psi_lap_forward``, so
-    a ground-family reference is one K1-fwd launch on the card and an
-    excited one the forward-Laplacian pass."""
+    target's: its parity and m_abs) through ``routing.psi_lap_forward``,
+    so a separable reference, ground or excited, is one K1-fwd launch on
+    the card (the excited one K1's factor instantiation)."""
     n_r, n_pts = vb.x.shape
     rr = vb.r[:, None].expand(n_r, n_pts).reshape(-1)
-    psi_f, lap_f = energy.psi_lap_forward(
+    psi_f, lap_f = routing.psi_lap_forward(
         params0, cfg.model, vb.x.reshape(-1), vb.y.reshape(-1),
         vb.z.reshape(-1), rr)
     psi0, hpsi0 = _hpsi(cfg, vb, psi_f, lap_f)

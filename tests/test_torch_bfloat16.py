@@ -22,7 +22,7 @@ Tolerances, in bfloat16 units (unit roundoff u = 2^-8 = 3.9e-3):
 
 The kernels' routes on bfloat16 CPU tensors compute as the bfloat16 builds
 do (the plain version's float32 arithmetic, each output rounded once:
-``_cuda.plain_as_built``), and the quotients' pointwise products and sums
+``_cuda.as_built``), and the quotients' pointwise products and sums
 run in float32 (``variational._work``), as XLA's fusions do."""
 
 import dataclasses
@@ -528,12 +528,13 @@ def test_type_tables():
     for h in _cuda.SUPPORTED_HIDDEN:
         assert tpt.points_per_tile(h, BF) == tpt.points_per_tile(
             h, torch.float32)
-    assert tpt.GRID_BLOCKS_PER_SM[BF] == tpt.GRID_BLOCKS_PER_SM[torch.float32]
-    assert tpt.threads(BF) == tpt.threads(torch.float32)
-    assert tpr.threads(BF) == tpr.threads(torch.float32)
+    assert _cuda.GRID_BLOCKS_PER_SM[BF] == \
+        _cuda.GRID_BLOCKS_PER_SM[torch.float32]
+    assert _cuda.threads(BF) == _cuda.threads(torch.float32)
     for n in (1, 1100, 164_502):
-        assert tpt.grid_blocks(n, 16, BF) == tpt.grid_blocks(
-            n, 16, torch.float32)
+        assert _cuda.grid_blocks(n, tpt.points_per_tile(16, BF), BF) == \
+            _cuda.grid_blocks(n, tpt.points_per_tile(16, torch.float32),
+                              torch.float32)
     # float32 rows of bfloat16 terms: summed in float32, rounded once
     rows = torch.full((300, 1), 1.0 + 2.0 ** -9)
     got = _cuda.sum_partials(rows, BF)

@@ -220,11 +220,12 @@ ROUTING_CASES = {
 
 @pytest.mark.parametrize("case", list(ROUTING_CASES))
 def test_kernel_guard_and_routing(case, monkeypatch):
-    """The port's guard passes every separable model: K1 carries the node
-    and transverse factors in its factor epilogue, where the JAX package's
-    pallas_unsupported_reason (m_abs by the config, node factors by the
-    params) keeps them off its Pallas kernel, a deliberate difference.
-    psi_lap_forward and reference_state_on_batch send every separable model
+    """``routing.kernel_of`` gives every separable model to K1, which
+    carries the node and transverse factors in its factor epilogue, where
+    the JAX package's pallas_unsupported_reason (m_abs by the config, node
+    factors by the params) keeps them off its Pallas kernel, a deliberate
+    difference. routing.psi_lap_forward and reference_state_on_batch send
+    every separable model
     to the K1 wrapper, quotient_loss and the deflated loss to its kernel
     part (the quotients' rows, the heads once a row), and none to
     psi_fwdlap; the values equal the forward-Laplacian pass's."""
@@ -232,13 +233,13 @@ def test_kernel_guard_and_routing(case, monkeypatch):
     tp = tans.from_jax_params(params, device="cpu")
     jax_guarded = jlosses.pallas_unsupported_reason(params, mcfg) is not None
     assert jax_guarded == (case != "ground")
-    assert tans.kernel_unsupported_reason(tp, tm) is None
+    assert trt.kernel_of(tp, tm) == trt.kernel_of(tp, tm, True) == "K1"
     x, y, z, r = as_t(*points48(8))
     calls = []
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
     spy_on(monkeypatch, trt, ["psi_lap_train_separable",
                               "separable_psi_lap"], calls)
-    psi, lap = ten.psi_lap_forward(tp, tm, x, y, z, r)
+    psi, lap = trt.psi_lap_forward(tp, tm, x, y, z, r)
     assert calls == ["psi_lap_train_separable"]
     assert psi.shape == lap.shape == x.shape
     calls.clear()

@@ -130,7 +130,7 @@ CASES = [(f, None) for f in FAMILIES] + [(f, i) for f, i in SHIPPED.items()]
 def test_psi_and_lap_match_the_reference(family, ref):
     cfg = config(**FAMILIES[family])
     params = seeded(cfg) if ref is None else shipped()[ref]
-    assert tans.kernel_unsupported_reason(params, cfg.model) is None
+    assert trt.kernel_of(params, cfg.model) == "K1"
     vb = batch(cfg)
     psi, lap = port_rows(params, cfg, vb)
     want_psi, want_lap = excited.psi_lap(params, *flat_points(vb),
@@ -323,7 +323,7 @@ def test_the_deflated_step_marks_its_deflate_phase(deflate, tracing_off):
 class Recording(graphs.StepGraph):
     """StepGraph with stub graphs: a capture runs the step as Python (the
     counters see it) and its replays run nothing, so the counts of a replay
-    come from ``graphs.COUNTERS`` alone."""
+    come from ``routing.COUNTERS`` alone."""
 
     def eager(self):
         self._run()

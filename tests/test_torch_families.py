@@ -243,15 +243,15 @@ def test_symmetric_quotient_on_padded_dual_grid(p_sym, monkeypatch):
 
 
 def test_k2_and_the_guard_refuse_minimal_and_r_input():
-    """The one guard names the minimal family (keyed by the config: its
-    params are the reference-parity tree) and 3-input h1; K2's wrapper
-    refuses both before it touches a tensor, so on every device (here
-    also on meta tensors, which hold no data)."""
+    """``routing.kernel_of`` gives no kernel the minimal family (keyed by
+    the config: its params are the reference-parity tree) nor 3-input h1;
+    the wrappers refuse both before they touch a tensor, so on every
+    device (here also on meta tensors, which hold no data)."""
     for fields in (dict(arch="minimal"), dict(r_input=True),
                    dict(arch="minimal", r_input=True)):
         jm, tm = both(**fields)
         tp = tans.from_jax_params(jax_params(jm), device="cpu")
-        assert tans.kernel_unsupported_reason(tp, tm) is not None
+        assert trt.kernel_of(tp, tm) is trt.kernel_of(tp, tm, True) is None
         for dev in ("cpu", "meta"):
             x = torch.ones(8, dtype=torch.float64, device=dev)
             with pytest.raises(NotImplementedError, match="psi_fwdlap"):
@@ -264,8 +264,66 @@ def test_k2_and_the_guard_refuse_minimal_and_r_input():
     # model, which K2 and K3 carry
     jm, tm = both()
     tp = tans.from_jax_params(jax_params(jm), device="cpu")
-    assert tans.kernel_unsupported_reason(tp, tm) is None
-    assert tpr.is_reference_parity(tp)
+    assert trt.kernel_of(tp, tm) == "K2"
+    assert trt.kernel_of(tp, tm, forward_only=True) == "K3"
+
+
+# (ModelConfig fields, kernel_of's kernel on a training call, on a
+# forward-only call): every family of the port
+KERNEL_CASES = {
+    "separable": (dict(arch="separable"), "K1", "K1"),
+    "separable_radial_node": (dict(arch="separable", xi_node=True), "K1",
+                              "K1"),
+    "separable_two_radial_nodes": (dict(arch="separable", xi_node=True,
+                                        xi_node2=True), "K1", "K1"),
+    "separable_angular_node": (dict(arch="separable", eta_node=True), "K1",
+                               "K1"),
+    "separable_m_abs": (dict(arch="separable", m_abs=1, wide_alpha=True),
+                        "K1", "K1"),
+    "reference_parity": (dict(), "K2", "K3"),
+    "symmetric_gz_alpha": (dict(gz=True, trainable_exponent=True), "K2",
+                           "K2"),
+    "symmetric_alpha": (dict(trainable_exponent=True), "K2", "K2"),
+    "minimal": (dict(arch="minimal"), None, None),
+    "minimal_r_input": (dict(arch="minimal", r_input=True), None, None),
+    "symmetric_r_input": (dict(r_input=True), None, None),
+}
+ENTRIES = {"K1": lambda tp, tm, x: tps.psi_lap_train_separable(
+               tp, tm, x, x, x, x),
+           "K2": lambda tp, tm, x: tpt.psi_lap_train(tp, tm, x, x, x, x),
+           "K3": lambda tp, tm, x: tpr.psi_lap_pallas(tp, tm, x, x, x, x)}
+
+
+@pytest.mark.parametrize("family", list(KERNEL_CASES))
+def test_kernel_of_every_family(family, monkeypatch):
+    """``routing.kernel_of`` is the one rule: each family's kernel on a
+    training and on a forward-only call; each wrapper's JAX-named entry
+    runs exactly the params the rule gives it and refuses the rest; and
+    the routes take the kernel the rule names (``psi_lap_forward`` K3's
+    entry only on the reference-parity model)."""
+    fields, train, forward = KERNEL_CASES[family]
+    tm = tcfg.ModelConfig(hidden=4, **fields)
+    tp = tans.init_params(tm, seed=0, dtype="float64", device="cpu")
+    assert trt.kernel_of(tp, tm) == train
+    assert trt.kernel_of(tp, tm, forward_only=True) == forward
+    x = torch.full((4,), 0.7, dtype=torch.float64)
+    for kernel, entry in ENTRIES.items():
+        if kernel in (train, forward):
+            with torch.no_grad():
+                psi, lap = entry(tp, tm, x)[:2]
+            assert psi.shape == lap.shape == x.shape
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f"{kernel} does not carry"):
+                entry(tp, tm, x)
+    calls = []
+    spy_on(monkeypatch, trt, ["psi_lap_train_separable", "psi_lap_train",
+                              "psi_lap_pallas"], calls)
+    spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
+    trt.psi_lap_forward(tp, tm, x, x, x, x)
+    want = {"K1": "psi_lap_train_separable", "K2": "psi_lap_train",
+            "K3": "psi_lap_pallas", None: "psi_fwdlap"}
+    assert calls == [want[forward]]
 
 
 def test_modelbin_round_trip():
@@ -362,7 +420,7 @@ def test_a_minimal_checkpoint_names_its_family(tmp_path, capsys,
     assert jckpt.load_meta(os.path.join(ft, "finetune.npz")) == {
         "best_loss": last_json(capsys)["best_loss"], "arch": "minimal"}
     calls = []
-    spy_on(monkeypatch, ten, ["psi_lap_pallas"], calls)
+    spy_on(monkeypatch, trt, ["psi_lap_pallas"], calls)
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
     surfs = []
     for flags in ([], ["--arch", "minimal"]):
@@ -422,7 +480,7 @@ def test_cli_energy_of_a_bin(arch, tmp_path, capsys, monkeypatch):
     K3: the two share the params tree); the surface equals the JAX
     package's at the same grid."""
     calls = []
-    spy_on(monkeypatch, ten, ["psi_lap_pallas"], calls)
+    spy_on(monkeypatch, trt, ["psi_lap_pallas"], calls)
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)
     out = str(tmp_path / "e.pkl")
     flags = [] if arch == "symmetric" else ["--arch", "minimal"]

@@ -411,8 +411,8 @@ def test_head_evals_a_step(trainer, captured, monkeypatch):
     """One Monte-Carlo or Adam-warmup step adds its R rows to
     ``routing.head_evals["rows"]`` and nothing to ``"points"``; one
     residual step adds its batch's points to ``"points"``. A captured
-    step's replays add what its eager steps add (``graphs.COUNTERS``)."""
-    assert any(c is routing.head_evals for c in graphs.COUNTERS)
+    step's replays add what its eager steps add (``routing.COUNTERS``)."""
+    assert any(c is routing.head_evals for c in routing.COUNTERS)
     if captured:
         monkeypatch.setattr(graphs, "StepGraph", CapturingStub)
         monkeypatch.setattr(graphs, "captures",

@@ -1,7 +1,7 @@
 """K1's excited-state factor epilogue on the CPU: the route of the separable
 excited states (``routing.psi_lap_rows``, the quotients' entry, and
 ``routing.psi_lap``, the flat one) through K1's CPU path
-(``SeparableKernel`` on ``_cuda.plain_as_built``: the plain versions with
+(``SeparableKernel`` on ``_cuda.as_built``: the plain versions with
 ``factors``) against ``ansatz.psi_fwdlap`` and its autograd, in float64.
 
 - psi and lap psi within 1e-12 of the largest |value| (the nodes put zeros
@@ -107,7 +107,7 @@ def gap(got, want) -> float:
 def test_k1_factors_match_the_forward_laplacian_pass(case, entry):
     mcfg, params = model(case)
     assert tps.factors(params, mcfg) != tps.NO_FACTORS
-    assert tans.kernel_unsupported_reason(params, mcfg) is None
+    assert trt.kernel_of(params, mcfg) == "K1"
     x, y, z, r = rows()
     n_r, n_pts = x.shape
     r_pts = r[:, None].expand(n_r, n_pts).reshape(-1)

@@ -27,6 +27,8 @@ from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
     pallas_residual as tpr
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
     pallas_train as tpt
+from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+    routing as trt
 
 from test_torch_separable import no_jax_cache_writes, points  # noqa: F401
 
@@ -171,7 +173,8 @@ def test_params_without_heads_round_trip(p_sym):
     _, tm, params = ref_model(p_sym, hidden=16)
     assert not any(k in params for k in ("alpha1", "beta1"))
     tp = tans.from_jax_params(params, device="cpu")
-    assert tpr.is_reference_parity(tp)
+    assert trt.kernel_of(tp, tm, forward_only=True) == "K3"
+    assert trt.kernel_of(tp, tm) == "K2"
     back = tans.to_numpy_params(tp)
     assert sorted(back) == sorted(params)
     for k in params:

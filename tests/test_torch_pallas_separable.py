@@ -26,6 +26,8 @@ from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
     _cuda
 from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
     pallas_separable as tps
+from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+    pallas_train as tpt
 
 from test_torch_separable import (as_t, jax_model,  # noqa: F401
                                   no_jax_cache_writes, points)
@@ -223,39 +225,56 @@ def test_unported_families_raise(family):
         sorted(params)
 
 
-# the float64 cases keep their ids (the width alone)
-GRID_CASES = [pytest.param(h, torch.float64, id=str(h))
-              for h in tps.SUPPORTED_HIDDEN] + [
-    pytest.param(h, dt, id=f"{str(dt)[6:]}-{h}")
-    for dt in (torch.float32, torch.bfloat16) for h in tps.SUPPORTED_HIDDEN]
+# kernel x type x width; K1's float64 cases keep their ids (the width
+# alone), its float32 and bfloat16 ones theirs
+GRID_CASES = [pytest.param(tps, h, torch.float64, id=str(h))
+              for h in _cuda.SUPPORTED_HIDDEN] + [
+    pytest.param(tps, h, dt, id=f"{str(dt)[6:]}-{h}")
+    for dt in (torch.float32, torch.bfloat16)
+    for h in _cuda.SUPPORTED_HIDDEN] + [
+    pytest.param(tpt, h, dt, id=f"train-{str(dt)[6:]}-{h}")
+    for dt in (torch.float64, torch.float32, torch.bfloat16)
+    for h in _cuda.SUPPORTED_HIDDEN]
+# the points a launch takes in each benchmark cell: the flagship polish's
+# padded dual grid, the 4fpiu polish's, the 80^3 scoring grid's slabs, and
+# make train's batch
+CELL_SIZES = (164_502, 284_310, 1_048_576, 100_000)
 
 
-@pytest.mark.parametrize("hidden, dtype", GRID_CASES)
-def test_grid_sizing(hidden, dtype):
-    """The kernels' tiles and K1-bwd's grid (rows of partial weight
-    gradients): fixed by n, H and the type alone, capped at a multiple of
-    the SM count, and the blocks' strided walks cover every tile exactly
-    once. Float64 keeps its tiles (blocks of 256 threads, min(8, H) a
-    point) and grid; float32 and bfloat16 take one thread a point, 128 a
-    block."""
-    per = tps.points_per_tile(hidden, dtype)
-    if dtype == torch.float64:
-        assert per * min(8, hidden) == 256 == tps.threads(dtype)
+@pytest.mark.parametrize("mod, hidden, dtype", GRID_CASES)
+def test_grid_sizing(mod, hidden, dtype):
+    """K1's and K2's tiles (each wrapper's ``points_per_tile``) and their
+    backward grids (rows of partial weight gradients, ``_cuda``): fixed by
+    n, H and the type alone, capped at a multiple of the SM count, and the
+    blocks' strided walks cover every tile exactly once. Float64 runs
+    blocks of 256 threads on tiles (K1: min(8, H) threads a point; K2: two
+    branches a point, whole units a thread); float32 and bfloat16 one
+    thread a point, 128 a block. Every cell's launch is one full wave."""
+    per = mod.points_per_tile(hidden, dtype)
+    threads = _cuda.threads(dtype)
+    if dtype != torch.float64:
+        assert per == 128 == threads
+    elif mod is tps:
+        assert per * min(8, hidden) == 256 == threads
     else:
-        assert per == 128 == tps.threads(dtype)
-    cap = tps.GRID_BLOCKS_PER_SM[dtype] * tps.N_SM
+        assert threads % (2 * per) == 0
+        assert hidden % (threads // (2 * per)) == 0
+    cap = _cuda.GRID_BLOCKS_PER_SM[dtype] * _cuda.N_SM
     assert cap == (2 if dtype == torch.float64 else 3) * 132
-    assert [tps.grid_blocks(n, hidden, dtype)
+    assert [_cuda.n_tiles(n, per) for n in (0, 1, per, per + 1)] == \
+        [0, 1, 1, 2]
+    assert [_cuda.grid_blocks(n, per, dtype)
             for n in (0, 1, per, per + 1)] == [1, 1, 1, 2]
-    for n in (N, 9216, 100_000, 164_502, 1_048_576):
-        tiles = tps.n_tiles(n, hidden, dtype)
+    for n in (N, 9216) + CELL_SIZES:
+        tiles = _cuda.n_tiles(n, per)
         assert (tiles - 1) * per < n <= tiles * per
-        grid = tps.grid_blocks(n, hidden, dtype)
+        grid = _cuda.grid_blocks(n, per, dtype)
         assert grid == min(tiles, cap)
         walked = sorted(t for blk in range(grid)
                         for t in range(blk, tiles, grid))
         assert walked == list(range(tiles))
-    assert tps.grid_blocks(164_502, hidden, dtype) == cap
+    assert [_cuda.grid_blocks(n, per, dtype) for n in CELL_SIZES] == \
+        [cap] * len(CELL_SIZES)
 
 
 def test_pad_point_adds_exactly_zero():

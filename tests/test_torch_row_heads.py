@@ -118,7 +118,8 @@ def test_rows_equal_the_flat_composition(family, p_sym, dtype, monkeypatch):
     cfg, params = model(family, p_sym, dtype)
     vb = batch(cfg)
     rtol = RTOL[dtype]
-    assert tans.kernel_unsupported_reason(params, cfg.model) is None
+    assert trt.kernel_of(params, cfg.model) == (
+        "K1" if family == "separable" else "K2")
     before = dict(trt.head_evals)
     with torch.no_grad():
         psi, lap = trt.psi_lap_rows(params, cfg.model, vb.x, vb.y, vb.z,
@@ -155,7 +156,7 @@ def test_excited_separable_takes_the_forward_laplacian_pass(monkeypatch):
     bit for bit K1's plain path with the rows' heads broadcast, and within
     1e-12 of the forward-Laplacian pass, the plain reference."""
     cfg, params = model("separable", 1, "float64", xi_node=True)
-    assert tans.kernel_unsupported_reason(params, cfg.model) is None
+    assert trt.kernel_of(params, cfg.model) == "K1"
     vb = batch(cfg)
     calls = []
     spy_on(monkeypatch, tans, ["psi_fwdlap"], calls)

@@ -144,7 +144,7 @@ def test_forward_dispatch_is_keyed_by_the_params(monkeypatch):
     separable ones to K1's; the minimal family (keyed by the config: its
     params are reference-parity ones) and R-input models to psi_fwdlap."""
     calls = []
-    for mod, name in ((ten, "psi_lap_pallas"), (trt, "psi_lap_train"),
+    for mod, name in ((trt, "psi_lap_pallas"), (trt, "psi_lap_train"),
                       (trt, "psi_lap_train_separable"),
                       (tans, "psi_fwdlap")):
         real = getattr(mod, name)
@@ -161,7 +161,7 @@ def test_forward_dispatch_is_keyed_by_the_params(monkeypatch):
                        ("separable", "psi_lap_train_separable")):
         _, tc, params = family(name)
         calls.clear()
-        psi, lap = ten.psi_lap_forward(
+        psi, lap = trt.psi_lap_forward(
             tans.from_jax_params(params, device="cpu"), tc.model, x, x, x, r)
         assert calls == [want] and psi.shape == lap.shape == x.shape
     for kw in (dict(arch="minimal"), dict(r_input=True)):
@@ -171,7 +171,7 @@ def test_forward_dispatch_is_keyed_by_the_params(monkeypatch):
         tm = tcfg.ModelConfig(hidden=4, **kw)
         tp = tans.from_jax_params(params, device="cpu")
         calls.clear()
-        psi, lap = ten.psi_lap_forward(tp, tm, x, x, x, r)
+        psi, lap = trt.psi_lap_forward(tp, tm, x, x, x, r)
         assert calls == ["psi_fwdlap"]
         sj, _ = jans.psi_fwdlap(params, jm, *(jnp.asarray(t.numpy())
                                               for t in (x, x, x, r)))
