@@ -283,6 +283,23 @@ Phases (any failure exits non-zero; none is caught and passed over):
     4f pi_u cell's deflated Adam warmup (pi_2ppu, pi_3ppu), captured: one
     K1-fwd-ex and one K1-bwd-ex a step and nothing else, no point through
     the forward-Laplacian route.
+ The R-heads kernel pair (E, alpha, b, gate at each point's R; rheads_fwd
+ and rheads_bwd in K2's libraries):
+ 26. ptxas registers and spills (none in float32 or bfloat16) and the
+    occupancy of every instantiation; at make train's batch (100 000
+    points of the sampler; flagship.npz at P = +1, ungerade_2psu.npz at
+    P = -1) the kernels against their plain versions: float64 values to
+    rtol 1e-12, every weight gradient (normwise) and dr to 1e-8; float32
+    against the float64 plain version (1e-5 values, 1e-4 gradients,
+    normwise); bfloat16 against the float32 plain version on its rounded
+    inputs (4e-3, 8e-3); with all four cotangents and with E's alone; two
+    backward launches bit for bit; the E widths 4, 8, 16 and the
+    reference-parity model (no alpha or beta head) on a ragged 1 100-point
+    batch in float64; CUDA-event times of both kernels in the three types
+    beside the torch heads they replace and the bound; make train captured
+    against graph=False bit for bit with one rheads_fwd and one rheads_bwd
+    a step beside K2's; make ref-recipe's step (float64) and its fine-tune
+    with their launches a step.
 
 ``python3 chip_smoke.py --mesh N`` (a host with N >= 2 cards) runs phases
 1 and 2, then the --mesh N paths across the N cards (NCCL) against the same
@@ -300,12 +317,16 @@ one call), as ``k1_times`` says, and prints one JSON line.
 
 ``python3 chip_smoke.py --step-times [ROOT]`` runs the trainers and the
 bench line through the public entry points of the package under ROOT, as
-``step_times`` says, and prints one JSON line: make train's, the
-Monte-Carlo trainer's (both families) and the Adam warmup's steps/s, the
+``step_times`` says, and prints one JSON line: make train's, make
+ref-recipe's, the Monte-Carlo trainer's (both families) and the Adam
+warmup's steps/s, the
 bench line's points/s (both families). Run it as parent, change, change,
 parent in one call to compare two commits.
 
 ``python3 chip_smoke.py --k1-factors`` builds K1 and runs phase 25 alone.
+
+``python3 chip_smoke.py --rheads`` builds K2's libraries and runs phase 26
+alone.
 
 ``python3 chip_smoke.py --tracing`` measures what the port's tracing
 (``utils/profiling.py``) costs on the card and checks that it changes no
@@ -686,21 +707,23 @@ KERNEL_FLAGS = {"separable_fwd": ("ex",), "separable_bwd": ("pg", "ex"),
 
 def ptxas_entries(name: str, log: str) -> list[dict]:
     """One entry per kernel instantiation of library ``name``'s nvcc
-    -Xptxas -v log: its type and width (pg: a backward kernel's
-    point-gradient instantiation; ex: K1's excited-state factor
+    -Xptxas -v log: its kernel's name, type and width (pg: a backward
+    kernel's point-gradient instantiation; ex: K1's excited-state factor
     instantiation; the flags as KERNEL_FLAGS names them), registers, spill
-    stores and loads (bytes), and ptxas's stack and spill line."""
+    stores and loads (bytes), and ptxas's stack and spill line. The R-heads
+    kernels (rheads_*_kernel, in K2's libraries) have no flags."""
     out, inst, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'.*_kernelI(d|f|13__nv_bfloat16)Li(\d+)E"
-                      r"((?:Lb[01]E)*)", line)
+                      r"'.*\d([A-Za-z_]\w*_kernel)I(d|f|13__nv_bfloat16)"
+                      r"Li(\d+)E((?:Lb[01]E)*)", line)
         if m:
-            flags = [f == "1" for f in re.findall(r"Lb([01])E", m.group(3))]
-            inst = dict(dtype={"d": "float64", "f": "float32"}.get(
-                m.group(1), "bfloat16"), h=int(m.group(2)), pg=False,
-                ex=False)
-            inst.update(zip(KERNEL_FLAGS.get(name, ()), flags))
+            flags = [f == "1" for f in re.findall(r"Lb([01])E", m.group(4))]
+            inst = dict(kernel=m.group(1), dtype={
+                "d": "float64", "f": "float32"}.get(m.group(2), "bfloat16"),
+                h=int(m.group(3)), pg=False, ex=False)
+            if not inst["kernel"].startswith("rheads"):
+                inst.update(zip(KERNEL_FLAGS.get(name, ()), flags))
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -720,7 +743,8 @@ def ptxas_entries(name: str, log: str) -> list[dict]:
 def ptxas_summary(name: str, log: str) -> list[str]:
     """One line per kernel instantiation of library ``name``'s nvcc
     -Xptxas -v log (see ptxas_entries)."""
-    return [f"{e['dtype']} H={e['h']}{' PG' if e['pg'] else ''}"
+    return [f"{'rheads ' if e['kernel'].startswith('rheads') else ''}"
+            f"{e['dtype']} H={e['h']}{' PG' if e['pg'] else ''}"
             f"{' EX' if e['ex'] else ''}: "
             f"{e['registers']} registers; {e['spill']}"
             for e in ptxas_entries(name, log)]
@@ -4851,8 +4875,317 @@ def k1_factor_phase(dev, card: str) -> dict:
 # every 100): each rate between the run's first and last host reads, which
 # leaves the first chunk's one-time costs out
 STEP_TIMES_TRAIN, STEP_TIMES_TRAIN_CHUNK = 400, 100
+STEP_TIMES_REF, STEP_TIMES_REF_CHUNK = 200, 50
 STEP_TIMES_MC, STEP_TIMES_MC_CHUNK = 100, 25
 STEP_TIMES_ADAM = 400
+
+
+# Phase 26: the R-heads kernel pair (csrc/rheads.cuh) at make train's batch,
+# its widths, the captured make train step and make ref-recipe's step
+RHEADS_STEPS, RHEADS_CHUNK, RHEADS_RESAMPLE = 60, 20, 7
+RHEADS_REF_STEPS = 20
+RHEADS_PROFILE_STEPS = 10
+# limits against the plain versions on the same inputs (normwise: each
+# output and each gradient against its largest value): float32 against the
+# float64 plain version, bfloat16 against the float32 plain version on the
+# bfloat16-rounded inputs (phase 23a's); float64 elementwise below
+RHEADS_F32_TOL = (1e-5, 1e-4)     # values, gradients
+RHEADS_BF16_TOL = (4e-3, 8e-3)
+RHEADS_NAMES = ("E", "alpha", "b", "gate")
+
+
+def rheads_ops(he: int, hr: int, which: str) -> int:
+    """Operations a point of the R heads (E of width he, rank-1 heads of hr
+    units in all; a sigmoid 3, a tanh 1): the forward, and the backward
+    with its recompute of the forward."""
+    fwd = 2 * he * he + 11 * he + 7 * hr + 12
+    return fwd if which == "fwd" else fwd + 4 * he * he + 15 * he + \
+        16 * hr + 12
+
+
+def _rheads_inputs(params, mcfg, r, dt):
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        rheads as rh
+    kw = dict(p_sym=int(mcfg.inversion_symmetry),
+              has_alpha="alpha1" in params, has_beta="beta1" in params)
+    return rh.head_weights(params, dt), r.to(dt), kw
+
+
+def rheads_check(label, ws, r, kw, gen, ref=None) -> dict:
+    """The kernels against the plain versions: values, every weight
+    gradient and dr under seeded cotangents (and with only E's cotangent,
+    the fine-tune's), two backward launches bit for bit. ``ref``: the
+    (ws, r) of the reference run in a wider type (float64 for float32,
+    float32 for bfloat16), else the plain version in the kernel's type."""
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        rheads as rh
+    dt = r.dtype
+    n = r.shape[0]
+    cots = [torch.randn(n, generator=gen, device=r.device,
+                        dtype=torch.float64) for _ in range(4)]
+    rws, rr = (ws, r) if ref is None else ref
+    got = rh.rheads_fwd_cuda(ws, r, **kw)
+    want = rh.rheads_plain(rws, rr, **kw)
+    errs = {}
+    for nm, g, w in zip(RHEADS_NAMES, got, want):
+        if dt == torch.float64:
+            errs[nm] = check_close(f"rheads_fwd {nm} {label}", g, w, 1e-12,
+                                   1e-13 * float(w.abs().max()))[1]
+        else:
+            tol = RHEADS_F32_TOL[0] if dt == torch.float32 else \
+                RHEADS_BF16_TOL[0]
+            errs[nm] = check_normwise(f"rheads_fwd {nm} {label}",
+                                      g.to(w.dtype), w, tol)[1]
+    worst = 0.0
+    for which, use in (("all", (0, 1, 2, 3)), ("E only", (0,))):
+        c = [cots[i] if i in use else None for i in range(4)]
+        args = [None if t is None else t.to(dt) for t in c]
+        dws, dr = rh.rheads_bwd_cuda(ws, r, *args, r_grad=True, **kw)
+        dws2, dr2 = rh.rheads_bwd_cuda(ws, r, *args, r_grad=True, **kw)
+        if not all(torch.equal(u, v) for u, v in
+                   zip(list(dws) + [dr], list(dws2) + [dr2])):
+            raise AssertionError(f"rheads_bwd {label} ({which}): two launches "
+                                 "differ")
+        rargs = [None if t is None else t.to(dt).to(rr.dtype) for t in c]
+        wdws, wdr = rh.rheads_vjp_plain(rws, rr, *rargs, r_grad=True, **kw)
+        for i, (u, v) in enumerate(zip(list(dws) + [dr], list(wdws) + [wdr])):
+            nm = f"rheads_bwd {'dr' if i == len(dws) else f'w{i}'} {label} " \
+                 f"({which})"
+            u = u.to(v.dtype)
+            if dt == torch.float64:
+                if i == len(dws):
+                    e = check_close(nm, u, v, 1e-8,
+                                    1e-10 * float(v.abs().max()))[1]
+                else:
+                    e = check_normwise(nm, u, v, 1e-8)[1]
+            else:
+                tol = RHEADS_F32_TOL[1] if dt == torch.float32 else \
+                    RHEADS_BF16_TOL[1]
+                e = check_normwise(nm, u, v, tol)[1]
+            worst = max(worst, e)
+    errs["bwd"] = worst
+    print(f"  R heads {label}: fwd " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items() if k != "bwd") +
+        f" | bwd worst {worst:.3e} (every weight gradient and dr; with all "
+        "four cotangents and with E's alone); two launches bitwise equal",
+        flush=True)
+    return errs
+
+
+def rheads_phase(dev, card: str) -> dict:
+    """Phase 26: the R-heads kernel pair (``ops/rheads.py``,
+    csrc/rheads.cuh in K2's libraries): ptxas registers and spills and the
+    occupancy of each instantiation; at make train's batch (100 000 points
+    of the port's sampler; flagship.npz at P = +1 and ungerade_2psu.npz at
+    P = -1) the kernels against their plain versions in float64 (values
+    rtol 1e-12, gradients and dr 1e-8), float32 and bfloat16 (the limits
+    RHEADS_F32_TOL and RHEADS_BF16_TOL), two backward launches bit for bit;
+    the other E widths (4, 8, 16) and the reference-parity model (no alpha
+    or beta head) on a ragged 1 100-point batch in float64; CUDA-event
+    times of both kernels beside the torch heads they replace and the
+    bound; then make train captured against graph=False bit for bit with
+    one rheads_fwd and one rheads_bwd a step beside K2's two launches, and
+    make ref-recipe's step (float64, reference-parity) and its fine-tune
+    (E alone trained) with their launches a step."""
+    import dataclasses
+
+    import torch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch import config
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.io import \
+        checkpoint
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.models import \
+        ansatz
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        _build, _cuda
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_residual as k3
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_separable as ks
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        pallas_train as kt
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+        rheads as rh
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops.sampling \
+        import sample_batch
+    from pinn_for_quantum_wavefunction_surfaces_tpu_torch.training import \
+        engine
+
+    phase(f"26 R-heads kernel pair (E, alpha, b, gate at each of "
+          f"{N_TRAIN} points; {card})")
+    for name in ("train_fwd", "train_bwd"):
+        entries = [e for e in ptxas_entries(name,
+                                            _build.log_path(name).read_text())
+                   if e["kernel"].startswith("rheads")]
+        if len(entries) != 3 * len(_cuda.SUPPORTED_HIDDEN):
+            raise AssertionError(f"{name}: {len(entries)} R-heads "
+                                 "instantiations in the ptxas log")
+        for e in entries:
+            print(f"  {e['kernel']} {e['dtype']} He={e['h']}: "
+                  f"{e['registers']} registers; {e['spill']}")
+        kname = name.replace("train", "rheads")
+        for dt in (torch.float64, torch.float32, torch.bfloat16):
+            for he in _cuda.SUPPORTED_HIDDEN:
+                blocks, smem = _cuda.occupancy(kname, he, dt, hidden_gate=10,
+                                               lib=name)
+                print(f"  {kname} {str(dt)[6:]} He={he} (rank-1 heads of 10):"
+                      f" {smem} B shared memory a block of "
+                      f"{rh.POINTS_PER_TILE} threads, {blocks} resident "
+                      f"blocks per SM")
+
+    def artifact(name):
+        tree, _ = checkpoint.load_params(os.path.join(HERE, "artifacts",
+                                                      name))
+        return tree["params"]
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    out = {"card": card}
+    for label, name, p_sym in (("flagship", "flagship.npz", 1),
+                               ("ungerade_2psu", "ungerade_2psu.npz", -1)):
+        mcfg = config.ModelConfig(inversion_symmetry=p_sym, gz=True,
+                                  trainable_exponent=True)
+        params = ansatz.from_jax_params(artifact(name), dtype="float64",
+                                        device=dev)
+        batch = sample_batch(gen, config.Config(model=mcfg), n=N_TRAIN,
+                             dtype=torch.float64, device=dev)
+        w64, r64, kw = _rheads_inputs(params, mcfg, batch.r, torch.float64)
+        rheads_check(f"{label} float64", w64, r64, kw, gen)
+        w32, r32, _ = _rheads_inputs(params, mcfg, batch.r, torch.float32)
+        rheads_check(f"{label} float32", w32, r32, kw, gen,
+                     ref=(tuple(w.double() for w in w32), r32.double()))
+        wbf, rbf, _ = _rheads_inputs(params, mcfg, batch.r, torch.bfloat16)
+        rheads_check(f"{label} bfloat16", wbf, rbf, kw, gen,
+                     ref=(tuple(w.float() for w in wbf), rbf.float()))
+        if label != "flagship":
+            continue
+        hr = sum(rh.widths(w64, True, True)[1:])
+        for dt_name, ws, r in (("float64", w64, r64), ("float32", w32, r32),
+                               ("bfloat16", wbf, rbf)):
+            n = r.shape[0]
+            cots = [torch.randn(n, generator=gen, device=dev,
+                                dtype=torch.float64).to(r.dtype)
+                    for _ in range(4)]
+            f_ms = cuda_ms(lambda: rh.rheads_fwd_cuda(ws, r, **kw),
+                           label=f"rheads_fwd {dt_name}")
+            b_ms = cuda_ms(lambda: rh.rheads_bwd_cuda(ws, r, *cots,
+                                                      r_grad=False, **kw),
+                           label=f"rheads_bwd {dt_name}")
+            pw = [w.clone().requires_grad_(True) for w in ws]
+
+            def plain_step():
+                outs = rh.rheads_plain(pw, r, **kw)
+                torch.autograd.grad(outs, pw, cots, allow_unused=True)
+
+            p_ms = cuda_ms(plain_step, reps=2, warmup=2,
+                           label=f"torch heads {dt_name}")
+            peak = PEAK_FP64_OTHER if dt_name == "float64" else PEAK_FP32
+            bounds = {w: 1e3 * n * rheads_ops(ws[0].shape[1], hr, w)
+                      / peak for w in ("fwd", "bwd")}
+            out[dt_name] = dict(fwd_ms=f_ms, bwd_ms=b_ms, plain_ms=p_ms,
+                                bound_fwd_ms=bounds["fwd"],
+                                bound_bwd_ms=bounds["bwd"])
+            print(f"  R heads {dt_name} at {n} points: rheads_fwd "
+                  f"{f_ms:.4f} ms, rheads_bwd {b_ms:.4f} ms (bound "
+                  f"{bounds['fwd']:.4f} / {bounds['bwd']:.4f} ms, operations; "
+                  f"{100 * bounds['fwd'] / f_ms:.1f}% / "
+                  f"{100 * bounds['bwd'] / b_ms:.1f}%); the torch heads, "
+                  f"forward and backward: {p_ms:.4f} ms", flush=True)
+    for he in (4, 8, 16):
+        for p_sym in (1, -1):
+            mcfg = config.ModelConfig(inversion_symmetry=p_sym, gz=True,
+                                      trainable_exponent=True, hidden_e=he)
+            params = ansatz.init_params(mcfg, seed=he, dtype="float64",
+                                        device=dev)
+            for k in ("alpha2", "beta2", "gate2", "eout"):
+                params[k]["w"] = 0.5 * torch.randn(
+                    params[k]["w"].shape, generator=gen, device=dev,
+                    dtype=torch.float64)
+            r = 0.2 + 3.8 * torch.rand(1100, generator=gen, device=dev,
+                                       dtype=torch.float64)
+            ws, r, kw = _rheads_inputs(params, mcfg, r, torch.float64)
+            rheads_check(f"He={he} P={p_sym} n=1100 float64", ws, r, kw, gen)
+    ref = config.ModelConfig()
+    params = ansatz.init_params(ref, seed=1, dtype="float64", device=dev)
+    r = 0.2 + 3.8 * torch.rand(1100, generator=gen, device=dev,
+                               dtype=torch.float64)
+    ws, r, kw = _rheads_inputs(params, ref, r, torch.float64)
+    rheads_check("reference-parity (no alpha, no beta) n=1100 float64", ws,
+                 r, kw, gen)
+
+    mods = (ks, kt, k3, rh)
+    tcfg = config.Config(model=config.ModelConfig(gz=True,
+                                                  trainable_exponent=True))
+    tcfg = tcfg.replace(train=dataclasses.replace(
+        tcfg.train, lr_schedule="step", n_train=N_TRAIN,
+        epochs=RHEADS_STEPS, scan_chunk=RHEADS_CHUNK,
+        resample_every=RHEADS_RESAMPLE))
+    runs = {}
+    want = {k: RHEADS_STEPS for k in ("train_fwd", "train_bwd", "rheads_fwd",
+                                      "rheads_bwd")}
+    for graph in (True, False):
+        _reset(*mods)
+        runs[graph] = engine.train(tcfg, device=dev, graph=graph)
+        torch.cuda.synchronize()
+        counts = _nonzero(_all_launches(*mods))
+        print(f"  make train {'captured' if graph else 'eager'}: launches "
+              f"{counts} ({RHEADS_STEPS} steps)", flush=True)
+        if counts != want:
+            raise AssertionError(f"26 make train launches: {counts}, want "
+                                 f"{want}")
+    _same_history("26 make train", runs[True].history, runs[False].history)
+    for name in ("params", "best_params", "ema_params"):
+        _same_arrays(f"26 make train {name}", getattr(runs[True], name),
+                     getattr(runs[False], name))
+    print("  make train captured = eager bit for bit (history, params, best "
+          "and EMA params)", flush=True)
+    # the captured step's kernels: the pair once each, none of the torch
+    # heads' products, dot products or sigmoids
+    tgen = torch.Generator(device=dev).manual_seed(0)
+    tr = engine.Trainer(tcfg, device=dev, generator=tgen)
+
+    def sample(g):
+        return sample_batch(g, tcfg, device=dev)
+
+    tr.batch = sample(tgen)
+    for _ in range(3):   # eager, capture, replay
+        tr.advance(sample)
+    _, busy, by_kernel = profile_device(lambda: tr.advance(sample),
+                                        RHEADS_PROFILE_STEPS,
+                                        "captured make train step")
+    heads_ops = [k for k in by_kernel
+                 if re.search("gemm|dot_kernel|sigmoid", k, re.I)]
+    pair = {k: v for k, v in by_kernel.items() if "rheads_" in k}
+    if heads_ops or len(pair) != 2:
+        raise AssertionError(f"26 the step's kernels: the pair {list(pair)}, "
+                             f"torch heads' ops {heads_ops}")
+    print(f"  the pair in the step: " + ", ".join(
+        f"{k.split('<')[0].split()[-1]} {v:.4f} ms" for k, v in pair.items())
+        + f" of {busy:.4f} ms busy; no GEMM, dot or sigmoid kernel",
+        flush=True)
+    rcfg = config.Config(dtype="float64")
+    rcfg = rcfg.replace(train=dataclasses.replace(
+        rcfg.train, epochs=RHEADS_REF_STEPS, scan_chunk=RHEADS_REF_STEPS))
+    _reset(*mods)
+    res = engine.train(rcfg, device=dev)
+    torch.cuda.synchronize()
+    counts = _nonzero(_all_launches(*mods))
+    print(f"  make ref-recipe (float64, reference-parity): launches "
+          f"{counts} ({RHEADS_REF_STEPS} steps)", flush=True)
+    if counts != {k: RHEADS_REF_STEPS for k in want}:
+        raise AssertionError(f"26 ref-recipe launches: {counts}")
+    fcfg = config.finetune_config(rcfg)
+    fcfg = fcfg.replace(train=dataclasses.replace(
+        fcfg.train, epochs=RHEADS_REF_STEPS, scan_chunk=RHEADS_REF_STEPS))
+    _reset(*mods)
+    engine.finetune(fcfg, res.best_params, device=dev)
+    torch.cuda.synchronize()
+    counts = _nonzero(_all_launches(*mods))
+    print(f"  its fine-tune (E alone trained): launches {counts} "
+          f"({RHEADS_REF_STEPS} steps)", flush=True)
+    if counts != {k: RHEADS_REF_STEPS for k in ("train_fwd", "rheads_fwd",
+                                                "rheads_bwd")}:
+        raise AssertionError(f"26 fine-tune launches: {counts}")
+    return out
 
 
 def _between_reads(marks: list) -> float:
@@ -4871,11 +5204,13 @@ def step_times(root: str, card: str) -> None:
     checkout, or a parent commit's package unpacked by `git archive` into a
     git-ignored directory of it), so that two commits are compared in one
     call (parent, change, change, parent): ``engine.train`` at make train's
-    configuration, ``train_variational`` at the CLI's defaults from both
+    configuration and at make ref-recipe's (the reference-parity model in
+    float64), ``train_variational`` at the CLI's defaults from both
     flagship artifacts, ``polish_spheroidal``'s Adam warmup at the
     flagship's grid, each in steps/s, and ``bench.measure_ours`` (the bench
-    line's points/s, both families). The make train loss and the warmup's
-    last logged loss, in hex, show whether two commits take the same steps.
+    line's points/s, both families). The make train and ref-recipe losses
+    and the warmup's last logged loss, in hex, show whether two commits
+    take the same steps.
     Prints one JSON line."""
     import dataclasses
 
@@ -4907,6 +5242,14 @@ def step_times(root: str, card: str) -> None:
     res = engine.train(tcfg, device=dev, log_cb=mark(marks))
     out["make_train_steps_per_s"] = _between_reads(marks)
     out["make_train_loss_hex"] = float(res.history["Ltot"][-1]).hex()
+    # make ref-recipe's cli train: the reference-parity model in float64
+    rcfg = config.Config(dtype="float64")
+    rcfg = rcfg.replace(train=dataclasses.replace(
+        rcfg.train, epochs=STEP_TIMES_REF, scan_chunk=STEP_TIMES_REF_CHUNK))
+    marks = []
+    res = engine.train(rcfg, device=dev, log_cb=mark(marks))
+    out["ref_recipe_steps_per_s"] = _between_reads(marks)
+    out["ref_recipe_loss_hex"] = float(res.history["Ltot"][-1]).hex()
     art = os.path.join(HERE, "artifacts")
     for name, src, mcfg in (
             ("separable", "flagship_separable.npz",
@@ -5448,6 +5791,22 @@ def main() -> int:
         k1_factor_phase(torch.device("cuda"), card_line())
         phase()
         return 0
+    if argv == ["--rheads"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available; nothing to run",
+                  file=sys.stderr)
+            return 1
+        sys.path.insert(0, HERE)
+        from pinn_for_quantum_wavefunction_surfaces_tpu_torch.ops import \
+            _build
+        t0 = time.time()
+        _build.build(["train_fwd", "train_bwd"])
+        print(f"K2 built in {time.time() - t0:.1f} s", flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        rheads_phase(torch.device("cuda"), card_line())
+        phase()
+        return 0
     if argv == ["--tracing"]:
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available; nothing to run",
@@ -5463,8 +5822,8 @@ def main() -> int:
     elif argv and (len(argv) != 2 or argv[0] != "--mesh"
                    or not argv[1].isdigit() or int(argv[1]) < 2):
         print("usage: chip_smoke.py [--mesh N | --k1-times [ROOT] | "
-              "--step-times [ROOT] | --tracing | --k1-factors]  (N >= 2 "
-              "cards)",
+              "--step-times [ROOT] | --tracing | --k1-factors | --rheads]  "
+              "(N >= 2 cards)",
               file=sys.stderr)
         return 2
     multi = (int(argv[1]) if argv and k1_root is None and step_root is None
@@ -5791,6 +6150,7 @@ def main() -> int:
         bf16 = bf16_phase(dev, card)
         captured_phase(dev, card)
         k1_factor_phase(dev, card)
+        rheads_phase(dev, card)
     finally:
         shutil.rmtree(KEEP_DIR, ignore_errors=True)
     phase()

@@ -81,6 +81,7 @@
 // 255). Only live points are written; the weight gradients keep their
 // order and bits.
 
+#include "rheads.cuh"
 #include "train_tile.cuh"
 
 using namespace trn;
@@ -836,6 +837,128 @@ extern "C" int train_bwd_occupancy(int hidden, int type, int* smem_bytes) {
 
 extern "C" int train_bwd_pg_occupancy(int hidden, int type, int* smem_bytes) {
   return occupancy_at<true>(hidden, type, smem_bytes);
+}
+
+// ---------------------------------------------------------------------------
+// The R-heads backward (rheads.cuh): the heads' weight gradients as one row
+// of partials a block (float32 rows for bfloat16), r's cotangent dr when dr
+// is not null; de, da, db, dg null are zero cotangents.
+
+namespace {
+
+template <typename S, int HE>
+cudaError_t rheads_prepare(int hg, int ha, int hb, size_t* smem) {
+  using T = kern::compute_t<S>;
+  *smem = sizeof(T) * rhd::bwd_smem_elems<HE>(rhd::heads_of<HE>(hg, ha, hb));
+  return cudaFuncSetAttribute(rhd::rheads_bwd_kernel<S, HE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <typename S, int HE>
+cudaError_t rheads_launch(const void* r, const void* w, const void* de,
+                          const void* da, const void* db, const void* dg,
+                          void* partials, void* dr, int n, int psym, int grid,
+                          int hg, int ha, int hb, cudaStream_t stream) {
+  using T = kern::compute_t<S>;
+  size_t smem;
+  cudaError_t err = rheads_prepare<S, HE>(hg, ha, hb, &smem);
+  if (err != cudaSuccess) return err;
+  rhd::rheads_bwd_kernel<S, HE><<<grid, rhd::kThreads, smem, stream>>>(
+      static_cast<const S*>(r), static_cast<const S*>(w),
+      static_cast<const S*>(de), static_cast<const S*>(da),
+      static_cast<const S*>(db), static_cast<const S*>(dg),
+      static_cast<T*>(partials), static_cast<S*>(dr), n, hg, ha, hb,
+      T(psym));
+  return cudaGetLastError();
+}
+
+template <typename S, int HE>
+int rheads_occupancy(int hr, int* smem_bytes) {
+  size_t smem;
+  if (rheads_prepare<S, HE>(hr, hr, hr, &smem) != cudaSuccess) return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, rhd::rheads_bwd_kernel<S, HE>, rhd::kThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  *smem_bytes = static_cast<int>(smem);
+  return blocks;
+}
+
+template <typename S>
+int rheads_dispatch(const void* r, const void* w, const void* de,
+                    const void* da, const void* db, const void* dg,
+                    void* partials, void* dr, int n, int he, int psym,
+                    int grid, int hg, int ha, int hb, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hg < 1 || ha < 0 || hb < 0 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define RHEADS_BWD_CASE(HH)                                                 \
+  case HH:                                                                  \
+    return rheads_launch<S, HH>(r, w, de, da, db, dg, partials, dr, n, psym, \
+                                grid, hg, ha, hb, s);
+  switch (he) {
+    RHEADS_BWD_CASE(4)
+    RHEADS_BWD_CASE(8)
+    RHEADS_BWD_CASE(16)
+    RHEADS_BWD_CASE(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RHEADS_BWD_CASE
+}
+
+}  // namespace
+
+extern "C" int rheads_bwd_f64(const void* r, const void* w, const void* de,
+                              const void* da, const void* db, const void* dg,
+                              void* partials, void* dr, int n, int he,
+                              int psym, int grid, int hg, int ha, int hb,
+                              void* stream) {
+  return rheads_dispatch<double>(r, w, de, da, db, dg, partials, dr, n, he,
+                                 psym, grid, hg, ha, hb, stream);
+}
+
+extern "C" int rheads_bwd_f32(const void* r, const void* w, const void* de,
+                              const void* da, const void* db, const void* dg,
+                              void* partials, void* dr, int n, int he,
+                              int psym, int grid, int hg, int ha, int hb,
+                              void* stream) {
+  return rheads_dispatch<float>(r, w, de, da, db, dg, partials, dr, n, he,
+                                psym, grid, hg, ha, hb, stream);
+}
+
+// partials: float32 rows, as in the float32 build
+extern "C" int rheads_bwd_bf16(const void* r, const void* w, const void* de,
+                               const void* da, const void* db, const void* dg,
+                               void* partials, void* dr, int n, int he,
+                               int psym, int grid, int hg, int ha, int hb,
+                               void* stream) {
+  return rheads_dispatch<__nv_bfloat16>(r, w, de, da, db, dg, partials, dr,
+                                        n, he, psym, grid, hg, ha, hb,
+                                        stream);
+}
+
+// Resident blocks per SM at E width he with every rank-1 head hr units
+// wide, and the shared memory per block in *smem_bytes; -1 on error.
+extern "C" int rheads_bwd_occupancy(int he, int hr, int type,
+                                    int* smem_bytes) {
+#define RHEADS_BWD_OCC(HH)                                                  \
+  case HH:                                                                  \
+    return type == kern::kF64 ? rheads_occupancy<double, HH>(hr, smem_bytes) \
+           : type == kern::kBF16                                            \
+               ? rheads_occupancy<__nv_bfloat16, HH>(hr, smem_bytes)        \
+               : rheads_occupancy<float, HH>(hr, smem_bytes);
+  switch (he) {
+    RHEADS_BWD_OCC(4)
+    RHEADS_BWD_OCC(8)
+    RHEADS_BWD_OCC(16)
+    RHEADS_BWD_OCC(32)
+    default:
+      return -1;
+  }
+#undef RHEADS_BWD_OCC
 }
 
 extern "C" const char* train_error_string(int err) {

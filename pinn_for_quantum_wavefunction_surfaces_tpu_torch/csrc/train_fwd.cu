@@ -36,6 +36,7 @@
 //   loaded into float and rounded once at the store (train_fwd.cuh): the
 //   same operations on half the bytes.
 
+#include "rheads.cuh"
 #include "train_fwd.cuh"
 
 using namespace trn;
@@ -201,6 +202,116 @@ extern "C" int train_fwd_occupancy(int hidden, int type, int* smem_bytes) {
       return -1;
   }
 #undef TRAIN_FWD_OCC
+}
+
+// ---------------------------------------------------------------------------
+// The R-heads forward (rheads.cuh): E, a, b, g at each point's R; one block
+// a tile of rhd::kThreads points. hg, ha, hb: the rank-1 heads' widths (0:
+// no alpha or beta head).
+
+namespace {
+
+template <typename S, int HE>
+cudaError_t rheads_prepare(int hg, int ha, int hb, size_t* smem) {
+  *smem = sizeof(kern::compute_t<S>) * rhd::heads_of<HE>(hg, ha, hb).size;
+  return cudaFuncSetAttribute(rhd::rheads_fwd_kernel<S, HE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <typename S, int HE>
+cudaError_t rheads_launch(const void* r, const void* w, void* e, void* a,
+                          void* b, void* g, int n, int psym, int hg, int ha,
+                          int hb, cudaStream_t stream) {
+  using T = kern::compute_t<S>;
+  size_t smem;
+  cudaError_t err = rheads_prepare<S, HE>(hg, ha, hb, &smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = n > 0 ? (n + rhd::kThreads - 1) / rhd::kThreads : 1;
+  rhd::rheads_fwd_kernel<S, HE><<<blocks, rhd::kThreads, smem, stream>>>(
+      static_cast<const S*>(r), static_cast<const S*>(w), static_cast<S*>(e),
+      static_cast<S*>(a), static_cast<S*>(b), static_cast<S*>(g), n, hg, ha,
+      hb, T(psym));
+  return cudaGetLastError();
+}
+
+template <typename S, int HE>
+int rheads_occupancy(int hr, int* smem_bytes) {
+  size_t smem;
+  if (rheads_prepare<S, HE>(hr, hr, hr, &smem) != cudaSuccess) return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, rhd::rheads_fwd_kernel<S, HE>, rhd::kThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  *smem_bytes = static_cast<int>(smem);
+  return blocks;
+}
+
+template <typename S>
+int rheads_dispatch(const void* r, const void* w, void* e, void* a, void* b,
+                    void* g, int n, int he, int psym, int hg, int ha, int hb,
+                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hg < 1 || ha < 0 || hb < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define RHEADS_FWD_CASE(HH) \
+  case HH:                  \
+    return rheads_launch<S, HH>(r, w, e, a, b, g, n, psym, hg, ha, hb, s);
+  switch (he) {
+    RHEADS_FWD_CASE(4)
+    RHEADS_FWD_CASE(8)
+    RHEADS_FWD_CASE(16)
+    RHEADS_FWD_CASE(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RHEADS_FWD_CASE
+}
+
+}  // namespace
+
+extern "C" int rheads_fwd_f64(const void* r, const void* w, void* e, void* a,
+                              void* b, void* g, int n, int he, int psym,
+                              int hg, int ha, int hb, void* stream) {
+  return rheads_dispatch<double>(r, w, e, a, b, g, n, he, psym, hg, ha, hb,
+                                 stream);
+}
+
+extern "C" int rheads_fwd_f32(const void* r, const void* w, void* e, void* a,
+                              void* b, void* g, int n, int he, int psym,
+                              int hg, int ha, int hb, void* stream) {
+  return rheads_dispatch<float>(r, w, e, a, b, g, n, he, psym, hg, ha, hb,
+                                stream);
+}
+
+extern "C" int rheads_fwd_bf16(const void* r, const void* w, void* e,
+                               void* a, void* b, void* g, int n, int he,
+                               int psym, int hg, int ha, int hb,
+                               void* stream) {
+  return rheads_dispatch<__nv_bfloat16>(r, w, e, a, b, g, n, he, psym, hg,
+                                        ha, hb, stream);
+}
+
+// Resident blocks per SM at E width he with every rank-1 head hr units
+// wide, and the shared memory per block in *smem_bytes; -1 on error.
+extern "C" int rheads_fwd_occupancy(int he, int hr, int type,
+                                    int* smem_bytes) {
+#define RHEADS_FWD_OCC(HH)                                                  \
+  case HH:                                                                  \
+    return type == kern::kF64 ? rheads_occupancy<double, HH>(hr, smem_bytes) \
+           : type == kern::kBF16                                            \
+               ? rheads_occupancy<__nv_bfloat16, HH>(hr, smem_bytes)        \
+               : rheads_occupancy<float, HH>(hr, smem_bytes);
+  switch (he) {
+    RHEADS_FWD_OCC(4)
+    RHEADS_FWD_OCC(8)
+    RHEADS_FWD_OCC(16)
+    RHEADS_FWD_OCC(32)
+    default:
+      return -1;
+  }
+#undef RHEADS_FWD_OCC
 }
 
 extern "C" const char* train_error_string(int err) {

@@ -177,23 +177,28 @@ def pack(ws):
 
 
 def typed_lib(name: str, n_ptr: int, error_prefix: str,
-              n_extra_int: int = 0) -> ctypes.CDLL:
-    """The library of kernel ``name`` with the argument types of its three
-    entry points set: ``n_ptr`` pointers, (n, hidden, psym) ints and
-    ``n_extra_int`` more, (ry, rz) doubles and the stream."""
+              n_extra_int: int = 0, entry: str | None = None,
+              n_double: int = 2) -> ctypes.CDLL:
+    """The library of kernel ``name`` with the argument types of the three
+    entry points of ``entry`` (default: the library's own kernel, ``name``)
+    set: ``n_ptr`` pointers, (n, hidden, psym) ints and ``n_extra_int``
+    more, ``n_double`` doubles (the nuclei's ry, rz) and the stream."""
     lib = _build.load(name)
-    if not getattr(lib, "_port_typed", False):
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for sfx in SUFFIX.values():
-            fn = getattr(lib, f"{name}_{sfx}")
-            fn.argtypes = ([vp] * n_ptr + [ci] * (3 + n_extra_int)
-                           + [cd, cd, vp])
-            fn.restype = ci
+    entry = entry or name
+    if not getattr(lib, "_port_typed", None):
         err = getattr(lib, f"{error_prefix}_error_string")
-        err.argtypes = [ci]
+        err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         lib._port_name, lib._port_error = name, err
-        lib._port_typed = True
+        lib._port_typed = set()
+    if entry not in lib._port_typed:
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for sfx in SUFFIX.values():
+            fn = getattr(lib, f"{entry}_{sfx}")
+            fn.argtypes = ([vp] * n_ptr + [ci] * (3 + n_extra_int)
+                           + [cd] * n_double + [vp])
+            fn.restype = ci
+        lib._port_typed.add(entry)
     return lib
 
 
@@ -220,16 +225,18 @@ def tiled_lib(name: str, n_ptr: int, error_prefix: str, points_per_tile,
 
 
 def occupancy(name: str, hidden: int, dtype, point_grads: bool = False,
-              hidden_gate: int | None = None) -> tuple[int, int]:
+              hidden_gate: int | None = None,
+              lib: str | None = None) -> tuple[int, int]:
     """(resident blocks per SM, shared memory bytes per block) of kernel
     ``name`` at this width and dtype, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card:
-    ``<name>_occupancy(hidden, type code, int* smem)`` of its library,
-    ``<name>_pg_occupancy`` for the point-gradient instantiation of a
-    backward kernel, and for K3 (``residual_fwd``) its gate width
+    ``<name>_occupancy(hidden, type code, int* smem)`` of its library (``lib``,
+    by default ``name``), ``<name>_pg_occupancy`` for the point-gradient
+    instantiation of a backward kernel, and for K3 (``residual_fwd``) and
+    the R heads (``rheads_fwd``, ``rheads_bwd``) a second width
     ``hidden_gate`` after the hidden one."""
     fname = f"{name}_pg_occupancy" if point_grads else f"{name}_occupancy"
-    fn = getattr(_build.load(name), fname)
+    fn = getattr(_build.load(lib or name), fname)
     ints = (hidden,) + (() if hidden_gate is None else (hidden_gate,))
     ci = ctypes.c_int
     fn.argtypes = [ci] * (len(ints) + 1) + [ctypes.POINTER(ci)]
@@ -241,17 +248,23 @@ def occupancy(name: str, hidden: int, dtype, point_grads: bool = False,
     return blocks, smem.value
 
 
-def launch(lib, dtype, device, ptrs, n, hidden, p_sym, ry, rz,
-           extra_ints: tuple = ()) -> None:
-    """Call the entry point of ``dtype`` (``_f32``, ``_f64`` or ``_bf16``)
-    of a ``typed_lib`` on the current stream of ``device``; raise if the
-    launch was refused."""
-    name = lib._port_name
-    fn = getattr(lib, f"{name}_{suffix(dtype)}")
+def call(lib, entry: str, dtype, device, ptrs, ints, doubles=()) -> None:
+    """Call the entry point ``<entry>_<suffix of dtype>`` of a ``typed_lib``
+    with the pointers, ints and doubles given on the current stream of
+    ``device``; raise if the launch was refused."""
+    fn = getattr(lib, f"{entry}_{suffix(dtype)}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*map(ptr, ptrs), n, hidden, int(p_sym), *extra_ints,
-                 float(ry), float(rz), ctypes.c_void_p(stream))
+        err = fn(*map(ptr, ptrs), *map(int, ints), *map(float, doubles),
+                 ctypes.c_void_p(stream))
     if err:
         msg = lib._port_error(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
+
+
+def launch(lib, dtype, device, ptrs, n, hidden, p_sym, ry, rz,
+           extra_ints: tuple = ()) -> None:
+    """``call`` of the library's own kernel (``_f32``, ``_f64`` or
+    ``_bf16``) with (n, hidden, p_sym, *extra_ints) and (ry, rz)."""
+    call(lib, lib._port_name, dtype, device, ptrs,
+         (n, hidden, p_sym, *extra_ints), (ry, rz))

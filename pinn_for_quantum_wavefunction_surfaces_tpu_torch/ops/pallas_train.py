@@ -39,6 +39,7 @@ import torch
 from ..models import ansatz
 from . import _cuda
 from .pallas_separable import geometry_vjp
+from .rheads import r_heads
 
 # launch counts of the CUDA kernels, K2-bwd's point-gradient instantiation
 # and each bfloat16 build (``_bf16``) apart (plain integers: a run can show
@@ -436,12 +437,13 @@ def train_psi_lap(params: dict, mcfg, heads, x, y, z, r,
 def psi_lap_train(params: dict, mcfg, x, y, z, r,
                   point_grads: bool = False):
     """(psi, lap, E) of the symmetric family through the fused kernel. The
-    R-only heads (E, gate, alpha, b) run at every point and differentiate
-    in torch autograd; the spatial network runs in the kernel through
-    TrainKernel, so autograd of any loss composes exactly. By default the
-    point coordinates are constants (training treats the batch as data);
-    with ``point_grads`` gradients flow to x, y, z and r too
-    (force-through-batch analyses), r's through the kernel and the heads.
+    R-only heads (E, gate, alpha, b) run at every point through the R-heads
+    kernel pair (``rheads.RHeadsKernel``) and the spatial network through
+    TrainKernel, each with its hand-written backward, so autograd of any
+    loss composes exactly. By default the point coordinates are constants
+    to the kernel (training treats the batch as data; r still reaches the
+    heads where it needs a gradient); with ``point_grads`` gradients flow
+    to x, y, z and r too, r's through the kernel and the heads.
 
     Covers fixed exponents, trainable alpha(R) and Guillemin-Zener b(R).
     Raises NotImplementedError, on every device, for the params that
@@ -450,7 +452,6 @@ def psi_lap_train(params: dict, mcfg, x, y, z, r,
     compute another psi."""
     from .routing import require    # routing imports this module
     require(params, mcfg, "K2")
-    e = ansatz.energy(params, r)
-    psi, lap = train_psi_lap(params, mcfg, train_heads(params, mcfg, r),
-                             x, y, z, r, point_grads)
+    e, *heads = r_heads(params, mcfg, r)
+    psi, lap = train_psi_lap(params, mcfg, heads, x, y, z, r, point_grads)
     return psi, lap, e

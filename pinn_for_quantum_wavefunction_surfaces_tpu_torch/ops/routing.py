@@ -19,7 +19,8 @@ the JAX package's ``loss_fn`` dispatches:
 
 Three entries, each asking ``kernel_of`` alone. ``psi_lap`` (the residual
 trainers' losses) takes flat points, each with its own R, and evaluates the
-R-only heads at every point. ``psi_lap_rows`` (the variational quotients)
+R-only heads at every point (K2's through the R-heads kernel pair,
+``ops/rheads.py``). ``psi_lap_rows`` (the variational quotients)
 takes rows of points that share one R a row and evaluates the heads once a
 row (K1's node heads too), broadcasting their values to the points; it
 leaves E(R) out, which the quotient evaluates on the rows itself.
@@ -34,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..models import ansatz
-from . import pallas_residual, pallas_separable, pallas_train
+from . import pallas_residual, pallas_separable, pallas_train, rheads
 from .pallas_residual import psi_lap_pallas
 from .pallas_separable import (psi_lap_train_separable, separable_heads,
                                separable_psi_lap)
@@ -47,11 +48,13 @@ head_evals = {"rows": 0, "points": 0}
 # points that each entry sent to ``ansatz.psi_fwdlap`` (the models no kernel
 # carries), counted the same way
 fwdlap_points = {"psi_lap": 0, "psi_lap_rows": 0}
-# every count of the kernel path: the wrappers' launches, the head
-# evaluations and the forward-Laplacian points (a replayed CUDA graph adds
-# back what its capture recorded, ``training/graphs.py``)
+# every count of the kernel path: the wrappers' launches (the R-heads pair
+# of ``psi_lap``'s K2 route apart from K1-K3's), the head evaluations and
+# the forward-Laplacian points (a replayed CUDA graph adds back what its
+# capture recorded, ``training/graphs.py``)
 COUNTERS = (pallas_separable.launches, pallas_train.launches,
-            pallas_residual.launches, head_evals, fwdlap_points)
+            pallas_residual.launches, rheads.launches, head_evals,
+            fwdlap_points)
 
 # the entry that each choice of ``kernel_of`` leads to, for the refusals
 _ENTRY = {"K1": "ops.pallas_separable.psi_lap_train_separable",
